@@ -1,0 +1,6 @@
+// Library-wide C entry points of the kernel library.
+#include <cuda_runtime.h>
+
+extern "C" const char* fitv2_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
