@@ -23,6 +23,19 @@ Phases (any failure raises and exits non-zero; nothing is caught):
                 save_npz. Checks the npz, the latents and the exact launch
                 count of every kernel; prints the denoise-only and the full
                 pipeline images/s.
+  6. int8     - the int8 W8A8 serving path: the same weights in
+                FiT(gemm_precision='int8'), built-in calibration, batch 8,
+                250 steps, VAE, npz; the one-step velocity's cosine against
+                the bf16 model; exact launch counts (K6 3 and K7 1 per
+                block); denoise and full-pipeline images/s.
+  7. serving-max - int8 with CFG only for t in [0.3, 0.9] and quadratic
+                velocity extrapolation every 2 steps; exact launch counts
+                from the forwards the ladder implies; images/s.
+  8. fused    - FiT(attn_impl='fused') on the padded 160x320 bucket (200 of
+                256 tokens valid), batch 8, 250 steps, VAE, npz of
+                (8, 160, 320, 3); K5 in every block, K2-K4 never; the one
+                -step velocity against the unfused path; images/s.
+Each path's counts are set to 0 just before it runs and read just after.
 The line before the last is the JSON list of kernels; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -30,6 +43,7 @@ The line before the last is the JSON list of kernels; the last line is
 from __future__ import annotations
 
 import copy
+import dataclasses
 import json
 import os
 import statistics
@@ -54,6 +68,19 @@ TOL_BF16_ULPS = 2    # K1/K2 in bf16: within 2 bf16 ulps of the output's
                      # differs in the last bits may flip)
 TOL_BF16_ATTN = 2e-2 # attention in bf16, absolute
 TOL_SLICE_REL_L2 = 1e-4  # phase 4, velocity relative L2, fp32
+TOL_INT8_FP32_REL = 1e-6  # K6 fp32 out: exact int32 accumulator, only the
+                          # f32 epilogue may differ (FMA contraction)
+TOL_INT8_BF16_ULPS = 1    # K6 bf16 out: one rounding of that epilogue
+TOL_SWIGLU_FLIPS = 1e-3   # K7: share of s8 outputs off by one level (a
+                          # rounding tie flipped by a 1-ulp sigmoid)
+MIN_INT8_COSINE = 0.99    # phase 6: int8 vs bf16 velocity (the JAX
+                          # package's own bound, tests/test_quant.py)
+MAX_FUSED_REL_L2 = 0.1    # phase 8: fused vs unfused velocity in bf16; the
+                          # two round p at different points in 36 blocks,
+                          # a wiring fault gives O(1)
+GUIDANCE = (0.3, 0.9)     # phase 7, as bench.py's serving-max mode
+EVAL_EVERY, EXTRAP_ORDER = 2, 2
+PADDED_HW = (160, 320)    # phase 8: 10 x 20 = 200 of 256 tokens
 
 XL = dict(context_size=256, patch_size=2, in_channels=4, hidden_size=1152,
           depth=36, num_heads=16, mlp_ratio=4.0, class_dropout_prob=0.1,
@@ -229,7 +256,93 @@ def phase_kernels():
                     f'plain {pms * 1e3:.1f} us')
                 if bounded and m is None:  # the variant the XL path runs
                     record('attention', err, ms, pms)
+
+        # K5 on the flat qkv projection, as the fused path runs it
+        qkv_flat = qkv.reshape(b2, N, 3 * D)
+        for m in (None, mask):
+            label = ('fused_attention['
+                     f'{"mask 200/256" if m is not None else "no mask"}]')
+            out = K.fused_qkln_rope_attention(qkv_flat, cos, sin, m, H)
+            ref = K.fused_qkln_rope_attention_reference(qkv_flat, cos, sin,
+                                                        m, H)
+            err = _compare(label, dtype, out, ref, 'attention')
+            if m is not None and not (out[:, N_VALID:] == 0).all():
+                raise AssertionError(f'{label}: padded query rows not 0')
+            ms = _time_ms(lambda: K.fused_qkln_rope_attention(
+                qkv_flat, cos, sin, m, H))
+            pms = _time_ms(lambda: K.fused_qkln_rope_attention_reference(
+                qkv_flat, cos, sin, m, H))
+            say(f'[kernels] {label} {str(dtype)[6:]} ({b2},{N},{3 * D}): '
+                f'kernel {ms * 1e3:.1f} us, plain {pms * 1e3:.1f} us')
+            if m is not None:  # the variant the fused path runs
+                record('fused_attention', err, ms, pms)
+
+        # K6 at the int8 path's three GEMM shapes, out in this dtype
+        m_rows = b2 * N
+        for site, k, n in (('qkv', D, 3 * D), ('proj', D, D),
+                           ('fc2', 3072, D)):
+            xq = torch.randint(-127, 128, (m_rows, k), device=dev,
+                               dtype=torch.int8, generator=gen)
+            wq = torch.randint(-127, 128, (n, k), device=dev,
+                               dtype=torch.int8, generator=gen)
+            scale = torch.rand(n, device=dev, generator=gen) * 1e-4 + 1e-5
+            bias = torch.randn(n, device=dev, generator=gen)
+            out = K.int8_gemm_bias(xq, wq, scale, bias, dtype)
+            ref = K.int8_gemm_bias_reference(xq, wq, scale, bias, dtype)
+            err = (out.float() - ref.float()).abs().max().item()
+            if dtype == torch.float32:
+                rel = err / ref.abs().max().item()
+                ok, msg = rel <= TOL_INT8_FP32_REL, \
+                    f'rel {rel:.3e} <= {TOL_INT8_FP32_REL}'
+            else:
+                ulps = _bf16_ulp_err(out, ref)
+                ok, msg = ulps <= TOL_INT8_BF16_ULPS, \
+                    f'{ulps:.2f} bf16 ulps <= {TOL_INT8_BF16_ULPS}'
+            label = f'int8_gemm_bias[{site}] {str(dtype)[6:]}'
+            say(f'[kernels] {label}: max abs {err:.3e}, {msg}: '
+                f'{"ok" if ok else "FAIL"}')
+            if not ok or not torch.isfinite(out).all():
+                raise AssertionError(f'{label}: {msg} violated')
+            ms = _time_ms(lambda: K.int8_gemm_bias(xq, wq, scale, bias,
+                                                   dtype))
+            pms = _time_ms(lambda: K.int8_gemm_bias_reference(
+                xq, wq, scale, bias, dtype))
+            say(f'[kernels] {label} ({m_rows},{k})x({n},{k}): kernel '
+                f'{ms * 1e3:.1f} us, plain {pms * 1e3:.1f} us '
+                f'({2 * m_rows * k * n / ms / 1e9:.1f} TOP/s)')
+            if dtype == torch.bfloat16 and site == 'qkv':
+                record('int8_gemm_bias', err, ms, pms)
         torch.cuda.synchronize()
+
+    # K7 (its output is int8 whatever the model dtype)
+    k, two_h = D, 2 * 3072
+    xq = torch.randint(-127, 128, (b2 * N, k), device=dev, dtype=torch.int8,
+                       generator=gen)
+    wq = torch.randint(-127, 128, (two_h, k), device=dev, dtype=torch.int8,
+                       generator=gen)
+    scale = torch.rand(two_h, device=dev, generator=gen) * 3e-5 + 1e-6
+    bias = 0.1 * torch.randn(two_h, device=dev, generator=gen)
+    osr = 20.0
+    out = K.int8_gemm_swiglu_quant(xq, wq, scale, bias, osr)
+    ref = K.int8_gemm_swiglu_quant_reference(xq, wq, scale, bias, osr)
+    diff = (out.int() - ref.int()).abs()
+    flips = (diff > 0).float().mean().item()
+    nonzero = (ref != 0).float().mean().item()
+    ok = diff.max().item() <= 1 and flips <= TOL_SWIGLU_FLIPS and nonzero > 0.5
+    say(f'[kernels] int8_gemm_swiglu_quant: max |diff| {diff.max().item()} '
+        f'level, {flips:.2e} of outputs differ <= {TOL_SWIGLU_FLIPS} '
+        f'({nonzero:.2f} nonzero): {"ok" if ok else "FAIL"}')
+    if not ok:
+        raise AssertionError('int8_gemm_swiglu_quant disagrees with its '
+                             'plain version')
+    ms = _time_ms(lambda: K.int8_gemm_swiglu_quant(xq, wq, scale, bias, osr))
+    pms = _time_ms(lambda: K.int8_gemm_swiglu_quant_reference(
+        xq, wq, scale, bias, osr))
+    say(f'[kernels] int8_gemm_swiglu_quant ({b2 * N},{k})x({two_h},{k}): '
+        f'kernel {ms * 1e3:.1f} us, plain {pms * 1e3:.1f} us '
+        f'({2 * b2 * N * k * two_h / ms / 1e9:.1f} TOP/s)')
+    record('int8_gemm_swiglu_quant', float(diff.max().item()), ms, pms)
+    torch.cuda.synchronize()
     return results
 
 
@@ -279,18 +392,36 @@ def phase_parity(model_cpu):
     return model_gpu, rel
 
 
-def phase_main(model_gpu, card):
+def _expected_counts(forwards, depth, **per_block):
+    """Launch counts of `forwards` FiT forwards: K1 twice per block and once
+    in the final layer, each other kernel `per_block` times per block."""
+    from fitv2_tpu_torch import kernels as K
+    want = {w.__name__: 0 for w in K.KERNEL_WRAPPERS}
+    want['fused_adaln_norm'] = forwards * (2 * depth + 1)
+    for name, n in per_block.items():
+        want[name] = forwards * depth * n
+    return want
+
+
+def _reset_counts():
+    from fitv2_tpu_torch import kernels as K
+    for w in K.KERNEL_WRAPPERS:
+        w.launches = 0
+
+
+def _read_counts():
+    from fitv2_tpu_torch import kernels as K
+    return {w.__name__: w.launches for w in K.KERNEL_WRAPPERS}
+
+
+def phase_main(model_gpu, vae, card):
     """The main path in bf16: sampler -> VAE -> uint8 -> npz, counted."""
     import numpy as np
     import torch
-    from fitv2_tpu_torch import kernels as K
     from fitv2_tpu_torch.sample import (
         SamplingConfig, build_sampler, save_npz)
-    from fitv2_tpu_torch.vae import AutoencoderKL
 
     model = model_gpu.to(torch.bfloat16)
-    torch.manual_seed(SEED + 2)
-    vae = AutoencoderKL().to(device='cuda', dtype=torch.bfloat16).eval()
     scfg = SamplingConfig(num_sampling_steps=STEPS, cfg_scale=CFG_SCALE,
                           per_device_batch=BATCH, dtype=torch.bfloat16)
     labels = torch.arange(BATCH) * 111 % 1000
@@ -315,8 +446,7 @@ def phase_main(model_gpu, card):
                              f'(relative change {moved})')
 
     sample = build_sampler(model, scfg, vae)
-    for w in K.KERNEL_WRAPPERS:
-        w.launches = 0
+    _reset_counts()
     t0 = time.perf_counter()
     images = sample(labels, z=z)
     with tempfile.TemporaryDirectory() as tmp:
@@ -324,13 +454,11 @@ def phase_main(model_gpu, card):
         save_npz(path, images.cpu().numpy())
         t_full = time.perf_counter() - t0
         arr = np.load(path)['arr_0']
-    counts = {w.__name__: w.launches for w in K.KERNEL_WRAPPERS}
+    counts = _read_counts()
     if arr.shape != (BATCH, 256, 256, 3) or arr.dtype != np.uint8:
         raise AssertionError(f'main: npz holds {arr.shape} {arr.dtype}')
-    depth = model.depth
-    want = {'fused_adaln_norm': STEPS * (2 * depth + 1),
-            'fused_qk_rope': STEPS * depth,
-            'flash_masked_attention': STEPS * depth}
+    want = _expected_counts(STEPS, model.depth, fused_qk_rope=1,
+                            flash_masked_attention=1)
     if counts != want:
         raise AssertionError(f'main: launch counts {counts} != {want}')
     say(f'[main] latents finite, relative change from noise {moved:.3f}; '
@@ -344,28 +472,217 @@ def phase_main(model_gpu, card):
     return counts
 
 
+def _xl_variant(model_bf16, **options):
+    """XL/2 in bf16 on the card, built with other options, holding
+    model_bf16's weights."""
+    import torch
+    from fitv2_tpu_torch.models import FiT
+    with torch.device('cuda'):
+        model = FiT(**XL, dtype=torch.bfloat16, **options)
+    model.load_state_dict(model_bf16.state_dict())
+    return model.eval()
+
+
+def _one_step_velocity(model, z, labels, hw=(256, 256)):
+    """v of one CFG Euler step over [0, 1] (latents = z + v), float32."""
+    import torch
+    from fitv2_tpu_torch.sample import SamplingConfig, build_sampler
+    scfg = SamplingConfig(image_height=hw[0], image_width=hw[1],
+                          num_sampling_steps=1, cfg_scale=CFG_SCALE,
+                          per_device_batch=BATCH, dtype=torch.bfloat16)
+    n = hw[0] * hw[1] // 256
+    z_img = model.unpatchify(z[:, :n].cuda(), (hw[0] // 8, hw[1] // 8))
+    return (build_sampler(model, scfg)(labels, z=z) - z_img.float()).float()
+
+
+def _counted_pipeline(tag, model, scfg, vae, labels, z, want):
+    """Warm up (2 steps), then the user's call: build_sampler with the VAE,
+    sample, uint8 -> npz, with every count set to 0 just before and read
+    just after. Checks the npz and the counts; returns the seconds."""
+    import numpy as np
+    import torch
+    from fitv2_tpu_torch.sample import build_sampler, save_npz
+    warm = dataclasses.replace(scfg, num_sampling_steps=2)
+    build_sampler(model, warm, vae)(labels, z=z)
+    torch.cuda.synchronize()
+    sample = build_sampler(model, scfg, vae)
+    _reset_counts()
+    t0 = time.perf_counter()
+    images = sample(labels, z=z)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, 'samples.npz')
+        save_npz(path, images.cpu().numpy())
+        secs = time.perf_counter() - t0
+        arr = np.load(path)['arr_0']
+    counts = _read_counts()
+    shape = (BATCH, scfg.image_height, scfg.image_width, 3)
+    if arr.shape != shape or arr.dtype != np.uint8:
+        raise AssertionError(f'{tag}: npz holds {arr.shape} {arr.dtype}, '
+                             f'want {shape} uint8')
+    if counts != want:
+        raise AssertionError(f'{tag}: launch counts {counts} != {want}')
+    say(f'[{tag}] npz {arr.shape} {arr.dtype}, pixel mean {arr.mean():.2f};'
+        f' launches {counts} == expected')
+    return secs
+
+
+def _cosine(a, b):
+    a, b = a.double().ravel(), b.double().ravel()
+    return (a @ b / (a.norm() * b.norm())).item()
+
+
+def phase_int8(model_bf16, vae, card):
+    """The int8 W8A8 serving path, with built-in calibration."""
+    import torch
+    from fitv2_tpu_torch.sample import SamplingConfig, build_sampler
+    model = _xl_variant(model_bf16, gemm_precision='int8')
+    labels = torch.arange(BATCH) * 111 % 1000
+    z = torch.randn(BATCH, N, 16, generator=torch.Generator().manual_seed(
+        SEED + 3))
+    scfg = SamplingConfig(num_sampling_steps=STEPS, cfg_scale=CFG_SCALE,
+                          per_device_batch=BATCH, dtype=torch.bfloat16)
+
+    v_bf16 = _one_step_velocity(model_bf16, z, labels)
+    v_int8 = _one_step_velocity(model, z, labels)
+    cos = _cosine(v_int8, v_bf16)
+    say(f'[int8] one-step velocity, int8 vs bf16 (same weights, same z): '
+        f'cosine {cos:.6f} > {MIN_INT8_COSINE}: '
+        f'{"ok" if cos > MIN_INT8_COSINE else "FAIL"}')
+    if not cos > MIN_INT8_COSINE or not torch.isfinite(v_int8).all():
+        raise AssertionError(f'int8: velocity cosine {cos}')
+
+    _reset_counts()
+    t0 = time.perf_counter()
+    denoise = build_sampler(model, scfg)  # calibrates and prequantizes
+    t_calib = time.perf_counter() - t0
+    calib = _read_counts()
+    if calib['int8_gemm_bias'] or calib['int8_gemm_swiglu_quant']:
+        raise AssertionError(f'int8: calibration launched {calib}')
+    t0 = time.perf_counter()
+    latents = denoise(labels, z=z)
+    torch.cuda.synchronize()
+    t_denoise = time.perf_counter() - t0
+    if not torch.isfinite(latents).all():
+        raise AssertionError('int8: latents not finite')
+
+    want = _expected_counts(STEPS, model.depth, fused_qk_rope=1,
+                            flash_masked_attention=1, int8_gemm_bias=3,
+                            int8_gemm_swiglu_quant=1)
+    t_full = _counted_pipeline('int8', model, scfg, vae, labels, z, want)
+    say(f'[int8] XL/2 int8 W8A8 256x256 batch {BATCH}, {STEPS} steps, CFG '
+        f'{CFG_SCALE}: calibration + prequantization {t_calib:.3f} s; '
+        f'denoise {t_denoise:.3f} s = {BATCH / t_denoise:.4f} images/s; '
+        f'full pipeline {t_full:.3f} s = {BATCH / t_full:.4f} images/s '
+        f'[{card}]')
+    return model, _read_counts(), cos
+
+
+def serving_max_forwards(steps, low, high, every):
+    """FiT forwards of the composed sampler, from the ladder alone: the
+    steps split into runs of equal guidance (CFG or conditional only), and
+    each run of r steps evaluates the model ceil(r / every) times."""
+    import numpy as np
+    cfg_on = [low <= t <= high
+              for t in np.linspace(0.0, 1.0, steps + 1)[:-1]]
+    forwards, start = 0, 0
+    for i in range(1, steps + 1):
+        if i == steps or cfg_on[i] != cfg_on[start]:
+            forwards += -(-(i - start) // every)
+            start = i
+    return forwards
+
+
+def phase_serving_max(model_int8, vae, card):
+    """int8 + guidance interval + quadratic velocity extrapolation."""
+    import torch
+    from fitv2_tpu_torch.sample import SamplingConfig
+    labels = torch.arange(BATCH) * 111 % 1000
+    z = torch.randn(BATCH, N, 16, generator=torch.Generator().manual_seed(
+        SEED + 3))
+    scfg = SamplingConfig(num_sampling_steps=STEPS, cfg_scale=CFG_SCALE,
+                          per_device_batch=BATCH, dtype=torch.bfloat16,
+                          guidance_low=GUIDANCE[0], guidance_high=GUIDANCE[1],
+                          velocity_eval_every=EVAL_EVERY,
+                          velocity_extrap_order=EXTRAP_ORDER)
+    forwards = serving_max_forwards(STEPS, *GUIDANCE, EVAL_EVERY)
+    want = _expected_counts(forwards, model_int8.depth, fused_qk_rope=1,
+                            flash_masked_attention=1, int8_gemm_bias=3,
+                            int8_gemm_swiglu_quant=1)
+    secs = _counted_pipeline('serving-max', model_int8, scfg, vae, labels, z,
+                             want)
+    say(f'[serving-max] int8, CFG for t in {list(GUIDANCE)}, velocity '
+        f'extrapolation order {EXTRAP_ORDER} every {EVAL_EVERY} steps: '
+        f'{forwards} forwards for {STEPS} steps; full pipeline {secs:.3f} s '
+        f'= {BATCH / secs:.4f} images/s [{card}]')
+    return _read_counts()
+
+
+def phase_fused(model_bf16, vae, card):
+    """attn_impl='fused' on the padded 160x320 bucket."""
+    import torch
+    from fitv2_tpu_torch.sample import SamplingConfig
+    model = _xl_variant(model_bf16, attn_impl='fused')
+    if not all(b.attn.fused for b in model.blocks):
+        raise AssertionError('fused: XL is not eligible for the fused path')
+    labels = torch.arange(BATCH) * 111 % 1000
+    z = torch.randn(BATCH, N, 16, generator=torch.Generator().manual_seed(
+        SEED + 4))
+    v_unfused = _one_step_velocity(model_bf16, z, labels, PADDED_HW)
+    v_fused = _one_step_velocity(model, z, labels, PADDED_HW)
+    rel = ((v_fused - v_unfused).norm() / v_unfused.norm()).item()
+    say(f'[fused] one-step velocity on the padded bucket, fused vs unfused '
+        f'(bf16, same weights): relative L2 {rel:.3e} <= '
+        f'{MAX_FUSED_REL_L2}: {"ok" if rel <= MAX_FUSED_REL_L2 else "FAIL"}')
+    if not rel <= MAX_FUSED_REL_L2 or not torch.isfinite(v_fused).all():
+        raise AssertionError(f'fused: velocity relative L2 {rel}')
+    scfg = SamplingConfig(image_height=PADDED_HW[0],
+                          image_width=PADDED_HW[1], num_sampling_steps=STEPS,
+                          cfg_scale=CFG_SCALE, per_device_batch=BATCH,
+                          dtype=torch.bfloat16)
+    want = _expected_counts(STEPS, model.depth, fused_qkln_rope_attention=1)
+    secs = _counted_pipeline('fused', model, scfg, vae, labels, z, want)
+    say(f'[fused] XL/2 bf16 attn_impl=fused {PADDED_HW[0]}x{PADDED_HW[1]} '
+        f'(200 of 256 tokens valid) batch {BATCH}, {STEPS} steps, CFG '
+        f'{CFG_SCALE}: full pipeline {secs:.3f} s = {BATCH / secs:.4f} '
+        f'images/s [{card}]')
+    return _read_counts()
+
+
 def main():
     card = phase_device()
     import torch
+    from fitv2_tpu_torch.vae import AutoencoderKL
     phase_build()
     results = phase_kernels()
     model_cpu = _xl_model_fp32()
     model_gpu, _ = phase_parity(model_cpu)
     del model_cpu
-    counts = phase_main(model_gpu, card)
+    torch.manual_seed(SEED + 2)
+    vae = AutoencoderKL().to(device='cuda', dtype=torch.bfloat16).eval()
+    counts = phase_main(model_gpu, vae, card)  # model_gpu is now bf16
+    model_int8, int8_counts, _ = phase_int8(model_gpu, vae, card)
+    phase_serving_max(model_int8, vae, card)
+    del model_int8
+    fused_counts = phase_fused(model_gpu, vae, card)
     src = 'fitv2_tpu_torch/kernels/csrc/'
     meta = [
-        ('adaln', 'fused_adaln_norm', src + 'adaln.cu',
+        ('adaln', 'fused_adaln_norm', counts, src + 'adaln.cu',
          'fitv2_tpu/ops/fused_adaln.py:28'),
-        ('qk_rope', 'fused_qk_rope', src + 'qk_rope.cu',
+        ('qk_rope', 'fused_qk_rope', counts, src + 'qk_rope.cu',
          'fitv2_tpu/ops/fused_qk_rope.py:29'),
-        ('attention', 'flash_masked_attention', src + 'attention.cu',
+        ('attention', 'flash_masked_attention', counts, src + 'attention.cu',
          'fitv2_tpu/ops/attention_core.py:51 (bounded, K4) and '
          'fitv2_tpu/ops/flash_attention.py:44 (online, K3)'),
+        ('fused_attention', 'fused_qkln_rope_attention', fused_counts,
+         src + 'fused_attention.cu', 'fitv2_tpu/ops/fused_attention.py:52'),
+        ('int8_gemm_bias', 'int8_gemm_bias', int8_counts,
+         src + 'int8_gemm.cu', 'fitv2_tpu/ops/int8_gemm.py:72'),
+        ('int8_gemm_swiglu_quant', 'int8_gemm_swiglu_quant', int8_counts,
+         src + 'int8_gemm.cu', 'fitv2_tpu/ops/int8_gemm.py:125'),
     ]
     kernels = [dict(name=name, route='cuda', source=source, replaces=rep,
-                    launches=counts[wrapper], **results[name])
-               for name, wrapper, source, rep in meta]
+                    launches=path_counts[wrapper], **results[name])
+               for name, wrapper, path_counts, source, rep in meta]
     say(card)  # nvidia-smi's name, power.limit line
     print(json.dumps({'kernels': kernels}))
     print(json.dumps({'ok': True, 'device': {

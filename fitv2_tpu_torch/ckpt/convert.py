@@ -7,6 +7,11 @@ per-block tensors stacked along a leading depth axis under
 the flax names joined with '.', so the map is: unstack the blocks, rename
 ``kernel`` -> ``weight`` and transpose it (flax Dense kernels are (in, out),
 ``nn.Linear`` weights (out, in)).
+
+``quant_state_from_jax`` carries the int8 serving mode's collections
+(``quant_calib``: per-site activation absmax; ``quant_weights``: int8
+kernels and per-channel scales) onto the port's ``Int8Linear`` buffers,
+for ``fitv2_tpu_torch.kernels.quant.load_quant_state``.
 """
 
 from __future__ import annotations
@@ -39,6 +44,25 @@ def _leaf(path: str, value: np.ndarray) -> tuple[str, torch.Tensor]:
         np.array(value, dtype=np.float32, order='C'))
 
 
+def _unstack_blocks(flat: Mapping[str, np.ndarray], depth: int
+                    ) -> Dict[str, np.ndarray]:
+    """Split ``blocks/block/...`` leaves stacked along depth into
+    ``blocks/{i}/...`` and rename per-block ``blocks_{i}/...`` likewise."""
+    out: Dict[str, np.ndarray] = {}
+    for path, value in flat.items():
+        if path.startswith('blocks/block/'):
+            if value.shape[0] != depth:
+                raise ValueError(f'{path}: stacked depth {value.shape[0]} '
+                                 f'!= depth {depth}')
+            rest = path[len('blocks/block/'):]
+            for i in range(depth):
+                out[f'blocks/{i}/{rest}'] = value[i]
+        else:
+            m = re.match(r'blocks_(\d+)/(.*)', path)
+            out[f'blocks/{m[1]}/{m[2]}' if m else path] = value
+    return out
+
+
 def state_dict_from_jax(params_np: Mapping[str, Any], *, depth: int,
                         num_heads: int, adaln_type: str,
                         rope_layout: str = 'split') -> Dict[str, torch.Tensor]:
@@ -49,21 +73,9 @@ def state_dict_from_jax(params_np: Mapping[str, Any], *, depth: int,
     the qkv projection carries over unpermuted. ``num_heads`` and
     ``adaln_type`` are checked against the tree.
     """
-    flat = _flatten(params_np.get('params', params_np))
-    sd: Dict[str, torch.Tensor] = {}
-    for path, value in flat.items():
-        if path.startswith('blocks/block/'):
-            if value.shape[0] != depth:
-                raise ValueError(f'{path}: stacked depth {value.shape[0]} '
-                                 f'!= depth {depth}')
-            rest = path[len('blocks/block/'):]
-            for i in range(depth):
-                name, t = _leaf(f'blocks/{i}/{rest}', value[i])
-                sd[name] = t
-        else:
-            m = re.match(r'blocks_(\d+)/(.*)', path)
-            name, t = _leaf(f'blocks/{m[1]}/{m[2]}' if m else path, value)
-            sd[name] = t
+    flat = _unstack_blocks(_flatten(params_np.get('params', params_np)),
+                           depth)
+    sd = dict(_leaf(path, value) for path, value in flat.items())
 
     qkv = sd.get('blocks.0.attn.qkv.weight')
     if qkv is not None:
@@ -78,3 +90,30 @@ def state_dict_from_jax(params_np: Mapping[str, Any], *, depth: int,
         raise ValueError(f'adaln_type={adaln_type!r} does not match the '
                          'adaLN parameters in the tree')
     return sd
+
+
+def quant_state_from_jax(collections_np: Mapping[str, Any], depth: int
+                         ) -> Dict[str, torch.Tensor]:
+    """JAX ``{'quant_calib', 'quant_weights'}`` trees (numpy leaves,
+    scan-stacked under ``blocks/block/`` or per block) -> the port's
+    ``Int8Linear`` buffers by qualified name: ``act_absmax`` () f32,
+    ``kernel_q`` (K, N) -> ``weight_q`` (N, K) int8, ``w_scale`` (1, N) ->
+    (N,) f32."""
+    flat = {}
+    for coll in ('quant_calib', 'quant_weights'):
+        if coll in collections_np:
+            flat.update(_flatten(collections_np[coll]))
+    out: Dict[str, torch.Tensor] = {}
+    for path, value in _unstack_blocks(flat, depth).items():
+        *layer, leaf = path.split('/')
+        name = '.'.join(layer)
+        if leaf == 'kernel_q':
+            out[f'{name}.weight_q'] = torch.from_numpy(np.ascontiguousarray(
+                np.swapaxes(value, -1, -2)).astype(np.int8))
+        elif leaf in ('w_scale', 'act_absmax'):
+            arr = np.array(value, np.float32)  # a writable copy
+            out[f'{name}.{leaf}'] = torch.from_numpy(
+                arr.reshape(-1) if leaf == 'w_scale' else arr.reshape(()))
+        else:
+            raise ValueError(f'{path}: not a quantization leaf')
+    return out

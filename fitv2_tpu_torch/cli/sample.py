@@ -7,9 +7,13 @@ Usage:
         --num-sampling-steps 250 --num-fid-samples 50000 \
         [--vae path/to/sd-vae.safetensors] [--device cuda] --out samples.npz
 
-The flags are those of ``fitv2_tpu.cli.sample`` plus ``--device``. Flags
-of modes that are not ported yet are accepted by the parser and refused
-with an error that names the missing slice.
+The flags are those of ``fitv2_tpu.cli.sample`` plus ``--device``. The
+serving speed modes compose: ``--gemm-precision int8`` (W8A8 GEMMs,
+calibrated when the sampler is built), ``--guidance-low/--guidance-high``
+(CFG only inside a t window) and ``--velocity-eval-every N
+[--velocity-extrap-order 2]`` (the model on every N-th step only). Flags of
+modes that are not ported yet are accepted by the parser and refused with
+an error that names the missing slice.
 """
 
 from __future__ import annotations
@@ -43,11 +47,20 @@ def parse_args(argv=None):
                    help='directory for per-batch shards; a restarted run '
                         'skips completed batches')
     p.add_argument('--data-parallel', action='store_true')
-    p.add_argument('--gemm-precision', default=None, choices=['bf16', 'int8'])
-    p.add_argument('--velocity-eval-every', type=int, default=1)
+    p.add_argument('--gemm-precision', default=None, choices=['bf16', 'int8'],
+                   help="override the network's gemm_precision; 'int8' runs "
+                        'the block GEMMs as int8 W8A8')
+    p.add_argument('--velocity-eval-every', type=int, default=1,
+                   help='run the model on every N-th ladder step only, '
+                        'extrapolating the velocity in between (1 = dense '
+                        'Euler)')
     p.add_argument('--velocity-extrap-order', type=int, default=1,
-                   choices=(1, 2))
-    p.add_argument('--guidance-low', type=float, default=0.0)
+                   choices=(1, 2),
+                   help='extrapolation order: 1 linear, 2 quadratic')
+    p.add_argument('--guidance-low', type=float, default=0.0,
+                   help='CFG only on steps with t in [guidance-low, '
+                        'guidance-high]; the others run one conditional '
+                        'forward')
     p.add_argument('--guidance-high', type=float, default=1.0)
     p.add_argument('--sampler-mode', default='ode',
                    choices=['ode', 'ddpm', 'ddim'])
@@ -60,13 +73,6 @@ def parse_args(argv=None):
 def _refuse_unported(args) -> None:
     """Raise for flags whose mode belongs to a slice not ported yet."""
     unported = [
-        (args.gemm_precision == 'int8', '--gemm-precision int8',
-         'int8 serving (slice 3)'),
-        ((args.guidance_low, args.guidance_high) != (0.0, 1.0),
-         '--guidance-low/--guidance-high', 'interval guidance (slice 3)'),
-        (args.velocity_eval_every != 1 or args.velocity_extrap_order != 1,
-         '--velocity-eval-every/--velocity-extrap-order',
-         'velocity extrapolation (slice 3)'),
         (args.interpolation != 'no', f'--interpolation {args.interpolation}',
          'HR / resolution extrapolation (slice 4)'),
         (args.sampler_mode != 'ode', f'--sampler-mode {args.sampler_mode}',
@@ -94,7 +100,9 @@ def main(argv=None):
     if device.type == 'cuda' and not torch.cuda.is_available():
         raise RuntimeError('--device cuda but no CUDA device is available')
     cfg = load_config(args.cfgdir)
-    model = config_to_model(cfg['diffusion']['network_config'])
+    overrides = ({'gemm_precision': args.gemm_precision}
+                 if args.gemm_precision else {})
+    model = config_to_model(cfg['diffusion']['network_config'], **overrides)
     load_fit_checkpoint(args.ckpt, model)
     model = model.to(device).eval()
 
@@ -110,7 +118,10 @@ def main(argv=None):
         image_height=args.image_height, image_width=args.image_width,
         num_sampling_steps=args.num_sampling_steps,
         cfg_scale=args.cfg_scale, num_classes=args.num_classes,
-        per_device_batch=args.per_device_batch)
+        per_device_batch=args.per_device_batch,
+        velocity_eval_every=args.velocity_eval_every,
+        velocity_extrap_order=args.velocity_extrap_order,
+        guidance_low=args.guidance_low, guidance_high=args.guidance_high)
     fn = build_sampler(model, scfg, vae)
     images = generate_fid_samples(
         fn, args.num_fid_samples, fn.batch_size, args.num_classes,

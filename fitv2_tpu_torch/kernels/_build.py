@@ -1,8 +1,9 @@
 """Build and load the package's CUDA kernels.
 
 Every ``csrc/*.cu`` file is compiled by plain ``nvcc`` for Hopper
-(``sm_90a``) into one shared library with a C interface, which is loaded
-with ``ctypes``. The build directory ``kernels/_build/<hash>/`` is keyed by
+(``sm_90a``), one ``nvcc`` process per source, all started together, and
+the objects are linked into one shared library with a C interface, which
+is loaded with ``ctypes``. The build directory ``kernels/_build/<hash>/`` is keyed by
 a hash of the sources and flags, so an edited source rebuilds and an
 unchanged one is reused. Nothing here runs at import time: the first
 kernel launch on a CUDA tensor builds the library.
@@ -28,8 +29,9 @@ _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / 'csrc'
 BUILD_ROOT = _PKG / '_build'
 LIB_NAME = 'libfitv2_kernels.so'
-NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
-              '-O3', '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
+COMPILE_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
+                 '-O3', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
+LINK_FLAGS = ('-shared',)
 
 
 def sources() -> list[Path]:
@@ -47,7 +49,7 @@ def _nvcc() -> str:
 
 def library_path() -> Path:
     """Where the library for the current sources lives (built or not)."""
-    h = hashlib.sha256(' '.join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(' '.join(COMPILE_FLAGS + LINK_FLAGS).encode())
     for src in sorted(CSRC.iterdir()):
         if src.suffix in ('.cu', '.cuh'):
             h.update(src.name.encode())
@@ -59,27 +61,52 @@ def build() -> tuple[Path, str]:
     """Compile the library if it is not built yet.
 
     Returns its path and nvcc's report (register and shared-memory use of
-    each kernel; empty when the library was already built). The library is
-    written to a temporary name and renamed, so a build that is cut off
-    never leaves a half-written library behind.
+    each kernel; empty when the library was already built). Each source
+    compiles in its own ``nvcc`` process, all at once; every process is
+    waited for before the link or the error. The library is linked under a
+    temporary name and renamed, so a build that is cut off never leaves a
+    half-written library behind.
     """
     out = library_path()
     if out.exists():
         return out, ''
     out.parent.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    objdir = tempfile.mkdtemp(dir=out.parent)
     fd, tmp = tempfile.mkstemp(suffix='.so', dir=out.parent)
     os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, '-o', tmp, *map(str, sources())]
+    jobs = []
     try:
-        res = subprocess.run(cmd, capture_output=True, text=True)
+        for src in sources():
+            obj = os.path.join(objdir, src.stem + '.o')
+            jobs.append((src, obj, subprocess.Popen(
+                [nvcc, *COMPILE_FLAGS, '-c', '-o', obj, str(src)],
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+        report, failed = [], []
+        for src, _, proc in jobs:
+            stdout, stderr = proc.communicate()
+            report.append(stdout + stderr)
+            if proc.returncode != 0:
+                failed.append(f'{src.name} ({proc.returncode}):\n{stdout}\n'
+                              f'{stderr}')
+        if failed:
+            raise RuntimeError('nvcc failed: ' + '\n'.join(failed))
+        res = subprocess.run([nvcc, *LINK_FLAGS, '-o', tmp,
+                              *(obj for _, obj, _ in jobs)],
+                             capture_output=True, text=True)
         if res.returncode != 0:
-            raise RuntimeError(f'nvcc failed ({res.returncode}):\n'
+            raise RuntimeError(f'nvcc link failed ({res.returncode}):\n'
                                f'{res.stdout}\n{res.stderr}')
         os.replace(tmp, out)
     finally:
+        for _, _, proc in jobs:  # none outlives the build, even on an error
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        shutil.rmtree(objdir, ignore_errors=True)
         if os.path.exists(tmp):
             os.unlink(tmp)
-    return out, res.stdout + res.stderr
+    return out, ''.join(report) + res.stdout + res.stderr
 
 
 @functools.cache

@@ -53,6 +53,9 @@ class FiT(nn.Module):
 
     ``dtype`` is the compute dtype, which the parameters are stored in
     (float32, or bfloat16 for serving; a later ``.to(dtype)`` changes it).
+    ``gemm_precision='int8'`` makes the blocks' qkv, proj and MLP GEMMs
+    int8 W8A8 (``Int8Linear``); adaLN, the embedders and the final layer
+    stay in ``dtype``. The sampler calibrates and prequantizes them.
     Knobs of the JAX model that do not change a forward pass
     (``use_checkpoint``, ``remat_policy``, ``scan_blocks``, ``use_sit``;
     ``class_dropout_prob`` only sizes the label table) are accepted for
@@ -83,10 +86,9 @@ class FiT(nn.Module):
                  remat_policy: str = 'full', rope_layout: str = 'split',
                  gemm_precision: str = 'bf16'):
         super().__init__()
-        if gemm_precision != 'bf16':
-            raise NotImplementedError(
-                f'gemm_precision={gemm_precision!r}: int8 serving belongs to '
-                'the int8 slice and is not ported yet')
+        if gemm_precision not in ('bf16', 'int8'):
+            raise ValueError(f'gemm_precision={gemm_precision!r}: use '
+                             "'bf16' or 'int8'")
         if online_rope:
             raise NotImplementedError(
                 'online_rope (per-sample RoPE frequencies) belongs to the HR '
@@ -105,6 +107,7 @@ class FiT(nn.Module):
         self.rel_pos_embed = rel_pos_embed
         self.time_shifting = time_shifting
         self.rope_layout = rope_layout
+        self.gemm_precision = gemm_precision
         self.rope_config = rope_lib.RopeConfig(
             head_dim=hidden_size // num_heads, mode=custom_freqs,
             theta=rope_theta, max_cached_len=max_cached_len,
@@ -129,7 +132,8 @@ class FiT(nn.Module):
             adaln_type=adaln_type, adaln_lora_dim=adaln_lora_dim,
             use_rope=rel_pos_embed is not None,
             add_rel_pe_to_v=add_rel_pe_to_v, attn_impl=attn_impl,
-            save_attention=save_attention, rope_layout=rope_layout)
+            save_attention=save_attention, rope_layout=rope_layout,
+            quantized=gemm_precision == 'int8')
             for _ in range(depth)])
         self.final_layer = FinalLayer(D, patch_size, self.out_channels,
                                       norm_layer=norm_type,

@@ -12,7 +12,12 @@ block stack and passed in.
 
 The hot chain of every block goes through the hand-written kernels:
 ``norm_modulate`` -> kernels/fused_adaln.py, the q/k LayerNorm + split RoPE
--> kernels/fused_qk_rope.py, the attention -> kernels/attention.py.
+-> kernels/fused_qk_rope.py, the attention -> kernels/attention.py; with
+``attn_impl='fused'`` the whole attention chain -> kernels/fused_attention.py.
+With ``quantized`` (the int8 W8A8 serving mode) the qkv, proj and MLP
+GEMMs are ``Int8Linear`` (kernels/quant.py), and a calibrated SwiGLU runs
+fc1 + silu * v + requantization and fc2 as two kernels
+(kernels/int8_gemm.py).
 """
 
 from __future__ import annotations
@@ -24,9 +29,12 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from fitv2_tpu_torch.kernels import fused_attention
 from fitv2_tpu_torch.kernels.attention import masked_attention
 from fitv2_tpu_torch.kernels.fused_adaln import adaln_norm
 from fitv2_tpu_torch.kernels.fused_qk_rope import qk_norm_rope
+from fitv2_tpu_torch.kernels.int8_gemm import dequant_gemm, swiglu_requant_gemm
+from fitv2_tpu_torch.kernels.quant import Int8Linear, quantize_static
 from fitv2_tpu_torch.models.rope import apply_rope
 
 Tensor = torch.Tensor
@@ -49,6 +57,12 @@ def norm_modulate(x: Tensor, shift: Tensor, scale: Tensor, norm: 'LayerNorm',
     if norm.norm_type == 'layernorm' and shift.dim() == 2 and scale.dim() == 2:
         return adaln_norm(x, shift, scale, eps)
     return modulate(norm(x), shift, scale)
+
+
+def _linear(quantized: bool) -> type:
+    """Layer class of the hot GEMMs: ``nn.Linear``, or ``Int8Linear`` in
+    the int8 serving mode (the same parameters either way)."""
+    return Int8Linear if quantized else nn.Linear
 
 
 def _norm_no_affine(x: Tensor, eps: float = 1e-6) -> Tensor:
@@ -144,16 +158,34 @@ class LabelEmbedder(nn.Module):
 
 class SwiGLU(nn.Module):
     """fc2(silu(g) * v) with the two up-projections fused into one ``fc1``
-    GEMM whose output columns are laid out [g | v]."""
+    GEMM whose output columns are laid out [g | v].
+
+    Quantized and calibrated, fc1 + silu(g) * v + the requantization to
+    fc2's int8 input is one kernel and fc2 another: the (M, 2H) fc1 output
+    and the (M, H) activation are never materialised in float. While
+    calibrating (or uncalibrated) the layers run one by one, dynamically.
+    """
 
     def __init__(self, in_features: int, hidden_features: int,
-                 out_features: Optional[int] = None, bias: bool = True):
+                 out_features: Optional[int] = None, bias: bool = True,
+                 quantized: bool = False):
         super().__init__()
-        self.fc1 = nn.Linear(in_features, 2 * hidden_features, bias=bias)
-        self.fc2 = nn.Linear(hidden_features, out_features or in_features,
-                             bias=bias)
+        Linear = _linear(quantized)
+        self.fc1 = Linear(in_features, 2 * hidden_features, bias=bias)
+        self.fc2 = Linear(hidden_features, out_features or in_features,
+                          bias=bias)
+        self.quantized = quantized
 
     def forward(self, x: Tensor) -> Tensor:
+        if self.quantized:
+            p1, p2 = self.fc1.quant_parts(), self.fc2.quant_parts()
+            if p1 is not None and p2 is not None:
+                xq = quantize_static(x, p1.act_scale).reshape(-1, x.shape[-1])
+                mid = swiglu_requant_gemm(xq, p1.w_q, p1.scale, p1.bias,
+                                          p2.act_scale_recip)
+                y = dequant_gemm(mid, p2.w_q, p2.scale, p2.bias,
+                                 self.fc2.weight.dtype)
+                return y.reshape(*x.shape[:-1], y.shape[-1])
         g, v = self.fc1(x).chunk(2, dim=-1)
         return self.fc2(F.silu(g) * v)
 
@@ -162,11 +194,13 @@ class Mlp(nn.Module):
     """GELU(tanh) MLP (FiTv1 blocks)."""
 
     def __init__(self, in_features: int, hidden_features: int,
-                 out_features: Optional[int] = None, bias: bool = True):
+                 out_features: Optional[int] = None, bias: bool = True,
+                 quantized: bool = False):
         super().__init__()
-        self.fc1 = nn.Linear(in_features, hidden_features, bias=bias)
-        self.fc2 = nn.Linear(hidden_features, out_features or in_features,
-                             bias=bias)
+        Linear = _linear(quantized)
+        self.fc1 = Linear(in_features, hidden_features, bias=bias)
+        self.fc2 = Linear(hidden_features, out_features or in_features,
+                          bias=bias)
 
     def forward(self, x: Tensor) -> Tensor:
         return self.fc2(F.gelu(self.fc1(x), approximate='tanh'))
@@ -178,6 +212,10 @@ class Attention(nn.Module):
     One fused qkv projection; optional per-head q/k norm; RoPE of q/k; the
     mask-aware softmax attention; outputs of padded queries zeroed before
     the output projection.
+
+    ``attn_impl='fused'`` runs q/k norm, RoPE and the attention as one
+    kernel off the flat qkv projection where ``fused_attention.supports``
+    the configuration (otherwise the unfused path, as in JAX).
     """
 
     def __init__(self, dim: int, num_heads: int, qkv_bias: bool = True,
@@ -187,22 +225,15 @@ class Attention(nn.Module):
                  save_attention: bool = False, rope_layout: str = 'split',
                  quantized: bool = False):
         super().__init__()
-        if quantized:
-            raise NotImplementedError(
-                'int8 W8A8 GEMMs (gemm_precision=int8) belong to the int8 '
-                'serving slice and are not ported yet')
         if save_attention:
             raise NotImplementedError(
                 'save_attention (attention-map capture) is not ported yet')
         if add_rel_pe_to_v:
             raise NotImplementedError('add_rel_pe_to_v is not ported yet')
-        if attn_impl == 'fused':
-            raise NotImplementedError(
-                "attn_impl='fused' (the qk-LN + RoPE + attention megakernel) "
-                'is not ported yet')
-        if attn_impl != 'auto':
+        if attn_impl not in ('auto', 'fused'):
             raise ValueError(f'attn_impl={attn_impl!r}: the port picks the '
-                             "attention path by device; use 'auto'")
+                             "attention path by device; use 'auto' or "
+                             "'fused'")
         self.num_heads = num_heads
         self.head_dim = dim // num_heads
         self.q_norm_type = q_norm
@@ -210,14 +241,18 @@ class Attention(nn.Module):
         self.qk_norm_weight = qk_norm_weight
         self.use_rope = use_rope
         self.rope_layout = rope_layout
-        self.qkv = nn.Linear(dim, 3 * dim, bias=qkv_bias)
+        Linear = _linear(quantized)
+        self.qkv = Linear(dim, 3 * dim, bias=qkv_bias)
 
         def norm_type(t):
             return 'w_layernorm' if t == 'layernorm' and qk_norm_weight else t
 
         self.q_norm = LayerNorm(norm_type(q_norm), self.head_dim)
         self.k_norm = LayerNorm(norm_type(k_norm), self.head_dim)
-        self.proj = nn.Linear(dim, dim)
+        self.proj = Linear(dim, dim)
+        self.fused = attn_impl == 'fused' and fused_attention.supports(
+            dim, num_heads, rope_layout, q_norm, k_norm, qk_norm_weight,
+            add_rel_pe_to_v, save_attention)
         # fused q/k LN + split RoPE: the hot FiTv2 configuration
         self.fuse_qk = (use_rope and rope_layout == 'split'
                         and not qk_norm_weight
@@ -233,8 +268,15 @@ class Attention(nn.Module):
                 freqs_sin: Optional[Tensor] = None) -> Tensor:
         B, N, C = x.shape
         H, Dh = self.num_heads, self.head_dim
+        qkv = self.qkv(x)
+        if self.fused and self.use_rope and freqs_cos is not None:
+            out = fused_attention.qkln_rope_attention(
+                qkv, freqs_cos, freqs_sin, mask, H,
+                norm_q=self.q_norm_type == 'layernorm',
+                norm_k=self.k_norm_type == 'layernorm')
+            return self.proj(out)
         # views of the fused projection: columns [0:C]=q, [C:2C]=k, [2C:3C]=v
-        q, k, v = self.qkv(x).view(B, N, 3, H, Dh).unbind(2)
+        q, k, v = qkv.view(B, N, 3, H, Dh).unbind(2)
         if self.fuse_qk and freqs_cos is not None:
             q, k = qk_norm_rope(q, k, freqs_cos, freqs_sin,
                                 norm_q=self.q_norm_type == 'layernorm',
@@ -321,9 +363,9 @@ class FiTBlock(nn.Module):
         mlp_hidden = int(D * mlp_ratio)
         if swiglu:
             hidden = mlp_hidden if swiglu_large else (mlp_hidden * 2) // 3
-            self.mlp = SwiGLU(D, hidden, bias=ffn_bias)
+            self.mlp = SwiGLU(D, hidden, bias=ffn_bias, quantized=quantized)
         else:
-            self.mlp = Mlp(D, mlp_hidden, bias=ffn_bias)
+            self.mlp = Mlp(D, mlp_hidden, bias=ffn_bias, quantized=quantized)
 
     def forward(self, x: Tensor, c: Tensor, mask: Optional[Tensor],
                 freqs_cos: Optional[Tensor], freqs_sin: Optional[Tensor],

@@ -6,9 +6,17 @@ forward on 2B per step, null class ``num_classes``, ``v = uncond +
 cfg_scale * (cond - uncond)`` over all channels), unpatchify, SD-VAE
 decode and the uint8 conversion. It runs eagerly on the model's device.
 
-Not ported yet (the CLI refuses their flags): RoPE interpolation other than
-'no' (HR slice), guidance intervals and velocity extrapolation (speed-mode
-slice), DDPM/DDIM (FiTv1 slice), data-parallel sampling (multi-device).
+Training-free speed modes, composable with each other and with int8:
+  - guidance interval: CFG only on steps whose t lies in [guidance_low,
+    guidance_high]; the other steps run one conditional forward at batch B;
+  - velocity extrapolation: the model runs on every ``velocity_eval_every``
+    -th step only (flow/samplers.euler_sample_extrapolated); composed with
+    an interval, extrapolation restarts at each phase boundary;
+  - int8 W8A8 (``FiT(gemm_precision='int8')``): the sampler calibrates the
+    static activation scales and prequantizes the weights once.
+
+Not ported yet: RoPE interpolation other than 'no' (HR slice), DDPM/DDIM
+(FiTv1 slice), data-parallel sampling (multi-device).
 """
 
 from __future__ import annotations
@@ -17,16 +25,24 @@ import dataclasses
 import hashlib
 import json
 import os
-from typing import Callable, Optional
+from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
 
+from fitv2_tpu_torch.flow.samplers import (
+    cfg_model_fn, euler_sample, euler_sample_extrapolated)
+from fitv2_tpu_torch.kernels.quant import (
+    calibrate_quant_scales, load_quant_state, prequantize_weights)
 from fitv2_tpu_torch.models.grid_utils import (
     make_grid_mask_size, pixels_to_tokens)
 from fitv2_tpu_torch.vae.autoencoder_kl import images_to_uint8
 
 Tensor = torch.Tensor
+
+# built-in int8 calibration: (noise scale, t) of each batch, as in JAX
+CALIBRATION_POINTS = ((1.0, 0.05), (0.9, 0.3), (0.8, 0.6), (0.7, 0.9))
+CALIBRATION_SEED = 0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -41,9 +57,27 @@ class SamplingConfig:
     # the state z is cast to this dtype as the model's input every step, and
     # the VAE decodes latents in it
     dtype: torch.dtype = torch.bfloat16
+    # run the model on every N-th ladder step only, extrapolating the
+    # velocity in between (1 = dense Euler); order 1 linear, 2 quadratic
+    velocity_eval_every: int = 1
+    velocity_extrap_order: int = 1
+    # CFG only on steps with guidance_low <= t <= guidance_high; the other
+    # steps run one conditional forward at batch B. (0, 1) = CFG throughout
+    guidance_low: float = 0.0
+    guidance_high: float = 1.0
 
 
-def build_sampler(model, cfg: SamplingConfig, vae=None
+def guidance_phases(cfg: SamplingConfig) -> tuple[int, int]:
+    """Ladder indices [i0, i1) of the CFG window: steps before i0 and from
+    i1 on are conditional only. Decided on the float64 ladder, as in JAX."""
+    t_cur = np.linspace(0.0, 1.0, cfg.num_sampling_steps + 1)[:-1]
+    idx = np.flatnonzero((t_cur >= cfg.guidance_low)
+                         & (t_cur <= cfg.guidance_high))
+    return (int(idx[0]), int(idx[-1]) + 1) if idx.size else (0, 0)
+
+
+def build_sampler(model, cfg: SamplingConfig, vae=None,
+                  quant_collections: Optional[Dict[str, Tensor]] = None
                   ) -> Callable[..., Tensor]:
     """Returns ``sample_fn(labels, generator=None, z=None)``.
 
@@ -52,10 +86,25 @@ def build_sampler(model, cfg: SamplingConfig, vae=None
     (a CPU ``torch.Generator``, so a seed gives the same noise on any
     device). Returns uint8 (B, H, W, 3) images with a VAE, else latents
     (B, C, H/8, W/8) float32, on the model's device.
+
+    An int8 model (``gemm_precision='int8'``) is quantized in place here:
+    with ``quant_collections`` (``Int8Linear`` buffers by name, e.g. from
+    ``fitv2_tpu_torch.ckpt.quant_state_from_jax``) exactly those are bound;
+    without, the built-in calibration runs four forwards on seeded noise
+    (``CALIBRATION_POINTS``; labels class 0 and null) and the weights are
+    prequantized. The calibration noise comes from a seeded CPU
+    ``torch.Generator``, so it differs from the JAX sampler's
+    ``jax.random`` draw and the scales differ slightly from JAX's.
     """
     if model.learn_sigma:
         raise ValueError('flow-matching Euler sampling needs a velocity '
                          'model (learn_sigma=False)')
+    if cfg.velocity_extrap_order not in (1, 2):
+        raise ValueError(f'velocity_extrap_order must be 1 or 2, got '
+                         f'{cfg.velocity_extrap_order}')
+    if cfg.velocity_eval_every < 1:
+        raise ValueError(f'velocity_eval_every must be >= 1, got '
+                         f'{cfg.velocity_eval_every}')
     device = next(model.parameters()).device
     n_h, n_w = pixels_to_tokens(cfg.image_height, cfg.image_width,
                                 model.patch_size)
@@ -66,18 +115,36 @@ def build_sampler(model, cfg: SamplingConfig, vae=None
     B = cfg.per_device_batch
     token_dim = model.patch_size ** 2 * model.in_channels
 
-    grid, mask, size = make_grid_mask_size(2 * B, n_h, n_w, n_ctx, device)
-    # on a full bucket the mask is statically absent: no key masking and
-    # no padded-output zeroing (identical results)
-    mask = None if n_h * n_w == n_ctx else mask
-    # RoPE interpolation 'no' (the only one ported): normal frequencies
-    rope = model.rope(grid, mode='normal')
+    def bucket_inputs(batch: int):
+        """grid/mask/size and RoPE tables at a batch; on a full bucket the
+        mask is statically absent (no key masking, no padded-output
+        zeroing: identical results). RoPE interpolation 'no' (the only one
+        ported) samples with normal frequencies."""
+        g, m, s = make_grid_mask_size(batch, n_h, n_w, n_ctx, device)
+        return (g, None if n_h * n_w == n_ctx else m, s,
+                model.rope(g, mode='normal'))
+
+    grid, mask, size, rope = bucket_inputs(2 * B)
     y_null = torch.full((B,), cfg.num_classes, dtype=torch.int64,
                         device=device)
     sigmas = torch.linspace(0.0, 1.0, cfg.num_sampling_steps + 1,
-                            dtype=torch.float32)
-    t_cur = sigmas[:-1].tolist()
-    dts = (sigmas[1:] - sigmas[:-1]).tolist()  # float32 step sizes
+                            dtype=torch.float32).numpy()
+    steps = cfg.num_sampling_steps
+    use_interval = (cfg.guidance_low, cfg.guidance_high) != (0.0, 1.0)
+    i0, i1 = guidance_phases(cfg) if use_interval else (0, steps)
+    if use_interval:
+        grid_c, mask_c, size_c, rope_c = bucket_inputs(B)
+
+    if quant_collections is not None:
+        load_quant_state(model, quant_collections)
+    elif model.gemm_precision == 'int8':
+        gen = torch.Generator().manual_seed(CALIBRATION_SEED)
+        zc = torch.randn((2 * B, n_ctx, token_dim), generator=gen).to(device)
+        yc = torch.cat([torch.zeros_like(y_null), y_null])
+        calibrate_quant_scales(model, [
+            (zc * s, torch.full((2 * B,), t, device=device), yc, grid, mask,
+             size, rope) for s, t in CALIBRATION_POINTS])
+        prequantize_weights(model)
 
     def decode(z: Tensor) -> Tensor:
         """Valid tokens -> unpatchify -> (optional) VAE -> uint8."""
@@ -101,20 +168,38 @@ def build_sampler(model, cfg: SamplingConfig, vae=None
             raise ValueError(f'z must be {(B, n_ctx, token_dim)}, got '
                              f'{tuple(z.shape)}')
         z = z.to(device=device, dtype=torch.float32)
-        y = torch.cat([labels.to(device=device, dtype=torch.int64), y_null])
-        for t, dt in zip(t_cur, dts):
-            z_in = torch.cat([z, z], dim=0).to(cfg.dtype)
-            t2 = torch.full((2 * B,), t, dtype=torch.float32, device=device)
-            out = model(z_in, t2, y, grid, mask, size, rope=rope)
-            cond, uncond = out.float().chunk(2, dim=0)
-            z = z + dt * (uncond + cfg.cfg_scale * (cond - uncond))
+        labels = labels.to(device=device, dtype=torch.int64)
+        y = torch.cat([labels, y_null])
+
+        drift = cfg_model_fn(
+            lambda x2, t2: model(x2.to(cfg.dtype), t2, y, grid, mask, size,
+                                 rope=rope).float(), cfg.cfg_scale)
+        phases = [(i0, i1, drift)]
+        if use_interval:
+            def drift_cond(x: Tensor, t: Tensor) -> Tensor:
+                return model(x.to(cfg.dtype), t, labels, grid_c, mask_c,
+                             size_c, rope=rope_c).float()
+            phases = [(0, i0, drift_cond), phases[0],
+                      (i1, steps, drift_cond)]
+        # each phase integrates its own sub-ladder; extrapolation restarts
+        # at phase boundaries, where the drift changes meaning
+        for a, b, fn in phases:
+            if b <= a:
+                continue
+            if cfg.velocity_eval_every > 1:
+                z = euler_sample_extrapolated(
+                    fn, z, sigmas[a:b + 1], eval_every=cfg.velocity_eval_every,
+                    order=cfg.velocity_extrap_order)
+            else:
+                z = euler_sample(fn, z, sigmas[a:b + 1])
         return decode(z)
 
     sample_fn.batch_size = B
     # stable fingerprint of everything that changes the sampled
     # distribution; generate_fid_samples stamps it into a resume dir
     fp_src = (f'{cfg!r}|model={type(model).__name__}|nh={n_h}|nw={n_w}'
-              f'|vae={vae is not None}')
+              f'|vae={vae is not None}|quant={quant_collections is not None}'
+              f'|int8={model.gemm_precision}')
     sample_fn.config_fingerprint = hashlib.sha1(
         fp_src.encode()).hexdigest()[:16]
     return sample_fn

@@ -1,7 +1,7 @@
 """PyTorch port on the card: each CUDA kernel against its plain PyTorch
-version at ragged shapes and every head dim the attention kernel is built
-for, in bf16 and fp32, and a small FiT forward and sampler on CUDA against
-the same model on the CPU.
+version at ragged shapes and every head dim the attention kernels are built
+for, in bf16 and fp32, and small FiT forwards (dense, int8, fused
+attention) and a sampler on CUDA against the same model on the CPU.
 
 Every test needs a CUDA card of compute capability 9.0 and ``nvcc``; where
 there is none (as on a CPU-only machine) each test skips. The file imports
@@ -13,7 +13,11 @@ conftest (which imports JAX):
 Tolerances: fp32 kernel vs plain, 1e-5 of the output's largest magnitude
 (the same math summed in another order); bf16, 2 bf16 ulps of that
 magnitude (both sides compute in fp32 and round once, so an fp32 value that
-differs in its last bits may round to the neighbouring bf16).
+differs in its last bits may round to the neighbouring bf16). The int8
+GEMMs' accumulators are exact, so their dequantized outputs get 1 bf16 ulp
+(fp32: 1e-6 relative) and the SwiGLU requantization may flip a rounding tie
+(at most 0.1% of the elements, by one level). The fused attention rounds p
+to bf16 before p @ v: 2e-2 absolute in bf16.
 """
 
 import math
@@ -139,12 +143,124 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
         K.fused_adaln_norm(y, y[:, 0].cpu(), y[:, 0])
 
 
-def _small_fit():
+def _int8_operands(dev, m, k, n, seed):
+    g = _gen(dev, seed)
+    xq = torch.randint(-127, 128, (m, k), device=dev, dtype=torch.int8,
+                       generator=g)
+    wq = torch.randint(-127, 128, (n, k), device=dev, dtype=torch.int8,
+                       generator=g)
+    scale = torch.rand(n, device=dev, generator=g) * 1e-4 + 1e-5
+    bias = torch.randn(n, device=dev, generator=g)
+    return xq, wq, scale, bias
+
+
+@pytest.mark.parametrize('out_dtype', DTYPES, ids=['fp32', 'bf16'])
+@pytest.mark.parametrize('with_bias', [True, False], ids=['bias', 'no_bias'])
+@pytest.mark.parametrize('m,k,n', [(400, 1152, 1160), (4096, 3072, 1152),
+                                   (17, 32, 24)])
+def test_int8_gemm_bias_kernel_matches_plain(dev, out_dtype, with_bias, m, k,
+                                             n):
+    """M = 200 * 2 and N = 1152 + 8 leave ragged M and N tiles."""
+    xq, wq, scale, bias = _int8_operands(dev, m, k, n, seed=5)
+    bias = bias if with_bias else None
+    before = K.int8_gemm_bias.launches
+    out = K.dequant_gemm(xq, wq, scale, bias, out_dtype)
+    assert K.int8_gemm_bias.launches == before + 1
+    ref = K.int8_gemm_bias_reference(xq, wq, scale, bias, out_dtype)
+    assert out.dtype == out_dtype and out.shape == (m, n)
+    err = (out.float() - ref.float()).abs().max().item()
+    top = ref.float().abs().max().item()
+    if out_dtype == torch.float32:
+        assert err <= 1e-6 * top, (err, top)
+    else:
+        assert err <= 2.0 ** (math.floor(math.log2(top)) - 7), (err, top)
+
+
+@pytest.mark.parametrize('m,k,h', [(400, 1152, 1160), (4096, 1152, 3072),
+                                   (33, 64, 40)])
+def test_int8_gemm_swiglu_kernel_matches_plain(dev, m, k, h):
+    xq, wq, scale, bias = _int8_operands(dev, m, k, 2 * h, seed=6)
+    scale = scale * 0.3
+    bias = 0.1 * bias
+    before = K.int8_gemm_swiglu_quant.launches
+    out = K.swiglu_requant_gemm(xq, wq, scale, bias, 20.0)
+    assert K.int8_gemm_swiglu_quant.launches == before + 1
+    ref = K.int8_gemm_swiglu_quant_reference(xq, wq, scale, bias, 20.0)
+    assert out.dtype == torch.int8 and out.shape == (m, h)
+    assert (ref != 0).float().mean() > 0.5  # not vacuous
+    diff = (out.int() - ref.int()).abs()
+    assert diff.max() <= 1 and (diff > 0).float().mean() <= 1e-3
+
+
+@pytest.mark.parametrize('dtype', DTYPES, ids=['fp32', 'bf16'])
+@pytest.mark.parametrize('n,masked', [(1024, True), (1024, False),
+                                      (200, True), (37, False)])
+@pytest.mark.parametrize('dh', HEAD_DIMS)
+def test_fused_attention_kernel_matches_plain(dev, dtype, n, masked, dh):
+    """N = 1024 is the HR context; the mask has a full row, a partial one
+    and an empty one (every key padded: a uniform average)."""
+    g = _gen(dev, 7)
+    b, h = 3, 2
+    qkv = torch.randn(b, n, 3 * h * dh, device=dev, generator=g).to(dtype)
+    ang = torch.rand(b, n, dh, device=dev, generator=g) * 6.3
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    mask = None
+    if masked:
+        mask = torch.zeros(b, n, device=dev)
+        mask[0] = 1.0
+        mask[1, :n * 3 // 4] = 1.0
+    before = K.fused_qkln_rope_attention.launches
+    out = K.qkln_rope_attention(qkv, cos, sin, mask, h)
+    assert K.fused_qkln_rope_attention.launches == before + 1
+    ref = K.fused_qkln_rope_attention_reference(qkv, cos, sin, mask, h)
+    assert out.dtype == dtype and out.shape == (b, n, h * dh)
+    assert torch.isfinite(out).all()
+    if masked:
+        assert torch.all(out[mask == 0] == 0)
+    err = (out.float() - ref.float()).abs().max().item()
+    if dtype == torch.float32:
+        assert err <= 1e-5 * ref.float().abs().max().item(), err
+    else:
+        assert err <= 2e-2, err
+
+
+def test_new_wrappers_refuse_what_the_kernels_do_not_take(dev):
+    xq, wq, scale, bias = _int8_operands(dev, 64, 32, 48, seed=8)
+    launches = [w.launches for w in K.KERNEL_WRAPPERS]
+    with pytest.raises(ValueError, match='on cpu'):
+        K.int8_gemm_bias(xq, wq.cpu(), scale, bias)
+    with pytest.raises(ValueError, match='CUDA'):
+        K.int8_gemm_bias(xq.cpu(), wq, scale, bias)
+    with pytest.raises(TypeError, match='int8'):
+        K.int8_gemm_bias(xq.float(), wq, scale, bias)
+    with pytest.raises(TypeError, match='float32'):
+        K.int8_gemm_bias(xq, wq, scale.bfloat16(), bias)
+    with pytest.raises(TypeError, match='out_dtype'):
+        K.int8_gemm_bias(xq, wq, scale, bias, torch.float16)
+    with pytest.raises(ValueError, match='K % 16'):
+        K.int8_gemm_bias(xq[:, :24].contiguous(), wq[:, :24].contiguous(),
+                         scale, bias)
+    with pytest.raises(ValueError, match='on cpu'):
+        K.int8_gemm_swiglu_quant(xq, wq, scale, bias.cpu(), 1.0)
+    with pytest.raises(TypeError, match='int8'):
+        K.int8_gemm_swiglu_quant(xq, wq.float(), scale, bias, 1.0)
+    qkv = torch.zeros(1, 8, 3 * 144, device=dev)
+    cs = torch.zeros(1, 8, 72, device=dev)
+    with pytest.raises(ValueError, match='cos'):
+        K.fused_qkln_rope_attention(qkv, cs.cpu(), cs, None, 2)
+    with pytest.raises(TypeError, match='float32 or all bfloat16'):
+        K.fused_qkln_rope_attention(qkv.half(), cs, cs, None, 2)
+    with pytest.raises(ValueError, match='head dim'):
+        K.fused_qkln_rope_attention(qkv, cs, cs, None, 3)
+    assert [w.launches for w in K.KERNEL_WRAPPERS] == launches
+
+
+def _small_fit(**overrides):
     """The small FiTv2 with its zero-init leaves perturbed (an untrained FiT
     outputs exactly 0, which would make the comparison vacuous)."""
     from fitv2_tpu_torch.models import FiT
     torch.manual_seed(0)
-    model = FiT(**SMALL)
+    model = FiT(**dict(SMALL, **overrides))
     g = torch.Generator().manual_seed(1)
     with torch.no_grad():
         for name, p in model.named_parameters():
@@ -175,7 +291,7 @@ def test_fit_forward_cuda_matches_cpu(dev, n_h, n_w):
                         size.to(dev)).cpu()
     depth = SMALL['depth']
     assert [w.launches - c for w, c in zip(K.KERNEL_WRAPPERS, counts)] == \
-        [2 * depth + 1, depth, depth]
+        [2 * depth + 1, depth, depth, 0, 0, 0]
     assert want.abs().max() > 0
     rel = ((got - want).norm() / want.norm()).item()
     assert rel <= 1e-5, rel
@@ -198,7 +314,42 @@ def test_sampler_with_vae_on_cuda(dev):
                 generator=torch.Generator().manual_seed(4))
     depth = SMALL['depth']
     assert [w.launches - c for w, c in zip(K.KERNEL_WRAPPERS, counts)] == \
-        [steps * (2 * depth + 1), steps * depth, steps * depth]
+        [steps * (2 * depth + 1), steps * depth, steps * depth, 0, 0, 0]
     # the two-level test decoder upsamples the 8x8 latents once
     assert images.dtype == torch.uint8 and images.shape == (b, 16, 16, 3)
     assert images.device.type == 'cuda'
+
+
+@pytest.mark.parametrize('variant', ['int8', 'fused'])
+def test_int8_and_fused_fit_forward_cuda_matches_cpu(dev, variant):
+    """fp32, padded 3x4 bucket. int8: calibrated on the CPU, then moved;
+    an int8 input may flip a rounding step where the fp32 upstream differs
+    in its last bits, so relative L2 1e-3. fused: 1e-5, as the dense path."""
+    from fitv2_tpu_torch.kernels.quant import (
+        calibrate_quant_scales, prequantize_weights)
+    from fitv2_tpu_torch.models.grid_utils import make_grid_mask_size
+    overrides = (dict(gemm_precision='int8') if variant == 'int8'
+                 else dict(attn_impl='fused'))
+    model = _small_fit(**overrides)
+    b = 2
+    g = torch.Generator().manual_seed(2)
+    x = torch.randn(b, 16, 16, generator=g)
+    t = torch.rand(b, generator=g)
+    y = torch.tensor([3, 10])
+    grid, mask, size = make_grid_mask_size(b, 3, 4, 16)
+    args = (x, t, y, grid, mask, size)
+    if variant == 'int8':
+        calibrate_quant_scales(model, [args])
+        prequantize_weights(model)
+    with torch.no_grad():
+        want = model(*args)
+        counts = [w.launches for w in K.KERNEL_WRAPPERS]
+        got = model.to(dev)(*(a.to(dev) for a in args)).cpu()
+    depth = SMALL['depth']
+    launched = [w.launches - c for w, c in zip(K.KERNEL_WRAPPERS, counts)]
+    if variant == 'int8':
+        assert launched == [2 * depth + 1, depth, depth, 0, 3 * depth, depth]
+    else:
+        assert launched == [2 * depth + 1, 0, 0, depth, 0, 0]
+    rel = ((got - want).norm() / want.norm()).item()
+    assert rel <= (1e-3 if variant == 'int8' else 1e-5), rel

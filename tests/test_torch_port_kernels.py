@@ -251,3 +251,55 @@ def test_build_library_path_tracks_sources(monkeypatch, tmp_path):
     monkeypatch.setenv('CUDA_HOME', str(tmp_path))
     with pytest.raises(RuntimeError, match='nvcc not found'):
         _build._nvcc()
+
+
+_FAKE_NVCC = '''#!{python}
+import os, sys
+args = sys.argv[1:]
+out = args[args.index('-o') + 1]
+with open(os.environ['FAKE_NVCC_LOG'], 'a') as f:
+    f.write(' '.join(args) + '\\n')
+src = args[-1]
+if os.path.basename(src) == os.environ.get('FAKE_NVCC_FAIL'):
+    sys.exit(2)
+print('ptxas info : compiled ' + os.path.basename(src) if '-c' in args
+      else 'linked')
+open(out, 'w').close()
+'''
+
+
+@pytest.mark.parametrize('fail', [None, 'int8_gemm.cu'], ids=['ok', 'fails'])
+def test_build_compiles_each_source_then_links(monkeypatch, tmp_path, fail):
+    """The build runs one nvcc per source and then one link, with a fake
+    nvcc (this machine has none): the library appears under its hash only
+    when every compile succeeded, and a failure names its source."""
+    import sys
+    bindir = tmp_path / 'bin'
+    bindir.mkdir()
+    fake = bindir / 'nvcc'
+    fake.write_text(_FAKE_NVCC.replace('{python}', sys.executable))
+    fake.chmod(0o755)
+    log = tmp_path / 'nvcc.log'
+    monkeypatch.setenv('PATH', str(bindir))
+    monkeypatch.setenv('FAKE_NVCC_LOG', str(log))
+    if fail:
+        monkeypatch.setenv('FAKE_NVCC_FAIL', fail)
+    monkeypatch.setattr(_build, 'BUILD_ROOT', tmp_path / 'build')
+    names = sorted(p.name for p in _build.sources())
+    if fail:
+        with pytest.raises(RuntimeError, match=f'nvcc failed: {fail}'):
+            _build.build()
+        assert not _build.library_path().exists()
+    else:
+        path, report = _build.build()
+        assert path == _build.library_path() and path.exists()
+        assert sorted(ln.split()[-1] for ln in report.splitlines()
+                      if 'compiled' in ln) == names
+        assert _build.build() == (path, '')  # built once, then reused
+    calls = log.read_text().splitlines()
+    compiles = [c for c in calls if ' -c ' in c]
+    assert sorted(c.split()[-1].rsplit('/', 1)[-1] for c in compiles) == names
+    assert len(calls) == len(names) + (0 if fail else 1)  # + the link
+    # no object or temporary file is left beside the library
+    left = [p.name for p in (tmp_path / 'build').rglob('*') if p.is_file()]
+    assert left == ([] if fail else [_build.LIB_NAME])

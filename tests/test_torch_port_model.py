@@ -272,11 +272,35 @@ def test_converter_rejects_leftover_keys():
 
 
 def test_unported_options_raise():
-    with pytest.raises(NotImplementedError, match='int8'):
-        FiT(**dict(SMALL, gemm_precision='int8'))
     with pytest.raises(NotImplementedError, match='online_rope'):
         FiT(**dict(SMALL, online_rope=True))
-    for kw in (dict(quantized=True), dict(save_attention=True),
-               dict(add_rel_pe_to_v=True), dict(attn_impl='fused')):
+    for kw in (dict(save_attention=True), dict(add_rel_pe_to_v=True)):
         with pytest.raises(NotImplementedError):
             Attention(144, 2, **kw)
+
+
+def test_int8_and_fused_options_build():
+    """The int8 serving mode and the fused attention path are ported: the
+    options build, keep the checkpoint's parameter names, and refuse what
+    JAX does not have."""
+    from fitv2_tpu_torch.kernels.quant import Int8Linear
+    dense = FiT(**SMALL)
+    q = FiT(**dict(SMALL, gemm_precision='int8'))
+    assert set(q.state_dict()) == set(dense.state_dict())
+    blk = q.blocks[0]
+    for lin in (blk.attn.qkv, blk.attn.proj, blk.mlp.fc1, blk.mlp.fc2):
+        assert isinstance(lin, Int8Linear)
+    assert not isinstance(blk.adaLN_modulation.fc_out, Int8Linear)
+    assert not isinstance(q.final_layer.linear, Int8Linear)
+    assert isinstance(Attention(144, 2, quantized=True).qkv, Int8Linear)
+    assert Attention(144, 2, attn_impl='fused', q_norm='layernorm',
+                     k_norm='layernorm').fused
+    # ineligible configurations fall through to the unfused path, as in JAX
+    assert not Attention(144, 2, attn_impl='fused',
+                         rope_layout='interleaved').fused
+    assert not Attention(144, 2, attn_impl='fused', q_norm='layernorm',
+                         k_norm='layernorm', qk_norm_weight=True).fused
+    with pytest.raises(ValueError, match='gemm_precision'):
+        FiT(**dict(SMALL, gemm_precision='fp8'))
+    with pytest.raises(ValueError, match='attn_impl'):
+        Attention(144, 2, attn_impl='pallas')

@@ -1,12 +1,15 @@
-"""PyTorch port (fitv2_tpu_torch.sample / cli / utils): the CFG Euler
-sampler against the JAX package's ``build_sampler`` on the same weights and
-the same noise, the FID loop's resume semantics, the config loader and the
-sampling CLI.
+"""PyTorch port (fitv2_tpu_torch.sample / flow / cli / utils): the CFG Euler
+sampler and its speed modes (guidance interval, velocity extrapolation of
+order 1 and 2, both composed) against the JAX package's ``build_sampler``
+on the same weights and the same noise, the FID loop's resume semantics,
+the config loader and the sampling CLI.
 
 The noise is exactly what the JAX sampler draws,
 ``jax.random.normal(rng, (B, n_ctx, 16))``, handed to the port as ``z``.
 Tolerance: fp32 over 4 Euler steps of a 2-block FiT, 5e-5 abs/rel (per-step
-forward agreement is ~2e-5; the steps add up).
+forward agreement is ~2e-5; the steps add up); 1e-4 over the 8 steps of
+the speed modes, whose extrapolation adds the velocity differences of
+three evaluations.
 """
 
 import os
@@ -127,6 +130,94 @@ def test_sampler_with_vae_matches_jax(models):
     assert diff.max() <= 1 and (diff == 0).mean() > 0.99
 
 
+SPEED_MODES = {
+    'interval': dict(guidance_low=0.3, guidance_high=0.7),
+    'extrap_order1': dict(velocity_eval_every=2),
+    'extrap_order2_tail': dict(velocity_eval_every=3,
+                               velocity_extrap_order=2),
+    'composed': dict(guidance_low=0.3, guidance_high=0.7,
+                     velocity_eval_every=2, velocity_extrap_order=2),
+}
+
+
+@pytest.mark.parametrize('mode', list(SPEED_MODES))
+def test_speed_mode_sampler_matches_jax(models, mode):
+    """8 steps on the padded 3x4 bucket: the interval's pre/window/post
+    phases are steps 0-2 / 3-5 / 6-7, extrapolation with a tail block of 2
+    for eval_every=3."""
+    jm, params, pm, _ = models
+    kw = dict(image_height=48, image_width=64, num_sampling_steps=8,
+              cfg_scale=1.5, num_classes=10, per_device_batch=B,
+              **SPEED_MODES[mode])
+    jfn = j_build_sampler(jm, params, JSamplingConfig(dtype=jnp.float32,
+                                                       **kw))
+    rng = jax.random.PRNGKey(11)
+    labels = np.array([2, 7])
+    want = np.asarray(jfn(rng, jnp.asarray(labels)))
+    z = np.array(jax.random.normal(rng, (B, 16, 16), jnp.float32))
+    scfg = SamplingConfig(dtype=torch.float32, **kw)
+    got = build_sampler(pm, scfg)(torch.from_numpy(labels),
+                                  z=torch.from_numpy(z)).numpy()
+    assert got.shape == want.shape == (B, 4, 6, 8)
+    # the mode changed the result: not the dense path under another name
+    dense = build_sampler(pm, SamplingConfig(
+        dtype=torch.float32, **{k: v for k, v in kw.items()
+                                if k not in SPEED_MODES[mode]}))
+    ref = dense(torch.from_numpy(labels), z=torch.from_numpy(z)).numpy()
+    assert np.abs(got - ref).max() > 1e-3
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
+
+
+def test_guidance_phases_split_the_ladder():
+    from fitv2_tpu_torch.sample.pipeline import guidance_phases
+    cfg = SamplingConfig(num_sampling_steps=8, guidance_low=0.3,
+                         guidance_high=0.7)
+    assert guidance_phases(cfg) == (3, 6)
+    assert guidance_phases(SamplingConfig(num_sampling_steps=10,
+                                          guidance_low=0.3,
+                                          guidance_high=0.9)) == (3, 10)
+    # inclusive bounds on the float64 ladder (t = 0.25 is in [0.25, 0.5])
+    assert guidance_phases(SamplingConfig(num_sampling_steps=4,
+                                          guidance_low=0.25,
+                                          guidance_high=0.5)) == (1, 3)
+    assert guidance_phases(SamplingConfig(num_sampling_steps=4,
+                                          guidance_low=0.9,
+                                          guidance_high=0.1)) == (0, 0)
+
+
+def test_extrapolation_matches_jax_on_a_curved_field():
+    """The samplers alone on an analytic field (no model): same ladder,
+    same state, order 1 and 2 and a non-dividing ladder."""
+    from fitv2_tpu.flow.samplers import (
+        euler_sample_extrapolated as j_extrap)
+    from fitv2_tpu_torch.flow import euler_sample_extrapolated
+
+    def field_j(x, t):
+        return jnp.sin(3.0 * t)[:, None] * x + jnp.cos(5.0 * t)[:, None]
+
+    def field_p(x, t):
+        return torch.sin(3.0 * t)[:, None] * x + torch.cos(5.0 * t)[:, None]
+
+    x = np.random.default_rng(0).standard_normal((3, 5)).astype(np.float32)
+    sig = jnp.linspace(0.0, 1.0, 11)
+    for every, order in ((2, 1), (3, 2), (4, 2)):
+        want = np.asarray(j_extrap(field_j, jnp.asarray(x), sig,
+                                   eval_every=every, order=order))
+        got = euler_sample_extrapolated(field_p, torch.from_numpy(x),
+                                        np.asarray(sig), every, order)
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=1e-6)
+    with pytest.raises(ValueError, match='order'):
+        euler_sample_extrapolated(field_p, torch.from_numpy(x),
+                                  np.asarray(sig), 2, 3)
+
+
+def test_sampler_refuses_bad_speed_settings(models):
+    pm = models[2]
+    for kw in (dict(velocity_extrap_order=3), dict(velocity_eval_every=0)):
+        with pytest.raises(ValueError, match='velocity'):
+            build_sampler(pm, SamplingConfig(num_classes=10, **kw))
+
+
 def test_fid_loop_resumes_bit_identically(models, tmp_path):
     _, _, pm, _ = models
     cfg = SamplingConfig(image_height=64, image_width=64,
@@ -202,9 +293,6 @@ def test_cli_samples_to_npz_on_cpu(models, tmp_path):
 
 
 @pytest.mark.parametrize('flags,slice_name', [
-    (['--gemm-precision', 'int8'], 'slice 3'),
-    (['--guidance-low', '0.3'], 'slice 3'),
-    (['--velocity-eval-every', '2'], 'slice 3'),
     (['--interpolation', 'dynntk'], 'slice 4'),
     (['--sampler-mode', 'ddim'], 'slice 6'),
     (['--data-parallel'], 'slice 9'),
@@ -212,6 +300,43 @@ def test_cli_samples_to_npz_on_cpu(models, tmp_path):
 def test_cli_refuses_flags_of_later_slices(flags, slice_name):
     with pytest.raises(NotImplementedError, match=slice_name):
         cli.main(['--cfgdir', 'unused.yaml', '--ckpt', 'unused', *flags])
+
+
+def test_cli_int8_serving_max_to_npz_on_cpu(models, tmp_path):
+    """int8 + guidance interval + quadratic velocity extrapolation through
+    the CLI, against the same run through the library."""
+    _, _, pm, pnp = models
+    cfg_path, ckpt = _write_cli_inputs(tmp_path, pnp)
+    out = str(tmp_path / 'serving_max.npz')
+    cli.main(['--cfgdir', cfg_path, '--ckpt', ckpt, '--image-height', '64',
+              '--image-width', '48', '--num-sampling-steps', '6',
+              '--num-fid-samples', '3', '--per-device-batch', '2',
+              '--num-classes', '10', '--global-seed', '2',
+              '--gemm-precision', 'int8', '--guidance-low', '0.3',
+              '--guidance-high', '0.9', '--velocity-eval-every', '2',
+              '--velocity-extrap-order', '2', '--device', 'cpu',
+              '--out', out])
+    arr = np.load(out)['arr_0']
+    assert arr.shape == (3, 4, 8, 6) and np.isfinite(arr).all()
+    model = FiT(**dict(SMALL, gemm_precision='int8'))
+    model.load_state_dict(pm.state_dict())
+    fn = build_sampler(model.eval(), SamplingConfig(
+        image_height=64, image_width=48, num_sampling_steps=6,
+        num_classes=10, per_device_batch=2, guidance_low=0.3,
+        guidance_high=0.9, velocity_eval_every=2, velocity_extrap_order=2))
+    assert model.blocks[0].mlp.fc1.weight_q is not None
+    np.testing.assert_allclose(
+        arr, generate_fid_samples(fn, 3, 2, num_classes=10, seed=2),
+        rtol=1e-6, atol=1e-6)
+
+
+def test_config_passes_attn_impl_and_gemm_precision_through():
+    net = {'target': 'fitv2_tpu.models.fit.FiT',
+           'params': dict(SMALL, attn_impl='fused', gemm_precision='int8')}
+    model = config_to_model(net)
+    assert model.gemm_precision == 'int8'
+    assert all(b.attn.fused for b in model.blocks)
+    assert type(model.blocks[0].mlp.fc2).__name__ == 'Int8Linear'
 
 
 def test_cli_cuda_device_without_cuda_raises(models, tmp_path):
