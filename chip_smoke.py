@@ -13,7 +13,9 @@ Phases (any failure raises and exits non-zero; nothing is caught):
   3. kernels  - each CUDA kernel against its plain PyTorch version at the
                 sampler's shapes (CFG batch 16, N 256, D 1152, H 16, Dh 72),
                 bf16 and fp32, with the error against the stated tolerance
-                and both median times (CUDA events).
+                and both median times (CUDA events); K6 at its three sites
+                (qkv, proj, fc2) for M = 4096 and 2048 (CFG and
+                conditional-only batches), bit for bit, with TOP/s.
   4. parity   - FiTv2-XL/2 (depth 36) fp32, random seeded weights with the
                 zero-init leaves perturbed, batch 1, one CFG Euler step: the
                 port on CUDA (kernels) against the port on the CPU (plain
@@ -68,9 +70,9 @@ TOL_BF16_ULPS = 2    # K1/K2 in bf16: within 2 bf16 ulps of the output's
                      # differs in the last bits may flip)
 TOL_BF16_ATTN = 2e-2 # attention in bf16, absolute
 TOL_SLICE_REL_L2 = 1e-4  # phase 4, velocity relative L2, fp32
-TOL_INT8_FP32_REL = 1e-6  # K6 fp32 out: exact int32 accumulator, only the
-                          # f32 epilogue may differ (FMA contraction)
-TOL_INT8_BF16_ULPS = 1    # K6 bf16 out: one rounding of that epilogue
+# K6 (fp32 and bf16 out) must equal its plain version bit for bit: the s32
+# accumulator is exact and both sides run the same unfused f32 epilogue
+# (multiply, then add, then one rounding to the output dtype)
 TOL_SWIGLU_FLIPS = 1e-3   # K7: share of s8 outputs off by one level (a
                           # rounding tie flipped by a 1-ulp sigmoid)
 MIN_INT8_COSINE = 0.99    # phase 6: int8 vs bf16 velocity (the JAX
@@ -121,7 +123,8 @@ def phase_build():
     secs = time.perf_counter() - t0
     _build.library()
     (path.parent / 'ptxas.txt').write_text(report)
-    spills = [ln for ln in report.splitlines()
+    lines = report.splitlines()
+    spills = [ln for ln in lines
               if 'spill' in ln and not ln.strip().startswith('0 bytes')
               and ' 0 bytes spill stores, 0 bytes spill loads' not in ln]
     say(f'[build] nvcc {len(_build.sources())} sources -> {path} in '
@@ -129,6 +132,12 @@ def phase_build():
         f'ptxas report {path.parent / "ptxas.txt"}')
     for ln in spills:
         say(f'[build] ptxas: {ln.strip()}')
+    for i, ln in enumerate(lines):  # K6's registers and static smem
+        if 'Compiling entry' in ln and 'int8_gemm_wgmma_kernel' in ln:
+            used = next((u for u in lines[i + 1:i + 4] if 'Used' in u), '')
+            dtype = 'bf16' if 'nv_bfloat16' in ln else 'fp32'
+            say(f'[build] ptxas K6 ({dtype} out): {used.split(":", 1)[-1]}'
+                ' (+ dynamic shared memory, set at launch)')
     return secs
 
 
@@ -190,6 +199,36 @@ def _compare(name, dtype, out, ref, kind):
     return worst_abs
 
 
+def _k6_site(K, dev, gen, site, m, k, n, dtype):
+    """K6 at one (M, K) x (N, K) site against its plain version: bit for
+    bit, then both median times."""
+    import torch
+    xq = torch.randint(-127, 128, (m, k), device=dev, dtype=torch.int8,
+                       generator=gen)
+    wq = torch.randint(-127, 128, (n, k), device=dev, dtype=torch.int8,
+                       generator=gen)
+    scale = torch.rand(n, device=dev, generator=gen) * 1e-4 + 1e-5
+    bias = torch.randn(n, device=dev, generator=gen)
+    out = K.int8_gemm_bias(xq, wq, scale, bias, dtype)
+    ref = K.int8_gemm_bias_reference(xq, wq, scale, bias, dtype)
+    err = (out.float() - ref.float()).abs().max().item()
+    ok = torch.equal(out, ref) and bool(torch.isfinite(out).all())
+    label = f'int8_gemm_bias[{site}, M {m}] {str(dtype)[6:]}'
+    say(f'[kernels] {label}: max abs {err:.3e}, bit for bit: '
+        f'{"ok" if ok else "FAIL"}')
+    if not ok:
+        raise AssertionError(f'{label}: differs from its plain version')
+    ms = _time_ms(lambda: K.int8_gemm_bias(xq, wq, scale, bias, dtype))
+    pms = _time_ms(lambda: K.int8_gemm_bias_reference(xq, wq, scale, bias,
+                                                      dtype))
+    top_s = 2 * m * k * n / ms / 1e9
+    say(f'[kernels] {label} ({m},{k})x({n},{k}): kernel {ms * 1e3:.1f} us, '
+        f'plain {pms * 1e3:.1f} us ({top_s:.1f} TOP/s)')
+    return dict(site=site, shape=[m, k, n], dtype=str(dtype)[6:],
+                max_abs_err=err, us=ms * 1e3, plain_us=pms * 1e3,
+                top_s=top_s)
+
+
 def phase_kernels():
     """Each kernel against its plain version at the slice's shapes."""
     import torch
@@ -198,6 +237,7 @@ def phase_kernels():
     gen = torch.Generator(device=dev).manual_seed(SEED)
     b2 = 2 * BATCH
     results = {}
+    k6_sites = []
 
     def record(key, err, ms, plain_ms):
         results.setdefault(key, dict(max_abs_err=err, ms=ms,
@@ -277,41 +317,13 @@ def phase_kernels():
             if m is not None:  # the variant the fused path runs
                 record('fused_attention', err, ms, pms)
 
-        # K6 at the int8 path's three GEMM shapes, out in this dtype
-        m_rows = b2 * N
-        for site, k, n in (('qkv', D, 3 * D), ('proj', D, D),
-                           ('fc2', 3072, D)):
-            xq = torch.randint(-127, 128, (m_rows, k), device=dev,
-                               dtype=torch.int8, generator=gen)
-            wq = torch.randint(-127, 128, (n, k), device=dev,
-                               dtype=torch.int8, generator=gen)
-            scale = torch.rand(n, device=dev, generator=gen) * 1e-4 + 1e-5
-            bias = torch.randn(n, device=dev, generator=gen)
-            out = K.int8_gemm_bias(xq, wq, scale, bias, dtype)
-            ref = K.int8_gemm_bias_reference(xq, wq, scale, bias, dtype)
-            err = (out.float() - ref.float()).abs().max().item()
-            if dtype == torch.float32:
-                rel = err / ref.abs().max().item()
-                ok, msg = rel <= TOL_INT8_FP32_REL, \
-                    f'rel {rel:.3e} <= {TOL_INT8_FP32_REL}'
-            else:
-                ulps = _bf16_ulp_err(out, ref)
-                ok, msg = ulps <= TOL_INT8_BF16_ULPS, \
-                    f'{ulps:.2f} bf16 ulps <= {TOL_INT8_BF16_ULPS}'
-            label = f'int8_gemm_bias[{site}] {str(dtype)[6:]}'
-            say(f'[kernels] {label}: max abs {err:.3e}, {msg}: '
-                f'{"ok" if ok else "FAIL"}')
-            if not ok or not torch.isfinite(out).all():
-                raise AssertionError(f'{label}: {msg} violated')
-            ms = _time_ms(lambda: K.int8_gemm_bias(xq, wq, scale, bias,
-                                                   dtype))
-            pms = _time_ms(lambda: K.int8_gemm_bias_reference(
-                xq, wq, scale, bias, dtype))
-            say(f'[kernels] {label} ({m_rows},{k})x({n},{k}): kernel '
-                f'{ms * 1e3:.1f} us, plain {pms * 1e3:.1f} us '
-                f'({2 * m_rows * k * n / ms / 1e9:.1f} TOP/s)')
-            if dtype == torch.bfloat16 and site == 'qkv':
-                record('int8_gemm_bias', err, ms, pms)
+        # K6 at the int8 path's three GEMM sites, out in this dtype, for
+        # the CFG batch (M = 4096) and the conditional-only one (2048)
+        for m_rows in (b2 * N, BATCH * N):
+            for site, k, n in (('qkv', D, 3 * D), ('proj', D, D),
+                               ('fc2', 3072, D)):
+                k6_sites.append(_k6_site(K, dev, gen, site, m_rows, k, n,
+                                         dtype))
         torch.cuda.synchronize()
 
     # K7 (its output is int8 whatever the model dtype)
@@ -343,6 +355,11 @@ def phase_kernels():
         f'({2 * b2 * N * k * two_h / ms / 1e9:.1f} TOP/s)')
     record('int8_gemm_swiglu_quant', float(diff.max().item()), ms, pms)
     torch.cuda.synchronize()
+    main_site = k6_sites[0]  # qkv, M = 4096, bf16: the top-level numbers
+    results['int8_gemm_bias'] = dict(
+        max_abs_err=max(st['max_abs_err'] for st in k6_sites),
+        ms=main_site['us'] / 1e3, plain_ms=main_site['plain_us'] / 1e3,
+        sites=k6_sites)
     return results
 
 
@@ -676,7 +693,7 @@ def main():
         ('fused_attention', 'fused_qkln_rope_attention', fused_counts,
          src + 'fused_attention.cu', 'fitv2_tpu/ops/fused_attention.py:52'),
         ('int8_gemm_bias', 'int8_gemm_bias', int8_counts,
-         src + 'int8_gemm.cu', 'fitv2_tpu/ops/int8_gemm.py:72'),
+         src + 'int8_gemm_wgmma.cu', 'fitv2_tpu/ops/int8_gemm.py:72'),
         ('int8_gemm_swiglu_quant', 'int8_gemm_swiglu_quant', int8_counts,
          src + 'int8_gemm.cu', 'fitv2_tpu/ops/int8_gemm.py:125'),
     ]

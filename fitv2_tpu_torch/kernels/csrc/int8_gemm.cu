@@ -1,19 +1,16 @@
-// int8 W8A8 GEMMs of the int8 serving path: one tensor-core GEMM core
-// (s8 x s8 -> s32) with two epilogues, chosen at compile time.
-//   kSwiGLU = false  out[m, n] = T(f32(acc) * scale[n] + bias[n])
-//                    replaces fitv2_tpu/ops/int8_gemm.py:_bias_kernel (entry
-//                    point int8_gemm_bias): qkv, proj and fc2 (and Mlp fc1).
-//   kSwiGLU = true   g = f32(acc_g) * scale[n] + bias[n],
-//                    v = f32(acc_v) * scale[H + n] + bias[H + n],
-//                    out[m, n] = s8(clip(rint(g * sigmoid(g) * v * osr), 127))
-//                    replaces fitv2_tpu/ops/int8_gemm.py:_swiglu_kernel (entry
-//                    point int8_gemm_swiglu_quant): SwiGLU fc1 + silu(g) * v +
-//                    requantization to fc2's int8 input.
-// xq: (M, K) s8 row-major; wq: (N, K) s8 row-major, the nn.Linear layout, so
-// each output column's weights are K-contiguous (the `.col` B operand of
-// mma); for the SwiGLU epilogue wq is fc1's (2H, K), rows [0, H) the gate
-// and [H, 2H) the value. scale/bias: f32, one per weight row (bias may be
-// null). K must be a multiple of 16; M and N edges are guarded.
+// K7, the int8 W8A8 SwiGLU GEMM of the int8 serving path:
+//   g = f32(acc_g) * scale[n] + bias[n],
+//   v = f32(acc_v) * scale[H + n] + bias[H + n],
+//   out[m, n] = s8(clip(rint(g * sigmoid(g) * v * osr), 127))
+// replaces fitv2_tpu/ops/int8_gemm.py:_swiglu_kernel (entry point
+// int8_gemm_swiglu_quant): SwiGLU fc1 + silu(g) * v + requantization to
+// fc2's int8 input. (K6, the GEMM with the plain dequant epilogue, is
+// int8_gemm_wgmma.cu.)
+// xq: (M, K) s8 row-major; wq: fc1's (2H, K) s8 row-major, the nn.Linear
+// layout, so each output column's weights are K-contiguous (the `.col` B
+// operand of mma); rows [0, H) are the gate and [H, 2H) the value.
+// scale/bias: f32, one per weight row (bias may be null). K must be a
+// multiple of 16; M and N edges are guarded.
 //
 // The accumulator is exact (|acc| <= 127^2 * K, 4.96e7 at K = 3072, well
 // inside s32), so the output differs from the plain version only in the f32
@@ -22,22 +19,21 @@
 // requantization rounds half to even (rintf), as torch.round and jnp.round
 // do. The sigmoid uses expf, not __expf.
 //
-// What bounds it on an H100: at the serving shapes (M = 4096, K x N = 1152 x
-// 3456, 1152 x 1152, 3072 x 1152; fc1 1152 x 6144) the products are 10.9 to
-// 58 GOP over 15 to 37 MB of operands and outputs, 700 to 2,400 ops per
-// byte: above the int8 tensor cores' ridge (~590 ops/byte), so tensor-core
-// throughput bounds it.
+// What bounds it on an H100: at the serving shape (M = 4096, K x 2H = 1152
+// x 6144) the product is 58 GOP over 37 MB of operands and outputs, ~1,600
+// ops per byte: above the int8 tensor cores' ridge (~590 ops/byte), so
+// tensor-core throughput bounds it.
 // Design: mma.sync m16n8k32 s8 (legacy warp-level MMA; wgmma is the next
-// step). A block computes a 128 x 128 tile with 8 warps of 64 x 32 each (4 x
-// 4 m16n8 tiles, 64 s32 accumulators a thread); K is walked in 64-byte steps
-// through shared memory, the next step's tiles are loaded into registers
-// (16-byte loads) while the current one is multiplied. Shared rows are
-// padded to 80 bytes so the fragment reads of a warp fall in distinct banks.
-// The SwiGLU variant covers 64 output columns: its 128 B rows are 64 gate
-// rows and the matching 64 value rows, and each warp's n8 tiles 0-1 (gate)
-// and 2-3 (value) hold the same output columns, so silu(g) * v and the
-// requantization run on the accumulators; the (M, 2H) fc1 output and the
-// (M, H) activation never reach device memory.
+// step). A block computes 128 rows x 64 output columns, i.e. a 128 x 128
+// tile of fc1 whose 128 B rows are 64 gate rows and the matching 64 value
+// rows, with 8 warps of 64 x 32 each (4 x 4 m16n8 tiles, 64 s32
+// accumulators a thread); K is walked in 64-byte steps through shared
+// memory, the next step's tiles are loaded into registers (16-byte loads)
+// while the current one is multiplied. Shared rows are padded to 80 bytes
+// so the fragment reads of a warp fall in distinct banks. Each warp's n8
+// tiles 0-1 (gate) and 2-3 (value) hold the same output columns, so
+// silu(g) * v and the requantization run on the accumulators; the (M, 2H)
+// fc1 output and the (M, H) activation never reach device memory.
 #include <cstdint>
 
 #include "common.cuh"
@@ -64,26 +60,23 @@ __device__ __forceinline__ unsigned ld32(const int8_t* p) {
   return *reinterpret_cast<const unsigned*>(p);
 }
 
-// Global row of B that shared row r of the tile holds, or -1 past the edge.
-template <bool kSwiGLU>
+// Global row of B that shared row r of the tile holds, or -1 past the edge
+// (n = H: 64 gate rows, then the 64 value rows).
 __device__ __forceinline__ int b_row(int r, int n0, int n) {
-  if constexpr (kSwiGLU) {  // n = H: 64 gate rows, then the 64 value rows
-    const int col = n0 + (r & 63);
-    return col < n ? (r < 64 ? col : n + col) : -1;
-  } else {
-    return n0 + r < n ? n0 + r : -1;
-  }
+  const int col = n0 + (r & 63);
+  return col < n ? (r < 64 ? col : n + col) : -1;
 }
 
-template <typename T, bool kSwiGLU>
 __global__ void __launch_bounds__(kThreads)
-int8_gemm_kernel(const int8_t* __restrict__ xq, const int8_t* __restrict__ wq,
-                 const float* __restrict__ scale,
-                 const float* __restrict__ bias, T* __restrict__ out,
-                 int8_t* __restrict__ out_q, int m, int n, int k, float osr) {
+int8_gemm_swiglu_kernel(const int8_t* __restrict__ xq,
+                        const int8_t* __restrict__ wq,
+                        const float* __restrict__ scale,
+                        const float* __restrict__ bias,
+                        int8_t* __restrict__ out_q, int m, int n, int k,
+                        float osr) {
   __shared__ __align__(16) int8_t As[kBM * kLd];
   __shared__ __align__(16) int8_t Bs[kBN * kLd];
-  constexpr int kCols = kSwiGLU ? kBN / 2 : kBN;  // output columns per block
+  constexpr int kCols = kBN / 2;  // output columns per block
   const int m0 = blockIdx.y * kBM, n0 = blockIdx.x * kCols;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int wm = warp >> 2, wn = warp & 3;
@@ -97,7 +90,7 @@ int8_gemm_kernel(const int8_t* __restrict__ xq, const int8_t* __restrict__ wq,
     const int r = idx / kChunks;
     chunk[i] = (idx % kChunks) * 16;
     a_row[i] = m0 + r < m ? m0 + r : -1;
-    b_src[i] = b_row<kSwiGLU>(r, n0, n);
+    b_src[i] = b_row(r, n0, n);
   }
   int4 ra[2], rb[2];
   auto load = [&](int k0) {
@@ -116,8 +109,7 @@ int8_gemm_kernel(const int8_t* __restrict__ xq, const int8_t* __restrict__ wq,
 
   // shared row of B for the warp's n8 tile j
   auto bs_row = [&](int j) {
-    if constexpr (kSwiGLU) return (j < 2 ? 0 : 64) + wn * 16 + (j & 1) * 8;
-    else return wn * 32 + j * 8;
+    return (j < 2 ? 0 : 64) + wn * 16 + (j & 1) * 8;
   };
 
   int acc[4][4][4];
@@ -170,66 +162,27 @@ int8_gemm_kernel(const int8_t* __restrict__ xq, const int8_t* __restrict__ wq,
     for (int r = 0; r < 4; ++r) {
       const int row = m0 + wm * 64 + i * 16 + g + 8 * (r >> 1);
       if (row >= m) continue;
-      if constexpr (kSwiGLU) {
 #pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          const int col = n0 + wn * 16 + j * 8 + 2 * t + (r & 1);
-          if (col >= n) continue;
-          float gt = __fmul_rn(static_cast<float>(acc[i][j][r]), scale[col]);
-          float vt = __fmul_rn(static_cast<float>(acc[i][j + 2][r]),
-                               scale[n + col]);
-          if (bias) {
-            gt = __fadd_rn(gt, bias[col]);
-            vt = __fadd_rn(vt, bias[n + col]);
-          }
-          const float sig = 1.f / (1.f + expf(-gt));
-          const float h = __fmul_rn(__fmul_rn(gt, sig), vt);
-          const float q = fminf(fmaxf(rintf(__fmul_rn(h, osr)), -127.f), 127.f);
-          out_q[(long long)row * n + col] = static_cast<int8_t>(q);
+      for (int j = 0; j < 2; ++j) {
+        const int col = n0 + wn * 16 + j * 8 + 2 * t + (r & 1);
+        if (col >= n) continue;
+        float gt = __fmul_rn(static_cast<float>(acc[i][j][r]), scale[col]);
+        float vt = __fmul_rn(static_cast<float>(acc[i][j + 2][r]),
+                             scale[n + col]);
+        if (bias) {
+          gt = __fadd_rn(gt, bias[col]);
+          vt = __fadd_rn(vt, bias[n + col]);
         }
-      } else {
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int col = n0 + wn * 32 + j * 8 + 2 * t + (r & 1);
-          if (col >= n) continue;
-          float y = __fmul_rn(static_cast<float>(acc[i][j][r]), scale[col]);
-          if (bias) y = __fadd_rn(y, bias[col]);
-          out[(long long)row * n + col] = from_float<T>(y);
-        }
+        const float sig = 1.f / (1.f + expf(-gt));
+        const float h = __fmul_rn(__fmul_rn(gt, sig), vt);
+        const float q = fminf(fmaxf(rintf(__fmul_rn(h, osr)), -127.f), 127.f);
+        out_q[(long long)row * n + col] = static_cast<int8_t>(q);
       }
     }
   }
 }
 
 }  // namespace
-
-// (M, K) s8 @ (N, K)^T s8 -> (M, N) f32 or bf16 with the dequant epilogue.
-extern "C" int fitv2_int8_gemm_bias(const void* xq, const void* wq,
-                                    const void* scale, const void* bias,
-                                    void* out, int m, int n, int k, int dtype,
-                                    void* stream) {
-  if (k % 16) return cudaErrorInvalidValue;
-  auto st = static_cast<cudaStream_t>(stream);
-  const dim3 grid((n + kBN - 1) / kBN, (m + kBM - 1) / kBM);
-  auto x = static_cast<const int8_t*>(xq);
-  auto w = static_cast<const int8_t*>(wq);
-  auto s = static_cast<const float*>(scale);
-  auto b = static_cast<const float*>(bias);
-  switch (dtype) {
-    case kFloat32:
-      int8_gemm_kernel<float, false><<<grid, kThreads, 0, st>>>(
-          x, w, s, b, static_cast<float*>(out), nullptr, m, n, k, 0.f);
-      break;
-    case kBFloat16:
-      int8_gemm_kernel<__nv_bfloat16, false><<<grid, kThreads, 0, st>>>(
-          x, w, s, b, static_cast<__nv_bfloat16*>(out), nullptr, m, n, k,
-          0.f);
-      break;
-    default:
-      return cudaErrorInvalidValue;
-  }
-  return cudaGetLastError();
-}
 
 // (M, K) s8 @ fc1 (2H, K)^T s8 -> dequant, silu(g) * v, requant -> (M, H) s8.
 extern "C" int fitv2_int8_gemm_swiglu_quant(const void* xq, const void* wq,
@@ -241,9 +194,9 @@ extern "C" int fitv2_int8_gemm_swiglu_quant(const void* xq, const void* wq,
   if (k % 16) return cudaErrorInvalidValue;
   auto st = static_cast<cudaStream_t>(stream);
   const dim3 grid((h + kBN / 2 - 1) / (kBN / 2), (m + kBM - 1) / kBM);
-  int8_gemm_kernel<float, true><<<grid, kThreads, 0, st>>>(
+  int8_gemm_swiglu_kernel<<<grid, kThreads, 0, st>>>(
       static_cast<const int8_t*>(xq), static_cast<const int8_t*>(wq),
       static_cast<const float*>(scale), static_cast<const float*>(bias),
-      nullptr, static_cast<int8_t*>(out), m, h, k, out_scale_recip);
+      static_cast<int8_t*>(out), m, h, k, out_scale_recip);
   return cudaGetLastError();
 }

@@ -1,4 +1,5 @@
-"""int8 W8A8 GEMMs with fused epilogues (csrc/int8_gemm.cu).
+"""int8 W8A8 GEMMs with fused epilogues (csrc/int8_gemm_wgmma.cu: K6;
+csrc/int8_gemm.cu: K7).
 
 Counterpart of fitv2_tpu/ops/int8_gemm.py, the two kernels of the int8
 serving path (calibrated static activation scales):
@@ -87,9 +88,9 @@ def _check_operands(name: str, xq: Tensor, wq: Tensor, scale: Tensor,
         if t.data_ptr() % 16:
             raise ValueError(f'{name}: {t_name} must be 16-byte aligned')
     m, k = xq.shape
-    if wq.shape != (n_rows, k) or k % 16:
+    if wq.shape != (n_rows, k) or k % 16 or not k:
         raise ValueError(f'{name}: need xq (M, K), wq ({n_rows}, K) with '
-                         f'K % 16 == 0; got {tuple(xq.shape)} '
+                         f'K % 16 == 0, K > 0; got {tuple(xq.shape)} '
                          f'{tuple(wq.shape)}')
     for t_name, t in vecs:
         if t.dtype != torch.float32 or t.shape != (n_rows,):

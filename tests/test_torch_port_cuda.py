@@ -14,10 +14,11 @@ Tolerances: fp32 kernel vs plain, 1e-5 of the output's largest magnitude
 (the same math summed in another order); bf16, 2 bf16 ulps of that
 magnitude (both sides compute in fp32 and round once, so an fp32 value that
 differs in its last bits may round to the neighbouring bf16). The int8
-GEMMs' accumulators are exact, so their dequantized outputs get 1 bf16 ulp
-(fp32: 1e-6 relative) and the SwiGLU requantization may flip a rounding tie
-(at most 0.1% of the elements, by one level). The fused attention rounds p
-to bf16 before p @ v: 2e-2 absolute in bf16.
+GEMMs' accumulators are exact: K6 applies the same unfused epilogue as its
+plain version (f32 multiply, then f32 add, then one rounding to the output
+dtype), so it must equal it bit for bit, and the SwiGLU requantization may
+flip a rounding tie (at most 0.1% of the elements, by one level). The fused
+attention rounds p to bf16 before p @ v: 2e-2 absolute in bf16.
 """
 
 import math
@@ -154,26 +155,65 @@ def _int8_operands(dev, m, k, n, seed):
     return xq, wq, scale, bias
 
 
-@pytest.mark.parametrize('out_dtype', DTYPES, ids=['fp32', 'bf16'])
-@pytest.mark.parametrize('with_bias', [True, False], ids=['bias', 'no_bias'])
-@pytest.mark.parametrize('m,k,n', [(400, 1152, 1160), (4096, 3072, 1152),
-                                   (17, 32, 24)])
-def test_int8_gemm_bias_kernel_matches_plain(dev, out_dtype, with_bias, m, k,
-                                             n):
-    """M = 200 * 2 and N = 1152 + 8 leave ragged M and N tiles."""
-    xq, wq, scale, bias = _int8_operands(dev, m, k, n, seed=5)
-    bias = bias if with_bias else None
+def _assert_int8_gemm_bias_exact(xq, wq, scale, bias, out_dtype):
+    """K6 against its plain version: equal bit for bit (an exact s32
+    accumulator and the same unfused f32 epilogue on both sides)."""
+    (m, k), n = xq.shape, wq.shape[0]
     before = K.int8_gemm_bias.launches
     out = K.dequant_gemm(xq, wq, scale, bias, out_dtype)
     assert K.int8_gemm_bias.launches == before + 1
-    ref = K.int8_gemm_bias_reference(xq, wq, scale, bias, out_dtype)
+    if m > 16 and k % 8 == 0 and n % 8 == 0:
+        ref = K.int8_gemm_bias_reference(xq, wq, scale, bias, out_dtype)
+    else:  # torch._int_mm on CUDA refuses the shape: the same plain
+        # version on the CPU (IEEE f32 ops, the same rounding)
+        ref = K.int8_gemm_bias_reference(
+            xq.cpu(), wq.cpu(), scale.cpu(),
+            None if bias is None else bias.cpu(), out_dtype).to(out.device)
     assert out.dtype == out_dtype and out.shape == (m, n)
-    err = (out.float() - ref.float()).abs().max().item()
-    top = ref.float().abs().max().item()
-    if out_dtype == torch.float32:
-        assert err <= 1e-6 * top, (err, top)
-    else:
-        assert err <= 2.0 ** (math.floor(math.log2(top)) - 7), (err, top)
+    assert torch.isfinite(out).all()
+    diff = (out.float() - ref.float()).abs()
+    assert torch.equal(out, ref), (diff.max().item(), diff.nonzero()[:4])
+
+
+@pytest.mark.parametrize('out_dtype', DTYPES, ids=['fp32', 'bf16'])
+@pytest.mark.parametrize('with_bias', [True, False], ids=['bias', 'no_bias'])
+@pytest.mark.parametrize('m,k,n', [
+    (2048, 1152, 1152), (2048, 3072, 1152), (4096, 1152, 3456),
+    (4096, 3072, 1152), (400, 1152, 1160), (300, 1168, 1160), (1, 16, 8),
+    (129, 3072, 145), (17, 32, 24)])
+def test_int8_gemm_bias_kernel_matches_plain(dev, out_dtype, with_bias, m, k,
+                                             n):
+    """The int8 path's sites at M = 2048 and 4096 (qkv, proj, fc2), and
+    ragged shapes: M = 400, 300, 129 and N = 1160, 145 past a 128 x 144
+    tile by a few rows and columns, K = 1168 not a multiple of the 128-byte
+    box, odd N, and a single row."""
+    xq, wq, scale, bias = _int8_operands(dev, m, k, n, seed=5)
+    _assert_int8_gemm_bias_exact(xq, wq, scale, bias if with_bias else None,
+                                 out_dtype)
+
+
+@pytest.mark.parametrize('out_dtype', DTYPES, ids=['fp32', 'bf16'])
+def test_int8_gemm_bias_kernel_saturated(dev, out_dtype):
+    """Every operand +-127 at K = 3072: |acc| up to 127^2 * 3072 > 2^24, so
+    its f32 conversion rounds; both sides round the same s32 the same way."""
+    m, k, n = 256, 3072, 288
+    g = _gen(dev, 9)
+
+    def pm127(*shape):
+        bits = torch.randint(0, 2, shape, device=dev, generator=g,
+                             dtype=torch.int8)
+        return 127 * (2 * bits - 1)
+
+    xq = pm127(m, k)
+    xq[:128] = 127  # rows of the extreme sums
+    wq = pm127(n, k)
+    wq[:8] = 127
+    wq[8:16] = -127
+    scale = torch.rand(n, device=dev, generator=g) * 1e-4 + 1e-5
+    bias = torch.randn(n, device=dev, generator=g)
+    acc = torch._int_mm(xq, wq.t())
+    assert acc.abs().max().item() == 127 ** 2 * k
+    _assert_int8_gemm_bias_exact(xq, wq, scale, bias, out_dtype)
 
 
 @pytest.mark.parametrize('m,k,h', [(400, 1152, 1160), (4096, 1152, 3072),
@@ -239,6 +279,9 @@ def test_new_wrappers_refuse_what_the_kernels_do_not_take(dev):
         K.int8_gemm_bias(xq, wq, scale, bias, torch.float16)
     with pytest.raises(ValueError, match='K % 16'):
         K.int8_gemm_bias(xq[:, :24].contiguous(), wq[:, :24].contiguous(),
+                         scale, bias)
+    with pytest.raises(ValueError, match='K > 0'):
+        K.int8_gemm_bias(xq[:, :0].contiguous(), wq[:, :0].contiguous(),
                          scale, bias)
     with pytest.raises(ValueError, match='on cpu'):
         K.int8_gemm_swiglu_quant(xq, wq, scale, bias.cpu(), 1.0)
