@@ -13,9 +13,15 @@ Phases (any failure raises and exits non-zero; nothing is caught):
   3. kernels  - each CUDA kernel against its plain PyTorch version at the
                 sampler's shapes (CFG batch 16, N 256, D 1152, H 16, Dh 72),
                 bf16 and fp32, with the error against the stated tolerance
-                and both median times (CUDA events); K6 at its three sites
-                (qkv, proj, fc2) for M = 4096 and 2048 (CFG and
-                conditional-only batches), bit for bit, with TOP/s.
+                and both median times (CUDA events), beside the kernel's
+                bound (bytes over 3.35 TB/s or operations over the peak of
+                their type, the larger); the attention kernel's four
+                variant/mask cases also beside torch's
+                scaled_dot_product_attention on the same inputs (checked
+                against the plain version, timed as the yardstick, used
+                nowhere in the package); K6 at its three sites (qkv, proj,
+                fc2) for M = 4096 and 2048 (CFG and conditional-only
+                batches), bit for bit, with TOP/s.
   4. parity   - FiTv2-XL/2 (depth 36) fp32, random seeded weights with the
                 zero-init leaves perturbed, batch 1, one CFG Euler step: the
                 port on CUDA (kernels) against the port on the CPU (plain
@@ -48,6 +54,7 @@ import copy
 import dataclasses
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -68,7 +75,9 @@ TOL_FP32_REL = 1e-5  # max |kernel - plain| / max |plain|: fp32 sums in
 TOL_BF16_ULPS = 2    # K1/K2 in bf16: within 2 bf16 ulps of the output's
                      # largest magnitude (one rounding of an fp32 value that
                      # differs in the last bits may flip)
-TOL_BF16_ATTN = 2e-2 # attention in bf16, absolute
+TOL_BF16_ATTN = 2e-2 # attention in bf16, absolute: the kernels round p to
+                     # bf16 before p @ v, as the TPU kernels do; the plain
+                     # versions keep it in fp32
 TOL_SLICE_REL_L2 = 1e-4  # phase 4, velocity relative L2, fp32
 # K6 (fp32 and bf16 out) must equal its plain version bit for bit: the s32
 # accumulator is exact and both sides run the same unfused f32 epilogue
@@ -81,6 +90,9 @@ MAX_FUSED_REL_L2 = 0.1    # phase 8: fused vs unfused velocity in bf16; the
                           # two round p at different points in 36 blocks,
                           # a wiring fault gives O(1)
 GUIDANCE = (0.3, 0.9)     # phase 7, as bench.py's serving-max mode
+# the H100 SXM's published peaks (dense), for each kernel's bound
+PEAK_BYTES_S = 3.35e12
+PEAK_OPS_S = {'bf16': 989e12, 'int8': 1979e12, 'fp32': 67e12}
 EVAL_EVERY, EXTRAP_ORDER = 2, 2
 PADDED_HW = (160, 320)    # phase 8: 10 x 20 = 200 of 256 tokens
 
@@ -124,20 +136,28 @@ def phase_build():
     _build.library()
     (path.parent / 'ptxas.txt').write_text(report)
     lines = report.splitlines()
-    spills = [ln for ln in lines
-              if 'spill' in ln and not ln.strip().startswith('0 bytes')
-              and ' 0 bytes spill stores, 0 bytes spill loads' not in ln]
     say(f'[build] nvcc {len(_build.sources())} sources -> {path} in '
         f'{secs:.3f} s{" (already built)" if not report else ""}; '
         f'ptxas report {path.parent / "ptxas.txt"}')
-    for ln in spills:
-        say(f'[build] ptxas: {ln.strip()}')
-    for i, ln in enumerate(lines):  # K6's registers and static smem
-        if 'Compiling entry' in ln and 'int8_gemm_wgmma_kernel' in ln:
-            used = next((u for u in lines[i + 1:i + 4] if 'Used' in u), '')
+    for i, ln in enumerate(lines):  # spills, K6's and the attention's lines
+        if 'Compiling entry' not in ln:
+            continue
+        used = next((u for u in lines[i + 1:i + 4] if 'Used' in u), '')
+        spill = next((u for u in lines[i + 1:i + 4] if 'spill' in u), '')
+        if spill and ' 0 bytes spill stores, 0 bytes spill loads' not in spill:
+            name = ln.split("'")[1] if "'" in ln else ln.strip()
+            say(f'[build] ptxas spills in {name}: {spill.strip()}')
+        attn = re.search(r'attention_mma_kernelILi72ELb([01])ELb([01])E', ln)
+        if 'int8_gemm_wgmma_kernel' in ln:
             dtype = 'bf16' if 'nv_bfloat16' in ln else 'fp32'
             say(f'[build] ptxas K6 ({dtype} out): {used.split(":", 1)[-1]}'
-                ' (+ dynamic shared memory, set at launch)')
+                f'; {spill.strip()} (+ dynamic shared memory, set at launch)')
+        elif attn:
+            variant = 'bounded' if attn[1] == '1' else 'online'
+            mask = 'mask' if attn[2] == '1' else 'no mask'
+            say(f'[build] ptxas attention bf16 (Dh 72, {variant}, {mask}):'
+                f' {used.split(":", 1)[-1]}; {spill.strip()} (+ dynamic '
+                'shared memory, set at launch)')
     return secs
 
 
@@ -161,6 +181,15 @@ def _time_ms(fn, reps=REPS):
         b.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def _bound_ms(nbytes, ops, kind):
+    """The least time the card could take: bytes over the memory rate or
+    operations over the peak of their type, the larger; and which."""
+    by_bytes = nbytes / PEAK_BYTES_S * 1e3
+    by_ops = ops / PEAK_OPS_S[kind] * 1e3
+    return (by_bytes, 'bytes') if by_bytes >= by_ops else (by_ops,
+                                                           'operations')
 
 
 def _bf16_ulp_err(out, ref):
@@ -201,7 +230,7 @@ def _compare(name, dtype, out, ref, kind):
 
 def _k6_site(K, dev, gen, site, m, k, n, dtype):
     """K6 at one (M, K) x (N, K) site against its plain version: bit for
-    bit, then both median times."""
+    bit, then both median times and the bound."""
     import torch
     xq = torch.randint(-127, 128, (m, k), device=dev, dtype=torch.int8,
                        generator=gen)
@@ -222,11 +251,60 @@ def _k6_site(K, dev, gen, site, m, k, n, dtype):
     pms = _time_ms(lambda: K.int8_gemm_bias_reference(xq, wq, scale, bias,
                                                       dtype))
     top_s = 2 * m * k * n / ms / 1e9
+    # s8 operands, f32 scale and bias, the output in `dtype`
+    bound, by = _bound_ms(m * k + n * k + 8 * n + m * n * out.element_size(),
+                          2 * m * k * n, 'int8')
     say(f'[kernels] {label} ({m},{k})x({n},{k}): kernel {ms * 1e3:.1f} us, '
-        f'plain {pms * 1e3:.1f} us ({top_s:.1f} TOP/s)')
+        f'plain {pms * 1e3:.1f} us ({top_s:.1f} TOP/s), bound '
+        f'{bound * 1e3:.1f} us ({by})')
     return dict(site=site, shape=[m, k, n], dtype=str(dtype)[6:],
                 max_abs_err=err, us=ms * 1e3, plain_us=pms * 1e3,
-                top_s=top_s)
+                top_s=top_s, bound_us=bound * 1e3, bound_by=by)
+
+
+def _attention_case(K, dtype, q, k, v, mask, bounded, time_plain=True):
+    """One variant/mask case of the attention kernel: against its plain
+    version, then kernel, plain (unless not `time_plain`) and
+    scaled_dot_product_attention times (the last on (B, H, N, Dh) views with
+    a boolean (B, 1, 1, N) key mask, checked against the plain version
+    first) beside the bound. The mask's valid keys come first."""
+    import torch
+    import torch.nn.functional as F
+    plain = K.attention_bounded_reference if bounded else K.attention_reference
+    variant = 'bounded' if bounded else 'online'
+    n_valid = q.shape[1] if mask is None else int((mask[0] > 0).sum())
+    masked = (f'mask {n_valid}/{q.shape[1]}' if mask is not None
+              else 'no mask')
+    label = f'attention[{variant},{masked}]'
+    out = K.flash_masked_attention(q, k, v, mask, bounded)
+    ref = plain(q, k, v, mask)
+    err = _compare(label, dtype, out, ref, 'attention')  # padded rows too
+    attn_mask = None if mask is None else (mask > 0)[:, None, None, :]
+
+    def library():
+        return F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            attn_mask=attn_mask)
+    lib_err = _compare(label + ' scaled_dot_product_attention', dtype,
+                       library().transpose(1, 2), ref, 'attention')
+    ms = _time_ms(lambda: K.flash_masked_attention(q, k, v, mask, bounded))
+    pms = _time_ms(lambda: plain(q, k, v, mask)) if time_plain else None
+    lms = _time_ms(library)
+    b, n, h, dh = q.shape
+    nbytes = 4 * q.numel() * q.element_size() + (
+        0 if mask is None else mask.numel() * mask.element_size())
+    kind = 'bf16' if dtype == torch.bfloat16 else 'fp32'
+    bound, by = _bound_ms(nbytes, 4 * b * h * n * n * dh, kind)
+    plain_say = f'plain {pms * 1e3:.1f} us, ' if time_plain else ''
+    say(f'[kernels] {label} {kind} ({b},{n},{h},{dh}): kernel '
+        f'{ms * 1e3:.1f} us, {plain_say}'
+        f'scaled_dot_product_attention {lms * 1e3:.1f} us, bound '
+        f'{bound * 1e3:.1f} us ({by})')
+    return dict(variant=variant, mask=mask is not None, dtype=kind,
+                max_abs_err=err, us=ms * 1e3,
+                plain_us=pms * 1e3 if time_plain else None,
+                library_us=lms * 1e3, library_max_abs_err=lib_err,
+                bound_us=bound * 1e3, bound_by=by)
 
 
 def phase_kernels():
@@ -238,12 +316,17 @@ def phase_kernels():
     b2 = 2 * BATCH
     results = {}
     k6_sites = []
+    attention_cases = []
 
-    def record(key, err, ms, plain_ms):
-        results.setdefault(key, dict(max_abs_err=err, ms=ms,
-                                     plain_ms=plain_ms))
+    def record(key, err, ms, plain_ms, nbytes, ops, kind):
+        bound, by = _bound_ms(nbytes, ops, kind)
+        results.setdefault(key, dict(
+            max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+            bound_by=by, library_ms=None))
 
     for dtype in (torch.bfloat16, torch.float32):
+        kind = 'bf16' if dtype == torch.bfloat16 else 'fp32'
+        es = torch.finfo(dtype).bits // 8
         x = torch.randn(b2, N, D, device=dev, generator=gen).to(dtype)
         mod = (0.5 * torch.randn(b2, 6 * D, device=dev, generator=gen)
                ).to(dtype)
@@ -253,9 +336,11 @@ def phase_kernels():
         err = _compare('adaln', dtype, out, ref, 'norm')
         ms = _time_ms(lambda: K.fused_adaln_norm(x, shift, scale))
         pms = _time_ms(lambda: K.adaln_norm_reference(x, shift, scale))
-        say(f'[kernels] adaln {str(dtype)[6:]} ({b2},{N},{D}): kernel '
+        say(f'[kernels] adaln {kind} ({b2},{N},{D}): kernel '
             f'{ms * 1e3:.1f} us, plain {pms * 1e3:.1f} us')
-        record('adaln', err, ms, pms)
+        # x in, out, shift and scale; ~8 fp32 operations an element
+        record('adaln', err, ms, pms, (2 * x.numel() + 2 * b2 * D) * es,
+               8 * x.numel(), 'fp32')
 
         qkv = torch.randn(b2, N, 3, H, DH, device=dev, generator=gen
                           ).to(dtype)
@@ -267,35 +352,22 @@ def phase_kernels():
         err = _compare('qk_rope', dtype, out, ref, 'norm')
         ms = _time_ms(lambda: K.fused_qk_rope(q, k, cos, sin))
         pms = _time_ms(lambda: K.qk_norm_rope_reference(q, k, cos, sin))
-        say(f'[kernels] qk_rope {str(dtype)[6:]} ({b2},{N},{H},{DH}): '
+        say(f'[kernels] qk_rope {kind} ({b2},{N},{H},{DH}): '
             f'kernel {ms * 1e3:.1f} us, plain {pms * 1e3:.1f} us')
-        record('qk_rope', err, ms, pms)
+        # q and k in and out, the fp32 cos/sin tables; ~10 fp32 operations
+        # an element (LayerNorm, then the rotation)
+        record('qk_rope', err, ms, pms,
+               4 * q.numel() * es + 2 * cos.numel() * 4, 20 * q.numel(),
+               'fp32')
 
         # attention inputs: LayerNormed q/k (the bounded-logit contract)
         qn, kn = K.qk_norm_rope_reference(q, k, cos, sin)
         mask = torch.zeros(b2, N, device=dev)
         mask[:, :N_VALID] = 1.0
         for bounded in (True, False):
-            plain = (K.attention_bounded_reference if bounded
-                     else K.attention_reference)
             for m in (None, mask):
-                label = (f'attention[{"bounded" if bounded else "online"},'
-                         f'{"mask 200/256" if m is not None else "no mask"}]')
-                out = K.flash_masked_attention(qn, kn, v, m, bounded)
-                ref = plain(qn, kn, v, m)
-                err = _compare(label, dtype, out, ref, 'attention')
-                if m is not None and not torch.isfinite(out[:, N_VALID:]
-                                                        ).all():
-                    raise AssertionError(f'{label}: padded query rows are '
-                                         'not finite')
-                ms = _time_ms(lambda: K.flash_masked_attention(
-                    qn, kn, v, m, bounded))
-                pms = _time_ms(lambda: plain(qn, kn, v, m))
-                say(f'[kernels] {label} {str(dtype)[6:]} '
-                    f'({b2},{N},{H},{DH}): kernel {ms * 1e3:.1f} us, '
-                    f'plain {pms * 1e3:.1f} us')
-                if bounded and m is None:  # the variant the XL path runs
-                    record('attention', err, ms, pms)
+                attention_cases.append(_attention_case(K, dtype, qn, kn, v,
+                                                       m, bounded))
 
         # K5 on the flat qkv projection, as the fused path runs it
         qkv_flat = qkv.reshape(b2, N, 3 * D)
@@ -312,10 +384,14 @@ def phase_kernels():
                 qkv_flat, cos, sin, m, H))
             pms = _time_ms(lambda: K.fused_qkln_rope_attention_reference(
                 qkv_flat, cos, sin, m, H))
-            say(f'[kernels] {label} {str(dtype)[6:]} ({b2},{N},{3 * D}): '
+            say(f'[kernels] {label} {kind} ({b2},{N},{3 * D}): '
                 f'kernel {ms * 1e3:.1f} us, plain {pms * 1e3:.1f} us')
             if m is not None:  # the variant the fused path runs
-                record('fused_attention', err, ms, pms)
+                # qkv in, out, cos/sin, the mask; Q K^T and P V
+                record('fused_attention', err, ms, pms,
+                       (qkv_flat.numel() + out.numel()) * es
+                       + 2 * cos.numel() * 4 + m.numel() * 4,
+                       4 * b2 * H * N * N * DH, kind)
 
         # K6 at the int8 path's three GEMM sites, out in this dtype, for
         # the CFG batch (M = 4096) and the conditional-only one (2048)
@@ -353,13 +429,24 @@ def phase_kernels():
     say(f'[kernels] int8_gemm_swiglu_quant ({b2 * N},{k})x({two_h},{k}): '
         f'kernel {ms * 1e3:.1f} us, plain {pms * 1e3:.1f} us '
         f'({2 * b2 * N * k * two_h / ms / 1e9:.1f} TOP/s)')
-    record('int8_gemm_swiglu_quant', float(diff.max().item()), ms, pms)
+    # s8 operands, f32 scale and bias, the s8 output
+    record('int8_gemm_swiglu_quant', float(diff.max().item()), ms, pms,
+           xq.numel() + wq.numel() + 8 * two_h + out.numel(),
+           2 * b2 * N * k * two_h, 'int8')
     torch.cuda.synchronize()
     main_site = k6_sites[0]  # qkv, M = 4096, bf16: the top-level numbers
     results['int8_gemm_bias'] = dict(
         max_abs_err=max(st['max_abs_err'] for st in k6_sites),
         ms=main_site['us'] / 1e3, plain_ms=main_site['plain_us'] / 1e3,
-        sites=k6_sites)
+        bound_ms=main_site['bound_us'] / 1e3, bound_by=main_site['bound_by'],
+        library_ms=None, sites=k6_sites)
+    xl = attention_cases[0]  # bf16, bounded, no mask: the XL path's variant
+    results['attention'] = dict(
+        max_abs_err=max(c['max_abs_err'] for c in attention_cases),
+        ms=xl['us'] / 1e3, plain_ms=xl['plain_us'] / 1e3,
+        bound_ms=xl['bound_us'] / 1e3, bound_us=xl['bound_us'],
+        bound_by=xl['bound_by'], library_ms=xl['library_us'] / 1e3,
+        cases=attention_cases)
     return results
 
 
@@ -377,6 +464,14 @@ def _xl_model_fp32():
             if 'adaLN_modulation.fc_out' in name or 'final_layer.linear' in name:
                 p.add_(0.02 * torch.randn(p.shape, generator=gen))
     return model.eval()
+
+
+def xl_model_bf16(**options):
+    """_xl_model_fp32's weights on the card in bf16, built with `options`
+    (for example gemm_precision='int8')."""
+    import torch
+    model = _xl_model_fp32().to('cuda', torch.bfloat16)
+    return _xl_variant(model, **options) if options else model
 
 
 def phase_parity(model_cpu):

@@ -13,6 +13,12 @@ Padded keys (mask <= 0) get the -1e30 logit; ``mask=None`` means every key
 is valid. The output is ``acc / max(l, 1e-20)``. Padded query rows are
 computed like any other and zeroed by the caller.
 
+In bf16 the kernel runs on the tensor cores and rounds p to bf16 before
+``p @ v``, as both TPU kernels do (the row sum l stays fp32); in fp32 it
+keeps every operand in fp32. The bf16 kernel copies rows in 16-byte chunks,
+so q, k and v must start on 16 bytes with a token stride of a multiple of 8
+elements; the wrapper raises otherwise.
+
 Each variant has a plain PyTorch version with the same signature:
 ``attention_reference`` (max-subtracted) and ``attention_bounded_reference``.
 """
@@ -68,17 +74,32 @@ def attention_bounded_reference(q: Tensor, k: Tensor, v: Tensor,
     return _normalize(torch.exp(_logits(q, k, mask)), v)
 
 
+def _check_aligned(name: str, x: Tensor) -> None:
+    """The bf16 kernel's 16-byte copies: x must start on 16 bytes and its
+    token stride (``x.stride(1)``) must be a multiple of 16 bytes."""
+    offset = x.data_ptr() % 16
+    stride_bytes = x.stride(1) * x.element_size()
+    if offset or stride_bytes % 16:
+        raise ValueError(
+            f'{name}: the bf16 attention kernel needs rows aligned to 16 '
+            f'bytes, got a start {offset} bytes off a 16-byte boundary and a '
+            f'token stride of {stride_bytes} bytes')
+
+
 def flash_masked_attention(q: Tensor, k: Tensor, v: Tensor,
                            mask: Optional[Tensor] = None,
                            bounded: bool = False) -> Tensor:
     """Launch the CUDA kernel; returns a contiguous (B, N, H, Dh) tensor.
 
-    q, k, v: (B, N, H, Dh), heads and head dim contiguous, any token stride;
-    mask: (B, N), > 0 marks a valid key, or None.
+    q, k, v: (B, N, H, Dh), heads and head dim contiguous, one token stride
+    each (in bf16 aligned to 16 bytes, as are the pointers); mask: (B, N),
+    > 0 marks a valid key, or None.
     """
     stream, dtype = _build.stream_and_dtype(q, k, v)
     for name, t in (('q', q), ('k', k), ('v', v)):
         _check_heads(name, t)
+        if t.dtype == torch.bfloat16:
+            _check_aligned(name, t)
     if not q.shape == k.shape == v.shape:
         raise ValueError(f'q/k/v shapes differ: {tuple(q.shape)} '
                          f'{tuple(k.shape)} {tuple(v.shape)}')

@@ -209,6 +209,96 @@ def test_bounded_equals_online_for_layernormed_inputs():
                K.attention_reference(q, k, v, m), atol=1e-5, rtol=1e-5)
 
 
+@pytest.mark.parametrize('masked', [False, True], ids=['nomask', 'mask'])
+@pytest.mark.parametrize('bounded', [False, True], ids=['online', 'bounded'])
+def test_attention_plain_equals_torch_sdpa(bounded, masked):
+    """The yardstick chip_smoke.py times beside the kernel,
+    torch.nn.functional.scaled_dot_product_attention on (B, H, N, Dh) views
+    with a boolean (B, 1, 1, N) key mask, computes the plain versions'
+    function (fp32; every batch row keeps a valid key, where the -1e30 logit
+    and SDPA's -inf agree)."""
+    q, k, v = (_t(a) for a in _attn_inputs(9, normed=bounded))
+    mask = _t(_mask()) if masked else None
+    plain = K.attention_bounded_reference if bounded else K.attention_reference
+    attn_mask = None if mask is None else (mask > 0)[:, None, None, :]
+    sdpa = torch.nn.functional.scaled_dot_product_attention(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+        attn_mask=attn_mask).transpose(1, 2)
+    _close(plain(q, k, v, mask), sdpa)
+
+
+# p rounded to bf16 before p @ v (the TPU kernels, the CUDA kernel) against
+# the plain version's fp32 p, on bf16 inputs: the card tests' tolerance
+ATOL_BF16_ATTN = 2e-2
+
+
+@pytest.mark.parametrize('masked', [False, True], ids=['nomask', 'mask'])
+@pytest.mark.parametrize('bounded', [False, True], ids=['online', 'bounded'])
+def test_attention_bf16_pallas_within_card_tolerance(bounded, masked):
+    """In bf16 the JAX package's own kernels (flash_attention's online
+    softmax in interpret mode, attention_core's bounded one) round p to
+    bf16 before p @ v, and the first also scales q in bf16; they stay within
+    the 2e-2 absolute tolerance that the card tests hold the CUDA kernel to
+    against the same plain version. So that tolerance is the reference's
+    own rounding, not a looser bar for the port."""
+    import ml_dtypes
+    from jax.experimental.pallas import tpu as pltpu
+    from fitv2_tpu.ops import attention_core as ac
+    from fitv2_tpu.ops import flash_attention as fa
+    q, k, v = (np.asarray(a, ml_dtypes.bfloat16)
+               for a in _attn_inputs(10, normed=True))
+    mask = _mask() if masked else None
+    tq, tk, tv = (_t(a.astype(np.float32)).bfloat16() for a in (q, k, v))
+    plain = K.attention_bounded_reference if bounded else K.attention_reference
+    ours = plain(tq, tk, tv, None if mask is None else _t(mask))
+    assert ours.dtype == torch.bfloat16
+    jq, jk, jv = (jnp.asarray(a) for a in (q, k, v))
+    jm = None if mask is None else jnp.asarray(mask)
+    if bounded:
+        old = ac._INTERPRET
+        ac._INTERPRET = True
+        try:
+            pallas = ac.attention_core(*(x.transpose(0, 2, 1, 3)
+                                         for x in (jq, jk, jv)), jm)
+        finally:
+            ac._INTERPRET = old
+        pallas = pallas.transpose(0, 2, 1, 3)
+    else:
+        with pltpu.force_tpu_interpret_mode():
+            pallas = fa._flash_forward(jq, jk, jv, jm, N, N)
+    assert pallas.dtype == jnp.bfloat16
+    pallas = np.asarray(pallas.astype(jnp.float32))
+    err = np.abs(ours.float().numpy() - pallas).max()
+    assert 0 < err <= ATOL_BF16_ATTN, err
+
+
+@pytest.mark.parametrize('layout,fault', [
+    ('contiguous', None), ('qkv column block', None),
+    ('token stride 3C + 2', 'stride'), ('2 elements off', 'pointer')])
+def test_bf16_attention_row_alignment_check(layout, fault):
+    """The bf16 kernel copies 16-byte row chunks: the wrapper's check passes
+    the layouts the model hands over (contiguous q/k from K2, v as a column
+    block of the qkv projection) and refuses a token stride or a start off
+    16 bytes."""
+    from fitv2_tpu_torch.kernels.flash_attention import _check_aligned
+    h, dh = H, DH
+    if layout == 'contiguous':
+        x = torch.zeros(B, N, h, dh, dtype=torch.bfloat16)
+    elif layout == 'qkv column block':
+        x = torch.zeros(B, N, 3, h, dh, dtype=torch.bfloat16).unbind(2)[2]
+    elif fault == 'stride':
+        x = torch.zeros(B, N, 3 * h * dh + 2, dtype=torch.bfloat16)[
+            ..., :h * dh].view(B, N, h, dh)
+    else:
+        x = torch.zeros(B, N, 3 * h * dh, dtype=torch.bfloat16)[
+            ..., 2:2 + h * dh].view(B, N, h, dh)
+    if fault is None:
+        _check_aligned('v', x)
+    else:
+        with pytest.raises(ValueError, match='v: .*aligned to 16 bytes'):
+            _check_aligned('v', x)
+
+
 # -- the kernel wrappers ----------------------------------------------------------
 
 def test_kernel_wrappers_refuse_cpu_tensors_and_count_nothing():
