@@ -9,13 +9,17 @@ Phases (any failure raises and exits non-zero; nothing is caught):
   1. device   - a CUDA card of compute capability 9.0; its name and power
                 limit as nvidia-smi reports them; TF32 off for fp32 phases.
   2. build    - nvcc builds the kernel library from fitv2_tpu_torch/kernels/
-                csrc/ (sm_90a); the build seconds.
+                csrc/ (sm_90a); the build seconds; ptxas registers and
+                spills of K1, K2, K6 and the bf16 attention kernel.
   3. kernels  - each CUDA kernel against its plain PyTorch version at the
                 sampler's shapes (CFG batch 16, N 256, D 1152, H 16, Dh 72),
                 bf16 and fp32, with the error against the stated tolerance
                 and both median times (CUDA events), beside the kernel's
                 bound (bytes over 3.35 TB/s or operations over the peak of
-                their type, the larger); the attention kernel's four
+                their type, the larger); K1 and K2 also L2-cold (a 128 MiB
+                write, then a 128 MiB read, between the calls: the time
+                their bound is held against) and after the write alone
+                (dirty); the attention kernel's four
                 variant/mask cases also beside torch's
                 scaled_dot_product_attention on the same inputs (checked
                 against the plain version, timed as the yardstick, used
@@ -95,6 +99,7 @@ PEAK_BYTES_S = 3.35e12
 PEAK_OPS_S = {'bf16': 989e12, 'int8': 1979e12, 'fp32': 67e12}
 EVAL_EVERY, EXTRAP_ORDER = 2, 2
 PADDED_HW = (160, 320)    # phase 8: 10 x 20 = 200 of 256 tokens
+COLD_BYTES = 128 << 20    # flushed before each cold call: 2.7x the 50 MB L2
 
 XL = dict(context_size=256, patch_size=2, in_channels=4, hidden_size=1152,
           depth=36, num_heads=16, mlp_ratio=4.0, class_dropout_prob=0.1,
@@ -136,6 +141,7 @@ def phase_build():
     _build.library()
     (path.parent / 'ptxas.txt').write_text(report)
     lines = report.splitlines()
+    norm_lines = {}
     say(f'[build] nvcc {len(_build.sources())} sources -> {path} in '
         f'{secs:.3f} s{" (already built)" if not report else ""}; '
         f'ptxas report {path.parent / "ptxas.txt"}')
@@ -148,7 +154,20 @@ def phase_build():
             name = ln.split("'")[1] if "'" in ln else ln.strip()
             say(f'[build] ptxas spills in {name}: {spill.strip()}')
         attn = re.search(r'attention_mma_kernelILi72ELb([01])ELb([01])E', ln)
-        if 'int8_gemm_wgmma_kernel' in ln:
+        norm = re.search(r'(adaln|qk_rope)_kernel_vecI(13__nv_bfloat16|f)Li'
+                         r'(\d+)E', ln)
+        if norm:
+            kernel, dtype, n = norm[1], norm[2], int(norm[3])
+            width = 128 * n if kernel == 'adaln' else n
+            regs = re.search(r'Used (\d+) registers', used)
+            spills = re.findall(r'(\d+) bytes spill', spill)
+            norm_lines.setdefault(
+                f'{"K1" if kernel == "adaln" else "K2"} {kernel}_kernel_vec '
+                f'{"fp32" if dtype == "f" else "bf16"}', []).append((
+                    width, f'{"D" if kernel == "adaln" else "Dh"} {width}: '
+                    f'{regs[1] if regs else "?"} registers, spill '
+                    f'{"/".join(spills) or "?"} B'))
+        elif 'int8_gemm_wgmma_kernel' in ln:
             dtype = 'bf16' if 'nv_bfloat16' in ln else 'fp32'
             say(f'[build] ptxas K6 ({dtype} out): {used.split(":", 1)[-1]}'
                 f'; {spill.strip()} (+ dynamic shared memory, set at launch)')
@@ -158,16 +177,31 @@ def phase_build():
             say(f'[build] ptxas attention bf16 (Dh 72, {variant}, {mask}):'
                 f' {used.split(":", 1)[-1]}; {spill.strip()} (+ dynamic '
                 'shared memory, set at launch)')
+    for key, widths in sorted(norm_lines.items()):  # spill: stores/loads
+        say(f'[build] ptxas {key}: '
+            f'{"; ".join(text for _, text in sorted(widths))}')
     return secs
 
 
-def _time_ms(fn, reps=REPS):
+def _time_ms(fn, reps=REPS, flush=None):
     """Median device time of one call (CUDA events), after two warmups.
 
     Each timed call is enqueued behind a ~25 ms device sleep, so the host's
     launch overhead (Python, ctypes, allocation) is hidden and the events
-    bracket device time only; the inputs stay L2-warm, as in the model."""
+    bracket device time only; the inputs stay L2-warm, as in the model.
+    `flush` enqueues work after the sleep and before the start event, so
+    that the call reads its inputs from device memory, not from the 50 MB
+    L2: 'write', a COLD_BYTES write to a scratch buffer (which leaves the
+    L2 full of dirty lines, so the call also pays their write-back as its
+    own lines evict them); 'clean', that write and then a COLD_BYTES read
+    of a second buffer (the L2 then holds clean lines, and the call's
+    device memory traffic is its own)."""
     import torch
+    if flush:
+        scratch = torch.empty(COLD_BYTES, dtype=torch.uint8, device='cuda')
+    if flush == 'clean':
+        ones = torch.ones(COLD_BYTES // 4, device='cuda')
+        total = torch.empty((), device='cuda')
     for _ in range(2):
         fn()
     times = []
@@ -175,6 +209,10 @@ def _time_ms(fn, reps=REPS):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         torch.cuda._sleep(50_000_000)  # cycles: ~25 ms at 1.98 GHz
+        if flush:
+            scratch.fill_(1)
+        if flush == 'clean':
+            torch.sum(ones, 0, out=total)
         a.record()
         fn()
         b.record()
@@ -262,6 +300,57 @@ def _k6_site(K, dev, gen, site, m, k, n, dtype):
                 top_s=top_s, bound_us=bound * 1e3, bound_by=by)
 
 
+def _norm_case(label, dtype, kernel, plain, nbytes, ops, time_plain):
+    """K1 or K2 on one set of inputs: against its plain version, then the
+    kernel's median time L2-warm, L2-cold (the time the bound is held to)
+    and after a write alone (dirty; see _time_ms), the plain version's
+    (unless not `time_plain`) and the bound."""
+    import torch
+    err = _compare(label, dtype, kernel(), plain(), 'norm')
+    ms = _time_ms(kernel)
+    cold = _time_ms(kernel, flush='clean')
+    dirty = _time_ms(kernel, flush='write')
+    pms = _time_ms(plain) if time_plain else None
+    kind = 'bf16' if dtype == torch.bfloat16 else 'fp32'
+    bound, by = _bound_ms(nbytes, ops, 'fp32')
+    plain_say = f'plain {pms * 1e3:.1f} us, ' if time_plain else ''
+    say(f'[kernels] {label} {kind}: kernel {ms * 1e3:.1f} us warm, '
+        f'{cold * 1e3:.1f} us cold, {dirty * 1e3:.1f} us dirty, {plain_say}'
+        f'bound {bound * 1e3:.1f} us ({by}; cold at {bound / cold:.0%} of '
+        'it)')
+    return dict(dtype=kind, max_abs_err=err, us=ms * 1e3,
+                cold_us=cold * 1e3, dirty_us=dirty * 1e3,
+                plain_us=pms * 1e3 if time_plain else None,
+                bound_us=bound * 1e3, bound_by=by)
+
+
+def _adaln_case(K, x, shift, scale, time_plain=True):
+    """K1 at x (B, N, D) with shift/scale (B, D) rows; see _norm_case."""
+    (b, n, d), es = x.shape, x.element_size()
+    case = _norm_case(
+        f'adaln ({b},{n},{d})', x.dtype,
+        lambda: K.fused_adaln_norm(x, shift, scale),
+        lambda: K.adaln_norm_reference(x, shift, scale),
+        # x in, out, shift and scale; ~8 fp32 operations an element
+        (2 * x.numel() + 2 * b * d) * es, 8 * x.numel(), time_plain)
+    return dict(shape=[b, n, d], **case)
+
+
+def _qk_rope_case(K, q, k, cos, sin, time_plain=True):
+    """K2 at q, k (B, N, H, Dh) with (B, N, Dh) fp32 tables; see
+    _norm_case."""
+    b, n, h, dh = q.shape
+    case = _norm_case(
+        f'qk_rope ({b},{n},{h},{dh})', q.dtype,
+        lambda: K.fused_qk_rope(q, k, cos, sin),
+        lambda: K.qk_norm_rope_reference(q, k, cos, sin),
+        # q and k in and out, the fp32 cos/sin tables; ~10 fp32
+        # operations an element (LayerNorm, then the rotation)
+        4 * q.numel() * q.element_size() + 2 * cos.numel() * 4,
+        20 * q.numel(), time_plain)
+    return dict(shape=[b, n, h, dh], **case)
+
+
 def _attention_case(K, dtype, q, k, v, mask, bounded, time_plain=True):
     """One variant/mask case of the attention kernel: against its plain
     version, then kernel, plain (unless not `time_plain`) and
@@ -317,6 +406,7 @@ def phase_kernels():
     results = {}
     k6_sites = []
     attention_cases = []
+    norm_cases = {'adaln': [], 'qk_rope': []}
 
     def record(key, err, ms, plain_ms, nbytes, ops, kind):
         bound, by = _bound_ms(nbytes, ops, kind)
@@ -327,38 +417,20 @@ def phase_kernels():
     for dtype in (torch.bfloat16, torch.float32):
         kind = 'bf16' if dtype == torch.bfloat16 else 'fp32'
         es = torch.finfo(dtype).bits // 8
-        x = torch.randn(b2, N, D, device=dev, generator=gen).to(dtype)
+        # a large common offset, as the residual stream carries
+        x = (torch.randn(b2, N, D, device=dev, generator=gen) * 2 + 3
+             ).to(dtype)
         mod = (0.5 * torch.randn(b2, 6 * D, device=dev, generator=gen)
                ).to(dtype)
         shift, scale = mod.chunk(6, dim=-1)[:2]  # strided, as in a block
-        out = K.fused_adaln_norm(x, shift, scale)
-        ref = K.adaln_norm_reference(x, shift, scale)
-        err = _compare('adaln', dtype, out, ref, 'norm')
-        ms = _time_ms(lambda: K.fused_adaln_norm(x, shift, scale))
-        pms = _time_ms(lambda: K.adaln_norm_reference(x, shift, scale))
-        say(f'[kernels] adaln {kind} ({b2},{N},{D}): kernel '
-            f'{ms * 1e3:.1f} us, plain {pms * 1e3:.1f} us')
-        # x in, out, shift and scale; ~8 fp32 operations an element
-        record('adaln', err, ms, pms, (2 * x.numel() + 2 * b2 * D) * es,
-               8 * x.numel(), 'fp32')
+        norm_cases['adaln'].append(_adaln_case(K, x, shift, scale))
 
         qkv = torch.randn(b2, N, 3, H, DH, device=dev, generator=gen
                           ).to(dtype)
         q, k, v = qkv.unbind(2)  # token stride 3C, as in a block
         ang = torch.rand(b2, N, DH, device=dev, generator=gen) * 6.3
         cos, sin = torch.cos(ang), torch.sin(ang)
-        out = K.fused_qk_rope(q, k, cos, sin)
-        ref = K.qk_norm_rope_reference(q, k, cos, sin)
-        err = _compare('qk_rope', dtype, out, ref, 'norm')
-        ms = _time_ms(lambda: K.fused_qk_rope(q, k, cos, sin))
-        pms = _time_ms(lambda: K.qk_norm_rope_reference(q, k, cos, sin))
-        say(f'[kernels] qk_rope {kind} ({b2},{N},{H},{DH}): '
-            f'kernel {ms * 1e3:.1f} us, plain {pms * 1e3:.1f} us')
-        # q and k in and out, the fp32 cos/sin tables; ~10 fp32 operations
-        # an element (LayerNorm, then the rotation)
-        record('qk_rope', err, ms, pms,
-               4 * q.numel() * es + 2 * cos.numel() * 4, 20 * q.numel(),
-               'fp32')
+        norm_cases['qk_rope'].append(_qk_rope_case(K, q, k, cos, sin))
 
         # attention inputs: LayerNormed q/k (the bounded-logit contract)
         qn, kn = K.qk_norm_rope_reference(q, k, cos, sin)
@@ -434,6 +506,13 @@ def phase_kernels():
            xq.numel() + wq.numel() + 8 * two_h + out.numel(),
            2 * b2 * N * k * two_h, 'int8')
     torch.cuda.synchronize()
+    for name, cases in norm_cases.items():
+        xl = cases[0]  # bf16: the top-level numbers; the bound against cold
+        results[name] = dict(
+            max_abs_err=max(c['max_abs_err'] for c in cases),
+            ms=xl['us'] / 1e3, cold_ms=xl['cold_us'] / 1e3,
+            plain_ms=xl['plain_us'] / 1e3, bound_ms=xl['bound_us'] / 1e3,
+            bound_by=xl['bound_by'], library_ms=None, cases=cases)
     main_site = k6_sites[0]  # qkv, M = 4096, bf16: the top-level numbers
     results['int8_gemm_bias'] = dict(
         max_abs_err=max(st['max_abs_err'] for st in k6_sites),

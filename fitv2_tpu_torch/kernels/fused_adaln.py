@@ -5,6 +5,11 @@ the final layer. The CUDA kernel reads x once, takes fp32 two-pass moments
 and writes the modulated row once in x's dtype. Counterpart of
 fitv2_tpu/ops/fused_adaln.py.
 
+The kernel has two instantiations, and ``vector_path`` picks one on the
+host: a warp per row with the row in registers and vector loads, for the
+model widths ``VECTOR_WIDTHS`` on 4-element boundaries; and a scalar one
+for any other width or alignment.
+
 Dispatch is by device: a CPU tensor takes the plain version
 ``adaln_norm_reference``; a CUDA tensor launches the kernel or raises.
 """
@@ -21,7 +26,9 @@ Tensor = torch.Tensor
 
 _ARGTYPES = (ctypes.c_void_p,) * 4 + (
     ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
-    ctypes.c_float, ctypes.c_int, ctypes.c_void_p)
+    ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p)
+# csrc/adaln.cu adaln_kernel_vec: D = 128 * kVecs, the widths in configs/
+VECTOR_WIDTHS = (128, 384, 1152, 2304)
 
 
 def adaln_norm_reference(x: Tensor, shift: Tensor, scale: Tensor,
@@ -38,6 +45,17 @@ def adaln_norm_reference(x: Tensor, shift: Tensor, scale: Tensor,
     xhat = xc * torch.rsqrt(var + eps)
     out = xhat * (1.0 + scale.float()[:, None, :]) + shift.float()[:, None, :]
     return out.to(x.dtype)
+
+
+def vector_path(x: Tensor, shift: Tensor, scale: Tensor) -> bool:
+    """Whether the kernel's vector instantiation takes these operands: D
+    one of ``VECTOR_WIDTHS``, and x, shift and scale starting on a
+    4-element boundary (8 bytes in bf16, 16 in fp32) with a row stride of
+    shift/scale that keeps every row there. Otherwise the scalar
+    instantiation runs (a column slice starting at an odd element, say)."""
+    vec = 4 * x.element_size()
+    return (x.shape[-1] in VECTOR_WIDTHS and shift.stride(0) % 4 == 0
+            and all(t.data_ptr() % vec == 0 for t in (x, shift, scale)))
 
 
 def fused_adaln_norm(x: Tensor, shift: Tensor, scale: Tensor,
@@ -58,8 +76,9 @@ def fused_adaln_norm(x: Tensor, shift: Tensor, scale: Tensor,
     out = torch.empty_like(x)
     fn = _build.function('fitv2_adaln', _ARGTYPES)
     _build.check(fn(x.data_ptr(), shift.data_ptr(), scale.data_ptr(),
-                    out.data_ptr(), b * n, n, d, shift.stride(0), eps, dtype,
-                    stream), 'fitv2_adaln')
+                    out.data_ptr(), b * n, n, d, shift.stride(0), eps,
+                    int(vector_path(x, shift, scale)), dtype, stream),
+                 'fitv2_adaln')
     fused_adaln_norm.launches += 1
     return out
 

@@ -6,6 +6,11 @@ split-half rotation ``x * cos + [-x[d:], x[:d]] * sin`` in the input dtype,
 with the fp32 tables cast to that dtype first. Counterpart of
 fitv2_tpu/ops/fused_qk_rope.py.
 
+The kernel has two instantiations, and ``vector_path`` picks one on the
+host: a lane per (tensor, head) row in registers with 16-byte copies, for
+the head dims ``VECTOR_HEAD_DIMS`` on 16-byte boundaries; and a scalar one
+for any other even head dim up to ``MAX_HEAD_DIM`` or alignment.
+
 Dispatch is by device: a CPU tensor takes the plain version
 ``qk_norm_rope_reference``; a CUDA tensor launches the kernel or raises.
 """
@@ -24,8 +29,10 @@ Tensor = torch.Tensor
 _ARGTYPES = (ctypes.c_void_p,) * 6 + (
     ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
     ctypes.c_longlong, ctypes.c_float, ctypes.c_int, ctypes.c_int,
-    ctypes.c_int, ctypes.c_void_p)
+    ctypes.c_int, ctypes.c_int, ctypes.c_void_p)
 MAX_HEAD_DIM = 128  # csrc/qk_rope.cu kMaxDh
+# csrc/qk_rope.cu qk_rope_kernel_vec: the head dims of the configs in configs/
+VECTOR_HEAD_DIMS = (32, 64, 72, 96, 128)
 
 
 def qk_norm_rope_reference(q: Tensor, k: Tensor, cos: Tensor, sin: Tensor,
@@ -61,6 +68,18 @@ def _check_heads(name: str, x: Tensor) -> None:
                          f'a single token stride, got strides {x.stride()}')
 
 
+def vector_path(q: Tensor, k: Tensor, cos: Tensor, sin: Tensor) -> bool:
+    """Whether the kernel's vector instantiation takes these operands: the
+    head dim one of ``VECTOR_HEAD_DIMS``, every operand starting on 16
+    bytes and the token strides of q and k multiples of 16 bytes. Otherwise
+    the scalar instantiation runs (a column slice starting at an odd
+    element, say)."""
+    es = q.element_size()
+    return (q.shape[-1] in VECTOR_HEAD_DIMS
+            and all(t.data_ptr() % 16 == 0 for t in (q, k, cos, sin))
+            and all(t.stride(1) * es % 16 == 0 for t in (q, k)))
+
+
 def fused_qk_rope(q: Tensor, k: Tensor, cos: Tensor, sin: Tensor,
                   eps: float = 1e-6, norm_q: bool = True,
                   norm_k: bool = True) -> Tuple[Tensor, Tensor]:
@@ -88,7 +107,8 @@ def fused_qk_rope(q: Tensor, k: Tensor, cos: Tensor, sin: Tensor,
     _build.check(fn(q.data_ptr(), k.data_ptr(), cos.data_ptr(),
                     sin.data_ptr(), oq.data_ptr(), ok.data_ptr(), b * n, h,
                     dh, q.stride(1), k.stride(1), eps, int(norm_q),
-                    int(norm_k), dtype, stream), 'fitv2_qk_rope')
+                    int(norm_k), int(vector_path(q, k, cos, sin)), dtype,
+                    stream), 'fitv2_qk_rope')
     fused_qk_rope.launches += 1
     return oq, ok
 

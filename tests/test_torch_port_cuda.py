@@ -75,12 +75,47 @@ DTYPES = [torch.float32, torch.bfloat16]
 
 
 @pytest.mark.parametrize('dtype', DTYPES, ids=['fp32', 'bf16'])
-@pytest.mark.parametrize('b,n,d', [(3, 77, 1152), (2, 5, 144), (1, 9, 2304)])
+@pytest.mark.parametrize('b,n,d', [(3, 77, 1152), (2, 5, 144), (1, 9, 2304),
+                                   (3, 77, 128), (3, 77, 384),
+                                   (3, 77, 2304)])
 def test_adaln_kernel_matches_plain(dev, dtype, b, n, d):
+    """Every width in configs/ (128, 384, 1152, 2304: the vector
+    instantiation) and 144 (the scalar one); 3 x 77 rows is no multiple of
+    a block's 4 rows. A large common offset: the moments are two-pass."""
+    from fitv2_tpu_torch.kernels.fused_adaln import VECTOR_WIDTHS, vector_path
     g = _gen(dev, 0)
     x = (torch.randn(b, n, d, device=dev, generator=g) * 2 + 3).to(dtype)
     mod = (0.5 * torch.randn(b, 6 * d, device=dev, generator=g)).to(dtype)
     shift, scale = mod.chunk(6, dim=-1)[3:5]  # column chunks, row stride 6D
+    assert vector_path(x, shift, scale) == (d in VECTOR_WIDTHS)
+    before = K.fused_adaln_norm.launches
+    out = K.adaln_norm(x, shift, scale)
+    assert K.fused_adaln_norm.launches == before + 1
+    _assert_close(out, K.adaln_norm_reference(x, shift, scale))
+
+
+@pytest.mark.parametrize('dtype', DTYPES, ids=['fp32', 'bf16'])
+@pytest.mark.parametrize('view', ['modulation', 'x'])
+@pytest.mark.parametrize('d', [1152, 384])
+def test_adaln_kernel_misaligned_view_takes_scalar_path(dev, dtype, view, d):
+    """shift/scale as column slices starting at an odd element (row stride
+    6D + 1), or x a contiguous view one element into its storage: off the
+    vector instantiation's 4-element boundary, so the wrapper picks the
+    scalar one, which launches once and agrees with the plain version."""
+    from fitv2_tpu_torch.kernels.fused_adaln import vector_path
+    g = _gen(dev, 10)
+    b, n = 3, 77
+    if view == 'x':
+        flat = torch.randn(b * n * d + 1, device=dev, generator=g) * 2 + 3
+        x = flat.to(dtype)[1:].view(b, n, d)
+        mod = (0.5 * torch.randn(b, 6 * d, device=dev, generator=g)).to(dtype)
+        shift, scale = mod[:, :d], mod[:, d:2 * d]
+    else:
+        x = (torch.randn(b, n, d, device=dev, generator=g) * 2 + 3).to(dtype)
+        mod = (0.5 * torch.randn(b, 6 * d + 1, device=dev, generator=g)
+               ).to(dtype)
+        shift, scale = mod[:, 1:1 + d], mod[:, 1 + d:1 + 2 * d]
+    assert x.is_contiguous() and not vector_path(x, shift, scale)
     before = K.fused_adaln_norm.launches
     out = K.adaln_norm(x, shift, scale)
     assert K.fused_adaln_norm.launches == before + 1
@@ -103,6 +138,62 @@ def test_qk_rope_kernel_matches_plain(dev, dtype, dh, norm_q, norm_k):
     ref = K.qk_norm_rope_reference(q, k, cos, sin, norm_q=norm_q,
                                    norm_k=norm_k)
     for o, r in zip(out, ref):
+        _assert_close(o, r)
+
+
+@pytest.mark.parametrize('dtype', DTYPES, ids=['fp32', 'bf16'])
+@pytest.mark.parametrize('dh,h', [(32, 4), (64, 6), (72, 16), (96, 24),
+                                  (128, 16)])
+@pytest.mark.parametrize('norm_q', [True, False], ids=['norm_q', 'raw_q'])
+def test_qk_rope_kernel_config_heads(dev, dtype, dh, h, norm_q):
+    """The configs' (Dh, H) pairs (small_cifar 32 x 4, bfm 64 x 6, XL
+    72 x 16, 3B 96 x 24) and Dh 128, over 3 x 77 tokens: 2H rows a token,
+    so a warp's 32 rows hold several tokens, exactly one, or straddle two,
+    and the last block is ragged. k carries an offset the LayerNorm
+    removes; with norm_q False, q passes to the rotation as it is."""
+    from fitv2_tpu_torch.kernels.fused_qk_rope import vector_path
+    g = _gen(dev, 11)
+    b, n = 3, 77
+    qkv = torch.randn(b, n, 3, h, dh, device=dev, generator=g)
+    qkv[:, :, 1] = qkv[:, :, 1] * 2 + 1
+    q, k, _ = qkv.to(dtype).unbind(2)
+    ang = torch.rand(b, n, dh, device=dev, generator=g) * 6.3
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    assert vector_path(q, k, cos, sin)
+    before = K.fused_qk_rope.launches
+    out = K.qk_norm_rope(q, k, cos, sin, norm_q=norm_q)
+    assert K.fused_qk_rope.launches == before + 1
+    ref = K.qk_norm_rope_reference(q, k, cos, sin, norm_q=norm_q)
+    for o, r in zip(out, ref):
+        _assert_close(o, r)
+
+
+@pytest.mark.parametrize('dtype', DTYPES, ids=['fp32', 'bf16'])
+@pytest.mark.parametrize('fault', ['odd element start', 'head dim 48'])
+def test_qk_rope_kernel_scalar_path(dev, dtype, fault):
+    """q and k as column slices of a (B, N, 3C + 1) projection starting at
+    an odd element, or a head dim without a vector instantiation: the
+    wrapper picks the scalar instantiation, which launches once and agrees
+    with the plain version."""
+    from fitv2_tpu_torch.kernels.fused_qk_rope import vector_path
+    g = _gen(dev, 12)
+    b, n, h = 3, 77, 16
+    dh = 48 if fault == 'head dim 48' else 72
+    c = h * dh
+    flat = torch.randn(b, n, 3 * c + 1, device=dev, generator=g).to(dtype)
+    if fault == 'odd element start':
+        q = flat[..., 1:1 + c].view(b, n, h, dh)
+        k = flat[..., 1 + c:1 + 2 * c].view(b, n, h, dh)
+    else:
+        q, k = (flat[..., i * c:(i + 1) * c].view(b, n, h, dh)
+                for i in (0, 1))
+    ang = torch.rand(b, n, dh, device=dev, generator=g) * 6.3
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    assert not vector_path(q, k, cos, sin)
+    before = K.fused_qk_rope.launches
+    out = K.qk_norm_rope(q, k, cos, sin)
+    assert K.fused_qk_rope.launches == before + 1
+    for o, r in zip(out, K.qk_norm_rope_reference(q, k, cos, sin)):
         _assert_close(o, r)
 
 

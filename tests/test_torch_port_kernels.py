@@ -56,6 +56,29 @@ def _close(a, b, atol=ATOL, rtol=RTOL):
                                rtol=rtol, atol=atol)
 
 
+def _bf16(a):
+    """numpy fp32 -> numpy bf16 (ml_dtypes), the same bits torch rounds to."""
+    import ml_dtypes
+    return np.asarray(a, ml_dtypes.bfloat16)
+
+
+def _bf16_agreement(ours, ref):
+    """bf16 outputs: max |ours - ref| in bf16 ulps of max |ref| (the card
+    tests' unit), and the share of elements that differ at all."""
+    ours = np.asarray(ours, np.float32)
+    ref = np.asarray(ref, np.float32)
+    ulp = 2.0 ** (np.floor(np.log2(np.abs(ref).max())) - 7)
+    diff = np.abs(ours - ref)
+    return diff.max() / ulp, (diff > 0).mean()
+
+
+# bf16: within 1 ulp of the output's largest magnitude, and at most 1% of
+# the elements differing at all (an fp32 statistic summed in another order
+# may flip one rounding; a chain that rounded at other places would differ
+# in a large share of the elements)
+BF16_ULPS, BF16_SHARE = 1.0, 1e-2
+
+
 # -- K1: fused adaLN ---------------------------------------------------------
 
 def test_adaln_plain_matches_pallas_and_reference():
@@ -91,6 +114,58 @@ def test_adaln_plain_bf16_keeps_dtype():
     _close(out.float(), ref, atol=5e-2, rtol=2e-2)
 
 
+@pytest.mark.parametrize('d', [1152, 2304])
+def test_adaln_plain_bf16_matches_pallas(d):
+    """The rounding the CUDA kernel is held to, in bf16: the plain version
+    (fp32 moments and epilogue, one rounding to bf16) against the JAX
+    package's Pallas kernel in interpret mode on the same bf16 inputs, at
+    the XL and 3B widths. A large common offset, as the residual stream
+    carries."""
+    from jax.experimental.pallas import tpu as pltpu
+    from fitv2_tpu.ops.fused_adaln import fused_adaln_norm
+    rng = _rng(20)
+    x = _bf16(rng.standard_normal((B, N, d)) * 2 + 3.0)
+    mod = _bf16(rng.standard_normal((B, 6 * d)) * 0.5)
+    shift, scale = mod[:, :d], mod[:, d:2 * d]
+    tx, tmod = (_t(a.astype(np.float32)).bfloat16() for a in (x, mod))
+    ours = K.adaln_norm_reference(tx, tmod[:, :d], tmod[:, d:2 * d])
+    assert ours.dtype == torch.bfloat16
+    with pltpu.force_tpu_interpret_mode():
+        pallas = fused_adaln_norm(jnp.asarray(x), jnp.asarray(shift),
+                                  jnp.asarray(scale), 1e-6, N)
+    assert pallas.dtype == jnp.bfloat16
+    ulps, share = _bf16_agreement(ours.float().numpy(),
+                                  pallas.astype(jnp.float32))
+    assert ulps <= BF16_ULPS and share <= BF16_SHARE, (ulps, share)
+
+
+@pytest.mark.parametrize('d,offset,stride,want', [
+    (1152, 0, 6 * 1152, True), (2304, 0, 6 * 2304, True),
+    (128, 0, 2 * 128, True), (384, 0, 6 * 384, True),
+    (144, 0, 6 * 144, False),              # no vector instantiation
+    (1152, 1, 6 * 1152 + 1, False),        # odd element start and stride
+    (1152, 2, 6 * 1152 + 2, False),        # 4 bytes off in bf16
+    (1152, 4, 6 * 1152 + 4, True),         # 4 elements off: still aligned
+])
+def test_adaln_vector_path_choice(d, offset, stride, want):
+    """The wrapper's host-side choice of instantiation: the vector one for
+    the model widths on 4-element boundaries (the modulation's column
+    chunks in a block), the scalar one otherwise; bf16 and fp32 alike
+    (4 elements are 8 and 16 bytes)."""
+    from fitv2_tpu_torch.kernels.fused_adaln import vector_path
+    for dtype in (torch.bfloat16, torch.float32):
+        x = torch.zeros(B, N, d, dtype=dtype)
+        mod = torch.zeros(B, stride, dtype=dtype)
+        shift = mod[:, offset:offset + d]
+        scale = mod[:, offset + d:offset + 2 * d]
+        assert vector_path(x, shift, scale) == want, (d, offset, dtype)
+    # x itself off the boundary (a contiguous view one element in)
+    flat = torch.zeros(B * N * 1152 + 1, dtype=torch.bfloat16)
+    x = flat[1:].view(B, N, 1152)
+    mod = torch.zeros(B, 6 * 1152, dtype=torch.bfloat16)
+    assert not vector_path(x, mod[:, :1152], mod[:, 1152:2304])
+
+
 # -- K2: fused q/k LayerNorm + RoPE -------------------------------------------
 
 def _qk_inputs(seed=3):
@@ -115,6 +190,67 @@ def test_qk_rope_plain_matches_pallas_and_reference(norm):
     for ours, pallas, ref in ((oq, pq, rq), (ok, pk, rk)):
         _close(ours.numpy(), pallas)
         _close(ours.numpy(), ref)
+
+
+@pytest.mark.parametrize('norm_q', [True, False], ids=['norm_q', 'raw_q'])
+@pytest.mark.parametrize('dh', [72, 96])
+def test_qk_rope_plain_bf16_matches_pallas(dh, norm_q):
+    """The rounding the CUDA kernel is held to, in bf16: LN statistics in
+    fp32 rounded to bf16, the tables cast to bf16, each product and the sum
+    rounded to bf16 (the plain version's eager bf16 ops) against the JAX
+    package's Pallas kernel in interpret mode, at the XL and 3B head dims;
+    k with an offset the LayerNorm removes."""
+    from jax.experimental.pallas import tpu as pltpu
+    from fitv2_tpu.ops.fused_qk_rope import fused_qk_rope
+    rng = _rng(21)
+    q = _bf16(rng.standard_normal((B, N, H, dh)))
+    k = _bf16(rng.standard_normal((B, N, H, dh)) * 2 + 1)
+    ang = rng.uniform(0, 6.3, (B, N, dh)).astype(np.float32)
+    cos, sin = np.cos(ang), np.sin(ang)
+    tq, tk = (_t(a.astype(np.float32)).bfloat16() for a in (q, k))
+    oq, ok = K.qk_norm_rope_reference(tq, tk, _t(cos), _t(sin),
+                                      norm_q=norm_q)
+    with pltpu.force_tpu_interpret_mode():
+        pq, pk = fused_qk_rope(jnp.asarray(q), jnp.asarray(k),
+                               jnp.asarray(cos), jnp.asarray(sin), 1e-6,
+                               norm_q, True, N)
+    for ours, pallas in ((oq, pq), (ok, pk)):
+        assert ours.dtype == torch.bfloat16 and pallas.dtype == jnp.bfloat16
+        ulps, share = _bf16_agreement(ours.float().numpy(),
+                                      pallas.astype(jnp.float32))
+        assert ulps <= BF16_ULPS and share <= BF16_SHARE, (ulps, share)
+
+
+@pytest.mark.parametrize('layout,dh,want', [
+    ('contiguous', 72, True), ('qkv column blocks', 72, True),
+    ('qkv column blocks', 96, True), ('qkv column blocks', 32, True),
+    ('contiguous', 48, False),               # no vector instantiation
+    ('odd element start', 72, False),
+    ('token stride 3C + 2', 72, False),
+])
+def test_qk_rope_vector_path_choice(layout, dh, want):
+    """The wrapper's host-side choice of instantiation: the vector one for
+    the configs' head dims with q, k, cos and sin on 16 bytes and token
+    strides of whole 16-byte chunks (the qkv column blocks the Attention
+    module hands over), the scalar one otherwise."""
+    from fitv2_tpu_torch.kernels.fused_qk_rope import vector_path
+    h = H
+    c = h * dh
+    for dtype in (torch.bfloat16, torch.float32):
+        if layout == 'contiguous':
+            q = k = torch.zeros(B, N, h, dh, dtype=dtype)
+        elif layout == 'qkv column blocks':
+            q, k, _ = torch.zeros(B, N, 3, h, dh, dtype=dtype).unbind(2)
+        elif layout == 'odd element start':
+            flat = torch.zeros(B, N, 3 * c + 1, dtype=dtype)
+            q = flat[..., 1:1 + c].view(B, N, h, dh)
+            k = flat[..., 1 + c:1 + 2 * c].view(B, N, h, dh)
+        else:
+            flat = torch.zeros(B, N, 3 * c + 2, dtype=dtype)
+            q = flat[..., :c].view(B, N, h, dh)
+            k = flat[..., c:2 * c].view(B, N, h, dh)
+        cs = torch.zeros(B, N, dh)
+        assert vector_path(q, k, cs, cs) == want, (layout, dtype)
 
 
 def test_qk_rope_accepts_strided_qkv_columns():
