@@ -10,7 +10,8 @@ Phases (any failure raises and exits non-zero; nothing is caught):
                 limit as nvidia-smi reports them; TF32 off for fp32 phases.
   2. build    - nvcc builds the kernel library from fitv2_tpu_torch/kernels/
                 csrc/ (sm_90a); the build seconds; ptxas registers and
-                spills of K1, K2, K6 and the bf16 attention kernel.
+                spills of every instantiation of K1, K2 (vector), the bf16
+                attention kernel, the bf16 K5, K6 and K7, a line a family.
   3. kernels  - each CUDA kernel against its plain PyTorch version at the
                 sampler's shapes (CFG batch 16, N 256, D 1152, H 16, Dh 72),
                 bf16 and fp32, with the error against the stated tolerance
@@ -23,9 +24,12 @@ Phases (any failure raises and exits non-zero; nothing is caught):
                 variant/mask cases also beside torch's
                 scaled_dot_product_attention on the same inputs (checked
                 against the plain version, timed as the yardstick, used
-                nowhere in the package); K6 at its three sites (qkv, proj,
-                fc2) for M = 4096 and 2048 (CFG and conditional-only
-                batches), bit for bit, with TOP/s.
+                nowhere in the package); K5 beside the unfused pair it
+                replaces (K2 + K4 on the same qkv); one case each of K4 and
+                K5 at Dh 32 (configs/fitv2_small_cifar.yaml); K6 at its
+                three sites (qkv, proj, fc2) and K7 at fc1, for M = 4096
+                and 2048 (CFG and conditional-only batches), K6 bit for
+                bit, with TOP/s.
   4. parity   - FiTv2-XL/2 (depth 36) fp32, random seeded weights with the
                 zero-init leaves perturbed, batch 1, one CFG Euler step: the
                 port on CUDA (kernels) against the port on the CPU (plain
@@ -133,54 +137,74 @@ def phase_device():
     return card
 
 
+# kernel families whose ptxas registers and spills the build phase prints:
+# (label, pattern over the mangled name, the instantiation's description)
+PTXAS_FAMILIES = (
+    ('K1 adaln_kernel_vec', r'adaln_kernel_vecI(13__nv_bfloat16|f)Li(\d+)E',
+     lambda m: f'{_ptx_dtype(m[1])} D {128 * int(m[2])}'),
+    ('K2 qk_rope_kernel_vec', r'qk_rope_kernel_vecI(13__nv_bfloat16|f)Li(\d+)E',
+     lambda m: f'{_ptx_dtype(m[1])} Dh {m[2]}'),
+    ('K3/K4 attention_mma_kernel (bf16)',
+     r'(?<!fused_)attention_mma_kernelILi(\d+)ELb([01])ELb([01])E',
+     lambda m: f'Dh {m[1]} {"bounded" if m[2] == "1" else "online"} '
+               f'{"mask" if m[3] == "1" else "no mask"}'),
+    ('K5 fused_attention_mma_kernel (bf16)',
+     r'fused_attention_mma_kernelILi(\d+)ELb([01])E',
+     lambda m: f'Dh {m[1]} {"mask" if m[2] == "1" else "no mask"}'),
+    ('K6 int8_gemm_wgmma_kernel', r'int8_gemm_wgmma_kernelI(13__nv_bfloat16|f)E',
+     lambda m: f'{_ptx_dtype(m[1])} out'),
+    ('K7 int8_gemm_swiglu_kernel', r'int8_gemm_swiglu_kernel',
+     lambda m: 's8 out'),
+)
+
+
+def _ptx_dtype(code):
+    return 'fp32' if code == 'f' else 'bf16'
+
+
+def _ptxas_entries(report):
+    """(mangled name, registers, spill stores/loads in bytes) of every
+    kernel in nvcc's -Xptxas -v report."""
+    lines = report.splitlines()
+    for i, ln in enumerate(lines):
+        if 'Compiling entry' not in ln:
+            continue
+        name = ln.split("'")[1] if "'" in ln else ln.strip()
+        used = next((u for u in lines[i + 1:i + 4] if 'Used' in u), '')
+        spill = next((u for u in lines[i + 1:i + 4] if 'spill' in u), '')
+        regs = re.search(r'Used (\d+) registers', used)
+        spills = re.findall(r'(\d+) bytes spill', spill)
+        yield name, regs[1] if regs else '?', '/'.join(spills) or '?'
+
+
 def phase_build():
+    """Build the kernel library; returns the seconds and, by kernel family
+    (PTXAS_FAMILIES), each instantiation's ptxas registers and spills."""
     from fitv2_tpu_torch.kernels import _build
     t0 = time.perf_counter()
     path, report = _build.build()
     secs = time.perf_counter() - t0
     _build.library()
     (path.parent / 'ptxas.txt').write_text(report)
-    lines = report.splitlines()
-    norm_lines = {}
     say(f'[build] nvcc {len(_build.sources())} sources -> {path} in '
         f'{secs:.3f} s{" (already built)" if not report else ""}; '
         f'ptxas report {path.parent / "ptxas.txt"}')
-    for i, ln in enumerate(lines):  # spills, K6's and the attention's lines
-        if 'Compiling entry' not in ln:
-            continue
-        used = next((u for u in lines[i + 1:i + 4] if 'Used' in u), '')
-        spill = next((u for u in lines[i + 1:i + 4] if 'spill' in u), '')
-        if spill and ' 0 bytes spill stores, 0 bytes spill loads' not in spill:
-            name = ln.split("'")[1] if "'" in ln else ln.strip()
-            say(f'[build] ptxas spills in {name}: {spill.strip()}')
-        attn = re.search(r'attention_mma_kernelILi72ELb([01])ELb([01])E', ln)
-        norm = re.search(r'(adaln|qk_rope)_kernel_vecI(13__nv_bfloat16|f)Li'
-                         r'(\d+)E', ln)
-        if norm:
-            kernel, dtype, n = norm[1], norm[2], int(norm[3])
-            width = 128 * n if kernel == 'adaln' else n
-            regs = re.search(r'Used (\d+) registers', used)
-            spills = re.findall(r'(\d+) bytes spill', spill)
-            norm_lines.setdefault(
-                f'{"K1" if kernel == "adaln" else "K2"} {kernel}_kernel_vec '
-                f'{"fp32" if dtype == "f" else "bf16"}', []).append((
-                    width, f'{"D" if kernel == "adaln" else "Dh"} {width}: '
-                    f'{regs[1] if regs else "?"} registers, spill '
-                    f'{"/".join(spills) or "?"} B'))
-        elif 'int8_gemm_wgmma_kernel' in ln:
-            dtype = 'bf16' if 'nv_bfloat16' in ln else 'fp32'
-            say(f'[build] ptxas K6 ({dtype} out): {used.split(":", 1)[-1]}'
-                f'; {spill.strip()} (+ dynamic shared memory, set at launch)')
-        elif attn:
-            variant = 'bounded' if attn[1] == '1' else 'online'
-            mask = 'mask' if attn[2] == '1' else 'no mask'
-            say(f'[build] ptxas attention bf16 (Dh 72, {variant}, {mask}):'
-                f' {used.split(":", 1)[-1]}; {spill.strip()} (+ dynamic '
-                'shared memory, set at launch)')
-    for key, widths in sorted(norm_lines.items()):  # spill: stores/loads
-        say(f'[build] ptxas {key}: '
-            f'{"; ".join(text for _, text in sorted(widths))}')
-    return secs
+    families = {label: [] for label, _, _ in PTXAS_FAMILIES}
+    for name, regs, spills in _ptxas_entries(report):
+        if spills not in ('0/0', '?'):
+            say(f'[build] ptxas spills in {name}: {spills} bytes '
+                '(stores/loads)')
+        for label, pattern, describe in PTXAS_FAMILIES:
+            m = re.search(pattern, name)
+            if m:
+                families[label].append(
+                    f'{describe(m)}: {regs} registers, spill {spills} B')
+                break
+    for label, found in families.items():  # spill: stores/loads
+        if found:
+            say(f'[build] ptxas {label} (+ dynamic shared memory, set at '
+                f'launch): {"; ".join(found)}')
+    return secs, families
 
 
 def _time_ms(fn, reps=REPS, flush=None):
@@ -396,6 +420,93 @@ def _attention_case(K, dtype, q, k, v, mask, bounded, time_plain=True):
                 bound_us=bound * 1e3, bound_by=by)
 
 
+def _fused_attention_case(K, qkv, cos, sin, mask, h):
+    """K5 on the flat (B, N, 3C) qkv: against its plain version (padded
+    query rows exactly 0), then the kernel's, the plain version's and the
+    unfused pair's median times beside the bound.
+    The pair is what the unfused path runs on the same qkv: K2 (q/k
+    LayerNorm + RoPE) and K4 (bounded attention), then the padded query
+    rows zeroed, as the fused wrapper zeroes them; it is checked against
+    the same plain version first."""
+    import torch
+    b, n, c3 = qkv.shape
+    c = c3 // 3
+    dh = c // h
+    dtype = qkv.dtype
+    n_valid = n if mask is None else int((mask[0] > 0).sum())
+    masked = f'mask {n_valid}/{n}' if mask is not None else 'no mask'
+    label = f'fused_attention[{masked}, Dh {dh}]'
+    out = K.fused_qkln_rope_attention(qkv, cos, sin, mask, h)
+    ref = K.fused_qkln_rope_attention_reference(qkv, cos, sin, mask, h)
+    err = _compare(label, dtype, out, ref, 'attention')
+    if mask is not None and not (out[mask == 0] == 0).all():
+        raise AssertionError(f'{label}: padded query rows not 0')
+    q, k, v = qkv.view(b, n, 3, h, dh).unbind(2)
+
+    def pair():
+        qn, kn = K.fused_qk_rope(q, k, cos, sin)
+        o = K.flash_masked_attention(qn, kn, v, mask, True).reshape(b, n, c)
+        return o if mask is None else o * mask.to(o.dtype)[..., None]
+    _compare(label + ' unfused K2 + K4', dtype, pair(), ref, 'attention')
+    ms = _time_ms(lambda: K.fused_qkln_rope_attention(qkv, cos, sin, mask,
+                                                      h))
+    pms = _time_ms(lambda: K.fused_qkln_rope_attention_reference(
+        qkv, cos, sin, mask, h))
+    pair_ms = _time_ms(pair)
+    kind = 'bf16' if dtype == torch.bfloat16 else 'fp32'
+    # qkv in, out, the fp32 cos/sin tables, the mask; Q K^T and P V
+    bound, by = _bound_ms(
+        (qkv.numel() + out.numel()) * qkv.element_size() + 2 * cos.numel() * 4
+        + (0 if mask is None else mask.numel() * 4), 4 * b * h * n * n * dh,
+        kind)
+    say(f'[kernels] {label} {kind} ({b},{n},{c3}): kernel {ms * 1e3:.1f} us,'
+        f' plain {pms * 1e3:.1f} us, unfused K2 + K4 {pair_ms * 1e3:.1f} us, '
+        f'bound {bound * 1e3:.1f} us ({by})')
+    return dict(shape=[b, n, c3], heads=h, mask=mask is not None, dtype=kind,
+                max_abs_err=err, us=ms * 1e3, plain_us=pms * 1e3,
+                unfused_pair_us=pair_ms * 1e3, bound_us=bound * 1e3,
+                bound_by=by)
+
+
+def _k7_site(K, dev, gen, m, k, h):
+    """K7 (SwiGLU fc1 + requantization) at (M, K) x (2H, K) against its
+    plain version (at most one level off, on at most TOL_SWIGLU_FLIPS of
+    the s8 outputs), then both median times and the bound."""
+    import torch
+    xq = torch.randint(-127, 128, (m, k), device=dev, dtype=torch.int8,
+                       generator=gen)
+    wq = torch.randint(-127, 128, (2 * h, k), device=dev, dtype=torch.int8,
+                       generator=gen)
+    scale = torch.rand(2 * h, device=dev, generator=gen) * 3e-5 + 1e-6
+    bias = 0.1 * torch.randn(2 * h, device=dev, generator=gen)
+    osr = 20.0
+    out = K.int8_gemm_swiglu_quant(xq, wq, scale, bias, osr)
+    ref = K.int8_gemm_swiglu_quant_reference(xq, wq, scale, bias, osr)
+    diff = (out.int() - ref.int()).abs()
+    flips = (diff > 0).float().mean().item()
+    nonzero = (ref != 0).float().mean().item()
+    ok = diff.max().item() <= 1 and flips <= TOL_SWIGLU_FLIPS and nonzero > 0.5
+    label = f'int8_gemm_swiglu_quant[fc1, M {m}]'
+    say(f'[kernels] {label}: max |diff| {diff.max().item()} level, '
+        f'{flips:.2e} of outputs differ <= {TOL_SWIGLU_FLIPS} '
+        f'({nonzero:.2f} nonzero): {"ok" if ok else "FAIL"}')
+    if not ok:
+        raise AssertionError(f'{label} disagrees with its plain version')
+    ms = _time_ms(lambda: K.int8_gemm_swiglu_quant(xq, wq, scale, bias, osr))
+    pms = _time_ms(lambda: K.int8_gemm_swiglu_quant_reference(
+        xq, wq, scale, bias, osr))
+    top_s = 2 * m * k * 2 * h / ms / 1e9
+    # s8 operands, f32 scale and bias, the s8 output
+    bound, by = _bound_ms(xq.numel() + wq.numel() + 16 * h + out.numel(),
+                          2 * m * k * 2 * h, 'int8')
+    say(f'[kernels] {label} ({m},{k})x({2 * h},{k}): kernel {ms * 1e3:.1f} '
+        f'us, plain {pms * 1e3:.1f} us ({top_s:.1f} TOP/s), bound '
+        f'{bound * 1e3:.1f} us ({by})')
+    return dict(site='fc1', shape=[m, k, 2 * h], max_abs_err=float(
+        diff.max().item()), flips=flips, us=ms * 1e3, plain_us=pms * 1e3,
+                top_s=top_s, bound_us=bound * 1e3, bound_by=by)
+
+
 def phase_kernels():
     """Each kernel against its plain version at the slice's shapes."""
     import torch
@@ -406,17 +517,10 @@ def phase_kernels():
     results = {}
     k6_sites = []
     attention_cases = []
+    fused_cases = []
     norm_cases = {'adaln': [], 'qk_rope': []}
 
-    def record(key, err, ms, plain_ms, nbytes, ops, kind):
-        bound, by = _bound_ms(nbytes, ops, kind)
-        results.setdefault(key, dict(
-            max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
-            bound_by=by, library_ms=None))
-
     for dtype in (torch.bfloat16, torch.float32):
-        kind = 'bf16' if dtype == torch.bfloat16 else 'fp32'
-        es = torch.finfo(dtype).bits // 8
         # a large common offset, as the residual stream carries
         x = (torch.randn(b2, N, D, device=dev, generator=gen) * 2 + 3
              ).to(dtype)
@@ -438,32 +542,15 @@ def phase_kernels():
         mask[:, :N_VALID] = 1.0
         for bounded in (True, False):
             for m in (None, mask):
-                attention_cases.append(_attention_case(K, dtype, qn, kn, v,
-                                                       m, bounded))
+                attention_cases.append(dict(
+                    _attention_case(K, dtype, qn, kn, v, m, bounded),
+                    shape=[b2, N, H, DH]))
 
         # K5 on the flat qkv projection, as the fused path runs it
         qkv_flat = qkv.reshape(b2, N, 3 * D)
-        for m in (None, mask):
-            label = ('fused_attention['
-                     f'{"mask 200/256" if m is not None else "no mask"}]')
-            out = K.fused_qkln_rope_attention(qkv_flat, cos, sin, m, H)
-            ref = K.fused_qkln_rope_attention_reference(qkv_flat, cos, sin,
-                                                        m, H)
-            err = _compare(label, dtype, out, ref, 'attention')
-            if m is not None and not (out[:, N_VALID:] == 0).all():
-                raise AssertionError(f'{label}: padded query rows not 0')
-            ms = _time_ms(lambda: K.fused_qkln_rope_attention(
-                qkv_flat, cos, sin, m, H))
-            pms = _time_ms(lambda: K.fused_qkln_rope_attention_reference(
-                qkv_flat, cos, sin, m, H))
-            say(f'[kernels] {label} {kind} ({b2},{N},{3 * D}): '
-                f'kernel {ms * 1e3:.1f} us, plain {pms * 1e3:.1f} us')
-            if m is not None:  # the variant the fused path runs
-                # qkv in, out, cos/sin, the mask; Q K^T and P V
-                record('fused_attention', err, ms, pms,
-                       (qkv_flat.numel() + out.numel()) * es
-                       + 2 * cos.numel() * 4 + m.numel() * 4,
-                       4 * b2 * H * N * N * DH, kind)
+        for m in (mask, None):
+            fused_cases.append(_fused_attention_case(K, qkv_flat, cos, sin,
+                                                     m, H))
 
         # K6 at the int8 path's three GEMM sites, out in this dtype, for
         # the CFG batch (M = 4096) and the conditional-only one (2048)
@@ -474,37 +561,27 @@ def phase_kernels():
                                          dtype))
         torch.cuda.synchronize()
 
-    # K7 (its output is int8 whatever the model dtype)
-    k, two_h = D, 2 * 3072
-    xq = torch.randint(-127, 128, (b2 * N, k), device=dev, dtype=torch.int8,
-                       generator=gen)
-    wq = torch.randint(-127, 128, (two_h, k), device=dev, dtype=torch.int8,
-                       generator=gen)
-    scale = torch.rand(two_h, device=dev, generator=gen) * 3e-5 + 1e-6
-    bias = 0.1 * torch.randn(two_h, device=dev, generator=gen)
-    osr = 20.0
-    out = K.int8_gemm_swiglu_quant(xq, wq, scale, bias, osr)
-    ref = K.int8_gemm_swiglu_quant_reference(xq, wq, scale, bias, osr)
-    diff = (out.int() - ref.int()).abs()
-    flips = (diff > 0).float().mean().item()
-    nonzero = (ref != 0).float().mean().item()
-    ok = diff.max().item() <= 1 and flips <= TOL_SWIGLU_FLIPS and nonzero > 0.5
-    say(f'[kernels] int8_gemm_swiglu_quant: max |diff| {diff.max().item()} '
-        f'level, {flips:.2e} of outputs differ <= {TOL_SWIGLU_FLIPS} '
-        f'({nonzero:.2f} nonzero): {"ok" if ok else "FAIL"}')
-    if not ok:
-        raise AssertionError('int8_gemm_swiglu_quant disagrees with its '
-                             'plain version')
-    ms = _time_ms(lambda: K.int8_gemm_swiglu_quant(xq, wq, scale, bias, osr))
-    pms = _time_ms(lambda: K.int8_gemm_swiglu_quant_reference(
-        xq, wq, scale, bias, osr))
-    say(f'[kernels] int8_gemm_swiglu_quant ({b2 * N},{k})x({two_h},{k}): '
-        f'kernel {ms * 1e3:.1f} us, plain {pms * 1e3:.1f} us '
-        f'({2 * b2 * N * k * two_h / ms / 1e9:.1f} TOP/s)')
-    # s8 operands, f32 scale and bias, the s8 output
-    record('int8_gemm_swiglu_quant', float(diff.max().item()), ms, pms,
-           xq.numel() + wq.numel() + 8 * two_h + out.numel(),
-           2 * b2 * N * k * two_h, 'int8')
+    # Dh 32 (configs/fitv2_small_cifar.yaml: hidden 128, 4 heads, 64
+    # tokens), bf16, 48 of 64 tokens valid (a 6 x 8 bucket): K4 and K5
+    n32, h32, dh32 = 64, 4, 32
+    qkv32 = torch.randn(b2, n32, 3, h32, dh32, device=dev, generator=gen
+                        ).to(torch.bfloat16)
+    ang32 = torch.rand(b2, n32, dh32, device=dev, generator=gen) * 6.3
+    cos32, sin32 = torch.cos(ang32), torch.sin(ang32)
+    mask32 = torch.zeros(b2, n32, device=dev)
+    mask32[:, :48] = 1.0
+    q32, k32, v32 = qkv32.unbind(2)
+    qn32, kn32 = K.qk_norm_rope_reference(q32, k32, cos32, sin32)
+    case = _attention_case(K, torch.bfloat16, qn32, kn32, v32, mask32, True)
+    attention_cases.append(dict(case, shape=[b2, n32, h32, dh32]))
+    fused_cases.append(_fused_attention_case(
+        K, qkv32.reshape(b2, n32, 3 * h32 * dh32), cos32, sin32, mask32,
+        h32))
+
+    # K7 (its output is int8 whatever the model dtype), for the CFG batch
+    # and the conditional-only one
+    k7_sites = [_k7_site(K, dev, gen, m_rows, D, 3072)
+                for m_rows in (b2 * N, BATCH * N)]
     torch.cuda.synchronize()
     for name, cases in norm_cases.items():
         xl = cases[0]  # bf16: the top-level numbers; the bound against cold
@@ -519,6 +596,19 @@ def phase_kernels():
         ms=main_site['us'] / 1e3, plain_ms=main_site['plain_us'] / 1e3,
         bound_ms=main_site['bound_us'] / 1e3, bound_by=main_site['bound_by'],
         library_ms=None, sites=k6_sites)
+    xl = fused_cases[0]  # bf16, 200/256 valid: the fused path's variant
+    results['fused_attention'] = dict(
+        max_abs_err=max(c['max_abs_err'] for c in fused_cases),
+        ms=xl['us'] / 1e3, plain_ms=xl['plain_us'] / 1e3,
+        unfused_pair_ms=xl['unfused_pair_us'] / 1e3,
+        bound_ms=xl['bound_us'] / 1e3, bound_by=xl['bound_by'],
+        library_ms=None, cases=fused_cases)
+    xl = k7_sites[0]  # M = 4096: the top-level numbers
+    results['int8_gemm_swiglu_quant'] = dict(
+        max_abs_err=max(st['max_abs_err'] for st in k7_sites),
+        ms=xl['us'] / 1e3, plain_ms=xl['plain_us'] / 1e3,
+        bound_ms=xl['bound_us'] / 1e3, bound_by=xl['bound_by'],
+        library_ms=None, sites=k7_sites)
     xl = attention_cases[0]  # bf16, bounded, no mask: the XL path's variant
     results['attention'] = dict(
         max_abs_err=max(c['max_abs_err'] for c in attention_cases),
@@ -843,8 +933,12 @@ def main():
     card = phase_device()
     import torch
     from fitv2_tpu_torch.vae import AutoencoderKL
-    phase_build()
+    _, ptxas = phase_build()
     results = phase_kernels()
+    results['fused_attention']['ptxas'] = ptxas[
+        'K5 fused_attention_mma_kernel (bf16)']
+    results['int8_gemm_swiglu_quant']['ptxas'] = ptxas[
+        'K7 int8_gemm_swiglu_kernel']
     model_cpu = _xl_model_fp32()
     model_gpu, _ = phase_parity(model_cpu)
     del model_cpu

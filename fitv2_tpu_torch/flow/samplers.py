@@ -18,6 +18,20 @@ Tensor = torch.Tensor
 ModelFn = Callable[[Tensor, Tensor], Tensor]
 
 
+def euler_ladder(steps: int) -> np.ndarray:
+    """The (steps + 1,) float32 time ladder from 0 to 1 of the samplers.
+
+    It equals ``jnp.linspace(0.0, 1.0, steps + 1)``, the ladder of JAX's
+    sampler (fitv2_tpu/sample/pipeline.py:193), bit for bit:
+    ``i * f32(1 / steps)`` in float32 with the last entry exactly 1
+    (``torch.linspace`` rounds differently, 1-2 ulps off at most step
+    counts)."""
+    ladder = np.arange(steps + 1, dtype=np.float32) * (
+        np.float32(1) / np.float32(steps))
+    ladder[-1] = 1.0
+    return ladder
+
+
 def _t_vec(x: Tensor, t: np.float32) -> Tensor:
     return torch.full((x.shape[0],), float(t), dtype=torch.float32,
                       device=x.device)
@@ -25,7 +39,7 @@ def _t_vec(x: Tensor, t: np.float32) -> Tensor:
 
 def euler_sample(model_fn: ModelFn, x: Tensor, sigmas) -> Tensor:
     """x_{i+1} = x_i + (sigma_{i+1} - sigma_i) * v(x_i, sigma_i); sigmas is
-    the (steps + 1,) ladder, typically linspace(0, 1)."""
+    the (steps + 1,) ladder, typically ``euler_ladder(steps)``."""
     sig = np.asarray(sigmas, np.float32)
     for t_cur, t_next in zip(sig[:-1], sig[1:]):
         x = x + float(t_next - t_cur) * model_fn(x, _t_vec(x, t_cur))

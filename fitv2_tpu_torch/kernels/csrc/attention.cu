@@ -70,6 +70,7 @@
 #include <cstdint>
 
 #include "common.cuh"
+#include "mma_bf16.cuh"
 
 namespace {
 
@@ -260,93 +261,6 @@ struct MmaTile {
   static_assert(kDh % 8 == 0, "rows are copied in 16-byte chunks");
 };
 
-__device__ __forceinline__ unsigned smem_u32(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-// 16-byte asynchronous copy; with valid = false it reads nothing and writes
-// 16 zero bytes
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src), "r"(valid ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int kPending>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p))
-      : "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4_trans(unsigned (&r)[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p))
-      : "memory");
-}
-
-__device__ __forceinline__ void ldsm_x2_trans(unsigned (&r)[2], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
-      : "=r"(r[0]), "=r"(r[1])
-      : "r"(smem_u32(p))
-      : "memory");
-}
-
-// d += a (16 x 16, row) * b (16 x 8, col), bf16 in, fp32 accumulate
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4],
-                                         unsigned b0, unsigned b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// 2^x by the special function unit (ex2.approx: ~2 ulp, -inf -> 0)
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// two floats rounded to bf16, the first in the low half (lower column)
-__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const unsigned*>(&v);
-}
-
-__device__ __forceinline__ float quad_max(float v) {
-  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
-  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float v) {
-  v += __shfl_xor_sync(0xffffffffu, v, 1);
-  return v + __shfl_xor_sync(0xffffffffu, v, 2);
-}
-
 // Rows [r0, r0 + kRows) of an (n, kDh) matrix with token stride `ld` into a
 // shared tile by cp.async; rows past n are zero-filled.
 template <int kDh, int kRows>
@@ -464,28 +378,8 @@ attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
     const __nv_bfloat16* Kt = Kring + stage * T::kKV;
     const __nv_bfloat16* Vt = Vring + stage * T::kKV;
 
-    // S = Q K^T: ldmatrix of 16 keys x 16 dims gives two n8 B fragments
     float s[kMt][kNk][4];
-#pragma unroll
-    for (int i = 0; i < kMt; ++i)
-#pragma unroll
-      for (int j = 0; j < kNk; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) s[i][j][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < kKSteps; ++kk) {
-#pragma unroll
-      for (int jp = 0; jp < kNk / 2; ++jp) {
-        unsigned kf[4];
-        ldsm_x4(kf, Kt + (jp * 16 + (lane & 7) + ((lane >> 4) << 3)) * kLd +
-                        kk * 16 + ((lane >> 3) & 1) * 8);
-#pragma unroll
-        for (int i = 0; i < kMt; ++i) {
-          mma_bf16(s[i][2 * jp], qf[i][kk], kf[0], kf[1]);
-          mma_bf16(s[i][2 * jp + 1], qf[i][kk], kf[2], kf[3]);
-        }
-      }
-    }
+    qk_mma(s, qf, Kt, kLd, lane);  // S = Q K^T
 
     // logits in the log2 domain, s * scale_log2 + bias: a masked key's sum
     // rounds to -1e30 exactly, a key past n gets -inf; full tiles without a
@@ -554,35 +448,7 @@ attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
     }
 
     // O += P V: the S tiles of 16 keys become one bf16 A fragment
-#pragma unroll
-    for (int kc = 0; kc < kBK / 16; ++kc) {
-      unsigned pa[kMt][4];
-#pragma unroll
-      for (int i = 0; i < kMt; ++i) {
-        pa[i][0] = pack_bf16(s[i][2 * kc][0], s[i][2 * kc][1]);
-        pa[i][1] = pack_bf16(s[i][2 * kc][2], s[i][2 * kc][3]);
-        pa[i][2] = pack_bf16(s[i][2 * kc + 1][0], s[i][2 * kc + 1][1]);
-        pa[i][3] = pack_bf16(s[i][2 * kc + 1][2], s[i][2 * kc + 1][3]);
-      }
-      const __nv_bfloat16* vrow = Vt + (kc * 16 + (lane & 15)) * kLd;
-#pragma unroll
-      for (int dp = 0; dp < kNd / 2; ++dp) {
-        unsigned vf[4];
-        ldsm_x4_trans(vf, vrow + dp * 16 + (lane >> 4) * 8);
-#pragma unroll
-        for (int i = 0; i < kMt; ++i) {
-          mma_bf16(o[i][2 * dp], pa[i], vf[0], vf[1]);
-          mma_bf16(o[i][2 * dp + 1], pa[i], vf[2], vf[3]);
-        }
-      }
-      if constexpr (kNd % 2) {  // Dh = 72: the ninth column tile
-        unsigned vf[2];
-        ldsm_x2_trans(vf, vrow + (kNd - 1) * 8);
-#pragma unroll
-        for (int i = 0; i < kMt; ++i)
-          mma_bf16(o[i][kNd - 1], pa[i], vf[0], vf[1]);
-      }
-    }
+    pv_mma(o, s, Vt, kLd, lane);
     __syncthreads();  // every warp is done with this stage before a refill
   }
 
@@ -689,6 +555,7 @@ extern "C" int fitv2_attention(const void* q, const void* k, const void* v,
                q_stride, k_stride, v_stride, scale,
                static_cast<cudaStream_t>(stream)};
   switch (dh) {
+    case 32: return dispatch_flags<32>(a, bounded, dtype);
     case 64: return dispatch_flags<64>(a, bounded, dtype);
     case 72: return dispatch_flags<72>(a, bounded, dtype);
     case 96: return dispatch_flags<96>(a, bounded, dtype);

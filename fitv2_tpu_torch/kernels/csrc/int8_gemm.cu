@@ -3,14 +3,15 @@
 //   v = f32(acc_v) * scale[H + n] + bias[H + n],
 //   out[m, n] = s8(clip(rint(g * sigmoid(g) * v * osr), 127))
 // replaces fitv2_tpu/ops/int8_gemm.py:_swiglu_kernel (entry point
+// fitv2_int8_gemm_swiglu_quant, wrapper kernels/int8_gemm.py:
 // int8_gemm_swiglu_quant): SwiGLU fc1 + silu(g) * v + requantization to
 // fc2's int8 input. (K6, the GEMM with the plain dequant epilogue, is
-// int8_gemm_wgmma.cu.)
+// int8_gemm_wgmma.cu; both run on the ring of wgmma_ring.cuh.)
 // xq: (M, K) s8 row-major; wq: fc1's (2H, K) s8 row-major, the nn.Linear
-// layout, so each output column's weights are K-contiguous (the `.col` B
-// operand of mma); rows [0, H) are the gate and [H, 2H) the value.
-// scale/bias: f32, one per weight row (bias may be null). K must be a
-// multiple of 16; M and N edges are guarded.
+// layout, rows [0, H) the gate and [H, 2H) the value: both K-major, the
+// only layout 8-bit wgmma takes. scale/bias: f32, one per weight row (bias
+// may be null). Any M, H >= 1; K % 16 == 0 (TMA's 16-byte global row
+// stride); operands 16-byte aligned.
 //
 // The accumulator is exact (|acc| <= 127^2 * K, 4.96e7 at K = 3072, well
 // inside s32), so the output differs from the plain version only in the f32
@@ -20,165 +21,270 @@
 // do. The sigmoid uses expf, not __expf.
 //
 // What bounds it on an H100: at the serving shape (M = 4096, K x 2H = 1152
-// x 6144) the product is 58 GOP over 37 MB of operands and outputs, ~1,600
-// ops per byte: above the int8 tensor cores' ridge (~590 ops/byte), so
-// tensor-core throughput bounds it.
-// Design: mma.sync m16n8k32 s8 (legacy warp-level MMA; wgmma is the next
-// step). A block computes 128 rows x 64 output columns, i.e. a 128 x 128
-// tile of fc1 whose 128 B rows are 64 gate rows and the matching 64 value
-// rows, with 8 warps of 64 x 32 each (4 x 4 m16n8 tiles, 64 s32
-// accumulators a thread); K is walked in 64-byte steps through shared
-// memory, the next step's tiles are loaded into registers (16-byte loads)
-// while the current one is multiplied. Shared rows are padded to 80 bytes
-// so the fragment reads of a warp fall in distinct banks. Each warp's n8
-// tiles 0-1 (gate) and 2-3 (value) hold the same output columns, so
-// silu(g) * v and the requantization run on the accumulators; the (M, 2H)
-// fc1 output and the (M, H) activation never reach device memory.
+// x 6144) the product is 58 GOP over 24 MB of operands and the s8 output
+// (12.6 MB of it), ~2,400 ops per byte: far above the int8 tensor cores'
+// ridge (~590 ops/byte), so
+// tensor-core throughput bounds it (29.3 us at 1,979 TOP/s), and only
+// wgmma reaches that rate.
+//
+// Design: K6's persistent TMA + mbarrier + wgmma s8 ring, with a B tile
+// that pairs the gate and the value rows of the same output columns.
+// - Tile 128 x 96 outputs. A stage holds the A tile (128 rows of xq) and a
+//   192-row B tile: the gate rows [n0, n0 + 96) and then the value rows
+//   [H + n0, H + n0 + 96), two TMA boxes from two tensor maps of extent H
+//   each (wq and wq + H K, 16-byte aligned as K % 16 == 0), so TMA
+//   zero-fills the ragged H edge of both halves (one (2H, K) map would
+//   fill the last gate box with value rows). 96 rows are 12 swizzle atoms
+//   of 1024 bytes, so the two boxes form one K-major 192-row operand.
+// - Consumers (warpgroups 0 and 1: rows 0-63 and 64-127 of the tile) issue
+//   four wgmma.m64n192k32.s32.s8.s8 on each stage: accumulator n8 tile j
+//   (j < 12) holds gate columns 8 j .. 8 j + 7 and tile j + 12 the value
+//   columns of the same outputs, in the same thread and the same slots, so
+//   dequant, silu(g) * v and the requantization run in registers and the
+//   (M, 2H) fc1 output never reaches device memory.
+// - Tile counts: M 4096 x H 3072 is 32 x 32 = 1,024 tiles (7.76 waves of
+//   132 SMs, 97% of the last), M 2048 512 tiles (3.88 waves, 97%).
+// - Epilogue: the tile's 96 gate and 96 value scale and bias values are
+//   copied to shared memory (cp.async) when the tile starts, under its main
+//   loop. Each consumer thread writes its s8 outputs, two neighbouring
+//   columns at a time, into padded staging rows (112 bytes: a warp's 2-byte
+//   writes fall in distinct banks), and the warpgroup copies its 64 x 96
+//   bytes out 16 contiguous bytes a thread (per byte at a ragged or
+//   unaligned edge).
+// - As in K6, a tile's epilogue is not overlapped with the next tile's
+//   wgmma, only with its loads.
+#include <cuda.h>  // CUtensorMap and its enums (types only; not linked)
+
 #include <cstdint>
 
 #include "common.cuh"
+#include "wgmma_ring.cuh"
 
 namespace {
 
 using namespace fitv2;
 
-constexpr int kBM = 128, kBN = 128, kBK = 64;
-constexpr int kThreads = 256;
-constexpr int kLd = kBK + 16;  // shared row stride in bytes
-constexpr int kChunks = kBK / 16;  // 16-byte chunks per tile row
+constexpr int kBM = 128;
+constexpr int kCols = 96;        // output columns of a tile
+constexpr int kBN = 2 * kCols;   // B rows of a stage (gate, then value)
+constexpr int kBK = kRingBK;     // bytes = s8 elements per row of a stage
+constexpr int kStages = 4;
+constexpr int kConsumers = 2;                     // warpgroups
+constexpr int kThreads = (kConsumers + 1) * 128;  // + the producer's
+constexpr int kATile = kBM * kBK, kHalfTile = kCols * kBK;
+constexpr int kStageBytes = kATile + 2 * kHalfTile;
+constexpr int kAcc = kBN / 2;  // s32 accumulators a consumer thread holds
+constexpr int kLdOut = kCols + 16;     // staged output row, bytes
+constexpr int kOutBytes = 64 * kLdOut;  // per consumer warpgroup
+constexpr int kBarOffset = kStages * kStageBytes;
+constexpr int kOutOffset = kBarOffset + 2 * kStages * 8;
+// tiles, barriers, output staging, and the 1024-byte alignment the
+// 128-byte swizzle needs
+constexpr int kSmemBytes = kOutOffset + kConsumers * kOutBytes + 1024;
+static_assert(kOutOffset % 16 == 0 && kOutBytes % 16 == 0 && kLdOut % 16 == 0,
+              "output staging rows are read 16 bytes at a time");
+static_assert(kATile % 1024 == 0 && kHalfTile % 1024 == 0,
+              "stage tiles must keep the 1024-byte swizzle alignment");
+static_assert(kCols % 16 == 0, "gate and value columns share a thread, and "
+              "tiles start on 16-byte output columns");
+static_assert(kBN == 192, "wgmma_m64n192k32 is written for kBN = 192");
 
-__device__ __forceinline__ void mma_s8(int (&d)[4], const unsigned (&a)[4],
-                                       const unsigned (&b)[2]) {
+// d (64 x 192 s32, warpgroup-wide) (+)= A (64 x 32 s8) * B (192 x 32 s8)^T;
+// accumulate = 0 overwrites d.
+__device__ __forceinline__ void wgmma_m64n192k32(int (&d)[kAcc], uint64_t da,
+                                                 uint64_t db, int accumulate) {
   asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+      "{\n\t.reg .pred p;\n\t"
+      "setp.ne.b32 p, %98, 0;\n\t"
+      "wgmma.mma_async.sync.aligned.m64n192k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, "
+      "%67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, "
+      "%93, %94, %95}, %96, %97, p;\n\t}"
+      : FITV2_ACC8(0), FITV2_ACC8(8), FITV2_ACC8(16), FITV2_ACC8(24),
+        FITV2_ACC8(32), FITV2_ACC8(40), FITV2_ACC8(48), FITV2_ACC8(56),
+        FITV2_ACC8(64), FITV2_ACC8(72), FITV2_ACC8(80), FITV2_ACC8(88)
+      : "l"(da), "l"(db), "r"(accumulate));
 }
 
-__device__ __forceinline__ unsigned ld32(const int8_t* p) {
-  return *reinterpret_cast<const unsigned*>(p);
+// silu(g) * v requantized to s8, from the two exact accumulators
+__device__ __forceinline__ int swiglu_q(int acc_g, int acc_v, float sg,
+                                        float sv, float bg, float bv,
+                                        bool has_bias, float osr) {
+  float g = __fmul_rn(static_cast<float>(acc_g), sg);
+  float v = __fmul_rn(static_cast<float>(acc_v), sv);
+  if (has_bias) {
+    g = __fadd_rn(g, bg);
+    v = __fadd_rn(v, bv);
+  }
+  const float sig = 1.f / (1.f + expf(-g));
+  const float h = __fmul_rn(__fmul_rn(g, sig), v);
+  return static_cast<int>(fminf(fmaxf(rintf(__fmul_rn(h, osr)), -127.f),
+                                127.f));
 }
 
-// Global row of B that shared row r of the tile holds, or -1 past the edge
-// (n = H: 64 gate rows, then the 64 value rows).
-__device__ __forceinline__ int b_row(int r, int n0, int n) {
-  const int col = n0 + (r & 63);
-  return col < n ? (r < 64 ? col : n + col) : -1;
-}
-
-__global__ void __launch_bounds__(kThreads)
-int8_gemm_swiglu_kernel(const int8_t* __restrict__ xq,
-                        const int8_t* __restrict__ wq,
+__global__ void __launch_bounds__(kThreads, 1)
+int8_gemm_swiglu_kernel(const __grid_constant__ CUtensorMap xmap,
+                        const __grid_constant__ CUtensorMap gmap,
+                        const __grid_constant__ CUtensorMap vmap,
                         const float* __restrict__ scale,
                         const float* __restrict__ bias,
-                        int8_t* __restrict__ out_q, int m, int n, int k,
+                        int8_t* __restrict__ out, int m, int h, int k,
                         float osr) {
-  __shared__ __align__(16) int8_t As[kBM * kLd];
-  __shared__ __align__(16) int8_t Bs[kBN * kLd];
-  constexpr int kCols = kBN / 2;  // output columns per block
-  const int m0 = blockIdx.y * kBM, n0 = blockIdx.x * kCols;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int wm = warp >> 2, wn = warp & 3;
-  const int g = lane >> 2, t = lane & 3;
+  extern __shared__ uint8_t smem_raw[];
+  // per consumer warpgroup: the tile's gate scale, value scale, gate bias
+  // and value bias columns
+  __shared__ __align__(16) float vec_s[kConsumers][4][kCols];
+  const uint32_t raw =
+      static_cast<uint32_t>(__cvta_generic_to_shared(smem_raw));
+  uint8_t* const smem = smem_raw + ((1024 - (raw & 1023)) & 1023);
+  const uint32_t base = raw + static_cast<uint32_t>(smem - smem_raw);
+  // stage s: A tile at base + s * kStageBytes, the gate rows kATile bytes
+  // after it and the value rows kHalfTile bytes after those; full barrier s
+  // at bars + 8 s, empty barrier s at bars + 8 (kStages + s); then each
+  // consumer warpgroup's output staging
+  const uint32_t bars = base + kBarOffset;
+  const int tiles_n = (h + kCols - 1) / kCols;
+  const int tiles = tiles_n * ((m + kBM - 1) / kBM);
+  const int kblocks = (k + kBK - 1) / kBK;
+  const int wg = threadIdx.x / 128;
 
-  // each thread moves 2 16-byte chunks of A and 2 of B per K step
-  int a_row[2], b_src[2], chunk[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int idx = tid + i * kThreads;
-    const int r = idx / kChunks;
-    chunk[i] = (idx % kChunks) * 16;
-    a_row[i] = m0 + r < m ? m0 + r : -1;
-    b_src[i] = b_row(r, n0, n);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(bars + 8 * s, 1);                            // the producer
+      mbar_init(bars + 8 * (kStages + s), kConsumers * 4);  // consumer warps
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
-  int4 ra[2], rb[2];
-  auto load = [&](int k0) {
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int kc = k0 + chunk[i];
-      const int4 zero = make_int4(0, 0, 0, 0);
-      ra[i] = a_row[i] >= 0 && kc < k
-                  ? *reinterpret_cast<const int4*>(xq + (long long)a_row[i] * k + kc)
-                  : zero;
-      rb[i] = b_src[i] >= 0 && kc < k
-                  ? *reinterpret_cast<const int4*>(wq + (long long)b_src[i] * k + kc)
-                  : zero;
-    }
-  };
+  __syncthreads();
 
-  // shared row of B for the warp's n8 tile j
-  auto bs_row = [&](int j) {
-    return (j < 2 ? 0 : 64) + wn * 16 + (j & 1) * 8;
-  };
-
-  int acc[4][4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int r = 0; r < 4; ++r) acc[i][j][r] = 0;
-
-  load(0);
-  for (int k0 = 0; k0 < k; k0 += kBK) {
-    __syncthreads();  // the previous step's fragment reads are finished
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int r = (tid + i * kThreads) / kChunks;
-      *reinterpret_cast<int4*>(As + r * kLd + chunk[i]) = ra[i];
-      *reinterpret_cast<int4*>(Bs + r * kLd + chunk[i]) = rb[i];
-    }
-    __syncthreads();
-    if (k0 + kBK < k) load(k0 + kBK);
-#pragma unroll
-    for (int kk = 0; kk < kBK; kk += 32) {
-      unsigned af[4][4], bf[4][2];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int8_t* p = As + (wm * 64 + i * 16 + g) * kLd + kk + t * 4;
-        af[i][0] = ld32(p);
-        af[i][1] = ld32(p + 8 * kLd);
-        af[i][2] = ld32(p + 16);
-        af[i][3] = ld32(p + 8 * kLd + 16);
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int8_t* p = Bs + (bs_row(j) + g) * kLd + kk + t * 4;
-        bf[j][0] = ld32(p);
-        bf[j][1] = ld32(p + 16);
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) mma_s8(acc[i][j], af[i], bf[j]);
-    }
-  }
-
-  // accumulator r of an m16n8 tile: row g + 8 * (r >> 1), column 2t + (r & 1)
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int row = m0 + wm * 64 + i * 16 + g + 8 * (r >> 1);
-      if (row >= m) continue;
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int col = n0 + wn * 16 + j * 8 + 2 * t + (r & 1);
-        if (col >= n) continue;
-        float gt = __fmul_rn(static_cast<float>(acc[i][j][r]), scale[col]);
-        float vt = __fmul_rn(static_cast<float>(acc[i][j + 2][r]),
-                             scale[n + col]);
-        if (bias) {
-          gt = __fadd_rn(gt, bias[col]);
-          vt = __fadd_rn(vt, bias[n + col]);
+  if (wg == kConsumers) {  // producer
+    if (threadIdx.x == kConsumers * 128) {
+      prefetch_tensormap(&xmap);
+      prefetch_tensormap(&gmap);
+      prefetch_tensormap(&vmap);
+      int s = 0;
+      uint32_t phase = 0;
+      for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+        const int m0 = tile / tiles_n * kBM, n0 = tile % tiles_n * kCols;
+        for (int kb = 0; kb < kblocks; ++kb) {
+          // a fresh barrier counts as having completed the phase before
+          // its first, so the first lap does not wait
+          mbar_wait(bars + 8 * (kStages + s), phase ^ 1);
+          const uint32_t full = bars + 8 * s;
+          const uint32_t a = base + s * kStageBytes;
+          mbar_expect_tx(full, kStageBytes);
+          tma_load(a, &xmap, full, kb * kBK, m0);
+          tma_load(a + kATile, &gmap, full, kb * kBK, n0);
+          tma_load(a + kATile + kHalfTile, &vmap, full, kb * kBK, n0);
+          if (++s == kStages) s = 0, phase ^= 1;
         }
-        const float sig = 1.f / (1.f + expf(-gt));
-        const float h = __fmul_rn(__fmul_rn(gt, sig), vt);
-        const float q = fminf(fmaxf(rintf(__fmul_rn(h, osr)), -127.f), 127.f);
-        out_q[(long long)row * n + col] = static_cast<int8_t>(q);
       }
     }
+    return;
+  }
+
+  // consumers
+  const int lane = threadIdx.x & 31, warp = (threadIdx.x >> 5) & 3;
+  const int g = lane >> 2, t = lane & 3;
+  int acc[kAcc];
+#pragma unroll
+  for (int i = 0; i < kAcc; ++i) acc[i] = 0;
+  float* const vsg = vec_s[wg][0];
+  float* const vsv = vec_s[wg][1];
+  float* const vbg = vec_s[wg][2];
+  float* const vbv = vec_s[wg][3];
+  uint8_t* const staged = smem + kOutOffset + wg * kOutBytes;
+  const bool has_bias = bias != nullptr;
+  const bool aligned = h % 16 == 0;  // 16-byte global stores
+  int s = 0, prev = 0;
+  uint32_t phase = 0;
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const int m0 = tile / tiles_n * kBM, n0 = tile % tiles_n * kCols;
+    // the tile's scale and bias columns, copied under the main loop
+    for (int i = threadIdx.x & 127; i < kCols && n0 + i < h; i += 128) {
+      cp_async4(vsg + i, scale + n0 + i);
+      cp_async4(vsv + i, scale + h + n0 + i);
+      if (has_bias) {
+        cp_async4(vbg + i, bias + n0 + i);
+        cp_async4(vbv + i, bias + h + n0 + i);
+      }
+    }
+    cp_async_commit();
+    for (int kb = 0; kb < kblocks; ++kb) {
+      mbar_wait(bars + 8 * s, phase);
+      const uint32_t a = base + s * kStageBytes;
+      const uint64_t da = sw128_desc(a + wg * 64 * kBK);
+      const uint64_t db = sw128_desc(a + kATile);
+      fence_acc(acc);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kBK / 32; ++kk)
+        wgmma_m64n192k32(acc, da + 2 * kk, db + 2 * kk, kb > 0 || kk > 0);
+      wgmma_commit();
+      wgmma_wait<1>();  // the previous stage's products are done
+      fence_acc(acc);
+      if (kb > 0 && lane == 0) mbar_arrive(bars + 8 * (kStages + prev));
+      __syncwarp();
+      prev = s;
+      if (++s == kStages) s = 0, phase ^= 1;
+    }
+    wgmma_wait<0>();
+    fence_acc(acc);
+    if (lane == 0) mbar_arrive(bars + 8 * (kStages + prev));
+    cp_async_wait<0>();
+    // the warpgroup's copies of scale and bias are all in
+    asm volatile("bar.sync %0, 128;" ::"r"(1 + wg) : "memory");
+
+    // Epilogue: (1) each thread requantizes its outputs into the staging
+    // rows, (2) the warpgroup copies the rows out, 16 bytes a thread.
+    // Accumulator 4 j + r is row g + 8 (r >> 1), column 8 j + 2 t + (r & 1)
+    // of the warp's 16 x 192 slice; columns c and 96 + c (tile j + 12) are
+    // the gate and the value of output column c.
+#pragma unroll
+    for (int j = 0; j < kCols / 8; ++j) {
+      const int c = j * 8 + 2 * t;
+      // columns past h hold no scale: computed, never stored
+      const float2 sg = *reinterpret_cast<const float2*>(vsg + c);
+      const float2 sv = *reinterpret_cast<const float2*>(vsv + c);
+      float2 bg = make_float2(0.f, 0.f), bv = bg;
+      if (has_bias) {
+        bg = *reinterpret_cast<const float2*>(vbg + c);
+        bv = *reinterpret_cast<const float2*>(vbv + c);
+      }
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {  // rows g and g + 8
+        const int e = 4 * j + 2 * hr, ev = e + 4 * (kCols / 8);
+        const int q0 = swiglu_q(acc[e], acc[ev], sg.x, sv.x, bg.x, bv.x,
+                                has_bias, osr);
+        const int q1 = swiglu_q(acc[e + 1], acc[ev + 1], sg.y, sv.y, bg.y,
+                                bv.y, has_bias, osr);
+        const int r = warp * 16 + 8 * hr + g;
+        *reinterpret_cast<uint16_t*>(staged + r * kLdOut + c) =
+            static_cast<uint16_t>((q0 & 0xff) | ((q1 & 0xff) << 8));
+      }
+    }
+    asm volatile("bar.sync %0, 128;" ::"r"(1 + wg) : "memory");
+    constexpr int kChunks = kCols / 16;
+    for (int i = threadIdx.x & 127; i < 64 * kChunks; i += 128) {
+      const int r = i / kChunks, c = i % kChunks * 16;
+      const int row = m0 + wg * 64 + r, col = n0 + c;
+      if (row >= m || col >= h) continue;
+      const uint8_t* src = staged + r * kLdOut + c;
+      int8_t* dst = out + static_cast<long long>(row) * h + col;
+      if (aligned && col + 16 <= h) {
+        *reinterpret_cast<int4*>(dst) = *reinterpret_cast<const int4*>(src);
+      } else {
+        for (int e = 0; e < 16 && col + e < h; ++e)
+          dst[e] = static_cast<int8_t>(src[e]);
+      }
+    }
+    // the staging rows, scale and bias are free again
+    asm volatile("bar.sync %0, 128;" ::"r"(1 + wg) : "memory");
   }
 }
 
@@ -191,12 +297,26 @@ extern "C" int fitv2_int8_gemm_swiglu_quant(const void* xq, const void* wq,
                                             int m, int h, int k,
                                             float out_scale_recip,
                                             void* stream) {
-  if (k % 16) return cudaErrorInvalidValue;
-  auto st = static_cast<cudaStream_t>(stream);
-  const dim3 grid((h + kBN / 2 - 1) / (kBN / 2), (m + kBM - 1) / kBM);
-  int8_gemm_swiglu_kernel<<<grid, kThreads, 0, st>>>(
-      static_cast<const int8_t*>(xq), static_cast<const int8_t*>(wq),
-      static_cast<const float*>(scale), static_cast<const float*>(bias),
-      static_cast<int8_t*>(out), m, h, k, out_scale_recip);
+  if (m < 1 || h < 1 || k < 16 || k % 16) return cudaErrorInvalidValue;
+  const EncodeTiled encode = encode_tiled();
+  if (!encode) return cudaErrorNotSupported;
+  const auto* w = static_cast<const int8_t*>(wq);
+  CUtensorMap xmap, gmap, vmap;
+  if (!encode_operand(encode, &xmap, xq, m, k, kBM) ||
+      !encode_operand(encode, &gmap, w, h, k, kCols) ||
+      !encode_operand(encode, &vmap, w + static_cast<long long>(h) * k, h, k,
+                      kCols))
+    return cudaErrorInvalidValue;
+  int sms;
+  const cudaError_t err =
+      persistent_sms<&int8_gemm_swiglu_kernel>(kSmemBytes, &sms);
+  if (err != cudaSuccess) return err;
+  const int tiles = (m + kBM - 1) / kBM * ((h + kCols - 1) / kCols);
+  const int grid = tiles < sms ? tiles : sms;
+  int8_gemm_swiglu_kernel<<<grid, kThreads, kSmemBytes,
+                            static_cast<cudaStream_t>(stream)>>>(
+      xmap, gmap, vmap, static_cast<const float*>(scale),
+      static_cast<const float*>(bias), static_cast<int8_t*>(out), m, h, k,
+      out_scale_recip);
   return cudaGetLastError();
 }

@@ -53,18 +53,21 @@
 // - Not overlapped yet: a tile's epilogue with the next tile's wgmma (both
 //   consumer warpgroups work on one tile). Consumers that take alternate
 //   tiles ("ping-pong", 128 x 144 each, setmaxnreg) would hide it.
+// The ring's barrier, copy, descriptor and tensor-map code is
+// wgmma_ring.cuh, shared with K7 (int8_gemm.cu).
 #include <cuda.h>  // CUtensorMap and its enums (types only; not linked)
 
 #include <cstdint>
 
 #include "common.cuh"
+#include "wgmma_ring.cuh"
 
 namespace {
 
 using namespace fitv2;
 
 constexpr int kBM = 128, kBN = 144;
-constexpr int kBK = 128;  // bytes = s8 elements per row of a stage
+constexpr int kBK = kRingBK;  // bytes = s8 elements per row of a stage
 constexpr int kStages = 5;
 constexpr int kConsumers = 2;                     // warpgroups
 constexpr int kThreads = (kConsumers + 1) * 128;  // + the producer's
@@ -87,94 +90,6 @@ static_assert(kATile % 1024 == 0 && kBTile % 1024 == 0,
               "stage tiles must keep the 1024-byte swizzle alignment");
 static_assert(kBN == 144, "wgmma_m64n144k32 is written for kBN = 144");
 
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-
-// Waits for the barrier's phase of this parity to complete. A wait that
-// lasts 2^34 cycles (~9 s) traps, so a fault in the ring ends the launch
-// with an error instead of hanging the card.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  const long long start = clock64();
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n\t.reg .pred p;\n\t"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
-        "selp.u32 %0, 1, 0, p;\n\t}"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-    if (!done && clock64() - start > (1ll << 34)) __trap();
-  } while (!done);
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
-                   bar),
-               "r"(bytes)
-               : "memory");
-}
-
-// 2-D TMA copy of the box at (c0 = K byte, c1 = row) into shared memory;
-// completes `bytes` of the barrier's transaction count.
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         uint32_t bar, int c0, int c1) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4}], [%2];" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
-      : "memory");
-}
-
-// 4-byte asynchronous copy global -> shared (no register round trip).
-__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(
-                   static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
-               "l"(src)
-               : "memory");
-}
-
-// wgmma matrix descriptor of a K-major tile in the 128-byte swizzle: start
-// address >> 4 (bits 0-13), leading byte offset 16 B (unused by a swizzled
-// K-major operand), stride byte offset 1024 B (8 rows of 128 B) >> 4 (bits
-// 32-45), layout 1 = 128-byte swizzle (bits 62-63). Adding j to it moves
-// the start 16 * j bytes.
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (1ull << 16) |
-         (64ull << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-}
-template <int kPending>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(kPending)
-               : "memory");
-}
-
-// Keeps the compiler from moving accumulator reads or writes across the
-// asynchronous wgmma (whose results appear only after wgmma_wait).
-__device__ __forceinline__ void fence_acc(int (&d)[kAcc]) {
-#pragma unroll
-  for (int i = 0; i < kAcc; ++i) asm volatile("" : "+r"(d[i])::"memory");
-}
-
-#define ACC8(i)                                                       \
-  "+r"(d[i]), "+r"(d[i + 1]), "+r"(d[i + 2]), "+r"(d[i + 3]),         \
-      "+r"(d[i + 4]), "+r"(d[i + 5]), "+r"(d[i + 6]), "+r"(d[i + 7])
-
 // d (64 x 144 s32, warpgroup-wide) (+)= A (64 x 32 s8) * B (144 x 32 s8)^T;
 // accumulate = 0 overwrites d.
 __device__ __forceinline__ void wgmma_m64n144k32(int (&d)[kAcc], uint64_t da,
@@ -189,12 +104,11 @@ __device__ __forceinline__ void wgmma_m64n144k32(int (&d)[kAcc], uint64_t da,
       "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
       "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, "
       "%67, %68, %69, %70, %71}, %72, %73, p;\n\t}"
-      : ACC8(0), ACC8(8), ACC8(16), ACC8(24), ACC8(32), ACC8(40), ACC8(48),
-        ACC8(56), ACC8(64)
+      : FITV2_ACC8(0), FITV2_ACC8(8), FITV2_ACC8(16), FITV2_ACC8(24),
+        FITV2_ACC8(32), FITV2_ACC8(40), FITV2_ACC8(48), FITV2_ACC8(56),
+        FITV2_ACC8(64)
       : "l"(da), "l"(db), "r"(accumulate));
 }
-
-#undef ACC8
 
 template <typename T>
 __device__ __forceinline__ void store_pair(T* p, float y0, float y1);
@@ -243,12 +157,8 @@ int8_gemm_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
 
   if (wg == kConsumers) {  // producer
     if (threadIdx.x == kConsumers * 128) {
-      asm volatile("prefetch.tensormap [%0];" ::"l"(
-                       reinterpret_cast<uint64_t>(&xmap))
-                   : "memory");
-      asm volatile("prefetch.tensormap [%0];" ::"l"(
-                       reinterpret_cast<uint64_t>(&wmap))
-                   : "memory");
+      prefetch_tensormap(&xmap);
+      prefetch_tensormap(&wmap);
       int s = 0;
       uint32_t phase = 0;
       for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
@@ -365,74 +275,16 @@ int8_gemm_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
   }
 }
 
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
-                                 cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled from the driver the runtime has loaded (null when
-// the driver lacks it).
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeTiled>(p)
-               : nullptr;
-  }();
-  return fn;
-}
-
-// (rows, k) s8 row-major as a 2-D tensor map with (box_rows, kBK) boxes in
-// the 128-byte swizzle; out-of-bounds elements read as 0.
-bool encode_operand(EncodeTiled encode, CUtensorMap* map, const void* ptr,
-                    int rows, int k, int box_rows) {
-  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(k),
-                              static_cast<cuuint64_t>(rows)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(k)};
-  const cuuint32_t box[2] = {kBK, static_cast<cuuint32_t>(box_rows)};
-  const cuuint32_t elem_strides[2] = {1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(ptr),
-                dims, strides, box, elem_strides,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
-constexpr int kMaxDevices = 64;
-
 template <typename T>
 cudaError_t launch(const CUtensorMap& xmap, const CUtensorMap& wmap,
                    const float* scale, const float* bias, T* out, int m,
                    int n, int k, cudaStream_t stream) {
-  // per device: the SM count, known once the shared-memory attribute of
-  // this instantiation is set there
-  static int sms[kMaxDevices] = {};
-  int dev;
-  cudaError_t err = cudaGetDevice(&dev);
+  int sms;
+  const cudaError_t err =
+      persistent_sms<&int8_gemm_wgmma_kernel<T>>(kSmemBytes, &sms);
   if (err != cudaSuccess) return err;
-  if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
-  if (sms[dev] == 0) {
-    err = cudaFuncSetAttribute(int8_gemm_wgmma_kernel<T>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               kSmemBytes);
-    if (err != cudaSuccess) return err;
-    int count;
-    err = cudaDeviceGetAttribute(&count, cudaDevAttrMultiProcessorCount, dev);
-    if (err != cudaSuccess) return err;
-    sms[dev] = count;
-  }
   const int tiles = (m + kBM - 1) / kBM * ((n + kBN - 1) / kBN);
-  const int grid = tiles < sms[dev] ? tiles : sms[dev];
+  const int grid = tiles < sms ? tiles : sms;
   int8_gemm_wgmma_kernel<T><<<grid, kThreads, kSmemBytes, stream>>>(
       xmap, wmap, scale, bias, out, m, n, k);
   return cudaGetLastError();

@@ -40,7 +40,7 @@
 // shared memory instead of each lane casting its own copy, and the rotation
 // runs on packed bf16 pairs (mul/add/sub.rn.bf16x2), each instruction
 // rounding two values once, which is what the reference's fp32 op and cast
-// give (see wmul); only the LayerNorm result is converted, two values an
+// give (qk_rope.cuh); only the LayerNorm result is converted, two values an
 // instruction.
 //
 // A head dim outside the templates, or q/k/tables off 16-byte boundaries
@@ -51,6 +51,7 @@
 #include <cstdint>
 
 #include "common.cuh"
+#include "qk_rope.cuh"
 
 namespace {
 
@@ -60,84 +61,6 @@ constexpr int kVecWarps = 4;  // warps (32 rows each) per block
 constexpr int kWarps = 8;     // scalar kernel: warps per block (token)
 constexpr int kMaxDh = 128;
 constexpr int kPerLane = kMaxDh / 32;
-
-// A 32-bit word of T: one fp32 value, or two bf16 values (elements 2i and
-// 2i + 1, the low half first). The rotation works on words: the bf16 ops
-// are the packed mul/add/sub.rn.bf16x2, each rounded once to bf16.
-template <typename T>
-constexpr int kWordElems = 4 / sizeof(T);
-
-__device__ __forceinline__ void to_floats(unsigned w, float (&f)[1]) {
-  f[0] = __uint_as_float(w);
-}
-__device__ __forceinline__ void to_floats(unsigned w, float (&f)[2]) {
-  f[0] = __uint_as_float(w << 16);
-  f[1] = __uint_as_float(w & 0xffff0000u);
-}
-__device__ __forceinline__ unsigned from_floats(const float (&f)[1]) {
-  return __float_as_uint(f[0]);
-}
-__device__ __forceinline__ unsigned from_floats(const float (&f)[2]) {
-  const __nv_bfloat162 p = __floats2bfloat162_rn(f[0], f[1]);  // RN
-  return *reinterpret_cast<const unsigned*>(&p);
-}
-
-// Each op rounded to T, never contracted into a fused multiply-add. A bf16
-// x bf16 product is exact in fp32 and the sum of two bf16 values either
-// exact in fp32 or off by less than a quarter bf16 ulp, so rounding once to
-// bf16 gives what the reference's fp32 op followed by a cast to bf16 gives.
-template <typename T>
-__device__ __forceinline__ unsigned wmul(unsigned a, unsigned b);
-template <typename T>
-__device__ __forceinline__ unsigned wadd(unsigned a, unsigned b);
-template <typename T>
-__device__ __forceinline__ unsigned wsub(unsigned a, unsigned b);
-template <>
-__device__ __forceinline__ unsigned wmul<float>(unsigned a, unsigned b) {
-  return __float_as_uint(__fmul_rn(__uint_as_float(a), __uint_as_float(b)));
-}
-template <>
-__device__ __forceinline__ unsigned wadd<float>(unsigned a, unsigned b) {
-  return __float_as_uint(__fadd_rn(__uint_as_float(a), __uint_as_float(b)));
-}
-template <>
-__device__ __forceinline__ unsigned wsub<float>(unsigned a, unsigned b) {
-  return __float_as_uint(__fsub_rn(__uint_as_float(a), __uint_as_float(b)));
-}
-template <>
-__device__ __forceinline__ unsigned wmul<__nv_bfloat16>(unsigned a,
-                                                        unsigned b) {
-  unsigned d;
-  asm("mul.rn.bf16x2 %0, %1, %2;" : "=r"(d) : "r"(a), "r"(b));
-  return d;
-}
-template <>
-__device__ __forceinline__ unsigned wadd<__nv_bfloat16>(unsigned a,
-                                                        unsigned b) {
-  unsigned d;
-  asm("add.rn.bf16x2 %0, %1, %2;" : "=r"(d) : "r"(a), "r"(b));
-  return d;
-}
-template <>
-__device__ __forceinline__ unsigned wsub<__nv_bfloat16>(unsigned a,
-                                                        unsigned b) {
-  unsigned d;
-  asm("sub.rn.bf16x2 %0, %1, %2;" : "=r"(d) : "r"(a), "r"(b));
-  return d;
-}
-
-// A word of the fp32 table at p, cast to T (round to nearest even).
-template <typename T>
-__device__ __forceinline__ unsigned table_word(const float* p);
-template <>
-__device__ __forceinline__ unsigned table_word<float>(const float* p) {
-  return __float_as_uint(__ldg(p));
-}
-template <>
-__device__ __forceinline__ unsigned table_word<__nv_bfloat16>(const float* p) {
-  const float2 v = __ldg(reinterpret_cast<const float2*>(p));
-  return from_floats({v.x, v.y});
-}
 
 // Table slots a warp needs: its 32 rows span at most 31 / (2H) + 2 tokens.
 __host__ __device__ constexpr int table_slots(int h) { return 31 / (2 * h) + 2; }
@@ -238,12 +161,7 @@ qk_rope_kernel_vec(const T* __restrict__ q, const T* __restrict__ k,
       const float var = ((s2[0] + s2[1]) + (s2[2] + s2[3])) / kDh;
       const float rstd = 1.f / sqrtf(var + eps);
 #pragma unroll
-      for (int i = 0; i < kW; ++i) {
-        float f[kEw];
-#pragma unroll
-        for (int e = 0; e < kEw; ++e) f[e] = (x[i * kEw + e] - mean) * rstd;
-        w[i] = from_floats(f);  // the LN result rounded to T
-      }
+      for (int i = 0; i < kW; ++i) w[i] = ln_word<T>(w[i], mean, rstd);
     }
     // y[i] = x[i] cos[i] - x[i + Dh/2] sin[i], y[i + Dh/2] =
     // x[i + Dh/2] cos[i + Dh/2] + x[i] sin[i + Dh/2], two words at a time
@@ -258,11 +176,8 @@ qk_rope_kernel_vec(const T* __restrict__ q, const T* __restrict__ k,
       const unsigned cl[2] = {c0.x, c0.y}, ch[2] = {c1.x, c1.y};
       const unsigned sl[2] = {s0.x, s0.y}, sh[2] = {s1.x, s1.y};
 #pragma unroll
-      for (int u = 0; u < 2; ++u) {
-        const unsigned a = w[i + u], b = w[i + kHalfW + u];
-        w[i + u] = wsub<T>(wmul<T>(a, cl[u]), wmul<T>(b, sl[u]));
-        w[i + kHalfW + u] = wadd<T>(wmul<T>(b, ch[u]), wmul<T>(a, sh[u]));
-      }
+      for (int u = 0; u < 2; ++u)
+        rope_pair<T>(w[i + u], w[i + kHalfW + u], cl[u], ch[u], sl[u], sh[u]);
     }
 #pragma unroll
     for (int i = 0; i < kC; ++i)

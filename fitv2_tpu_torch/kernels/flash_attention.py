@@ -39,7 +39,8 @@ _ARGTYPES = (ctypes.c_void_p,) * 5 + (
     ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
     ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_float,
     ctypes.c_int, ctypes.c_int, ctypes.c_void_p)
-HEAD_DIMS = (64, 72, 96, 128)  # instantiated in csrc/attention.cu
+# instantiated in csrc/attention.cu and csrc/fused_attention.cu
+HEAD_DIMS = (32, 64, 72, 96, 128)
 MASKED_LOGIT = -1e30
 
 

@@ -82,6 +82,11 @@ def fused_qkln_rope_attention(qkv: Tensor, cos: Tensor, sin: Tensor,
     if qkv.dim() != 3 or not qkv.is_contiguous() or qkv.shape[-1] % 3:
         raise ValueError(f'qkv must be a contiguous (B, N, 3C) tensor, got '
                          f'{tuple(qkv.shape)} strides {qkv.stride()}')
+    for name, t in (('qkv', qkv), ('cos', cos), ('sin', sin)):
+        if qkv.dtype == torch.bfloat16 and t.data_ptr() % 16:
+            raise ValueError(f'{name}: the bf16 fused attention kernel reads '
+                             '16-byte chunks and needs a start on 16 bytes, '
+                             f'got {t.data_ptr() % 16} bytes off')
     b, n, c3 = qkv.shape
     c = c3 // 3
     dh = c // num_heads

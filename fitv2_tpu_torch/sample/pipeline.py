@@ -1,7 +1,7 @@
 """FiTv2 sampling pipeline: noise -> CFG Euler denoise -> VAE -> uint8.
 
 Counterpart of the flow-matching path of fitv2_tpu/sample/pipeline.py: the
-CFG double-batch Euler loop over ``linspace(0, 1, steps + 1)`` (one FiT
+CFG double-batch Euler loop over ``euler_ladder(steps)`` (one FiT
 forward on 2B per step, null class ``num_classes``, ``v = uncond +
 cfg_scale * (cond - uncond)`` over all channels), unpatchify, SD-VAE
 decode and the uint8 conversion. It runs eagerly on the model's device.
@@ -31,7 +31,7 @@ import numpy as np
 import torch
 
 from fitv2_tpu_torch.flow.samplers import (
-    cfg_model_fn, euler_sample, euler_sample_extrapolated)
+    cfg_model_fn, euler_ladder, euler_sample, euler_sample_extrapolated)
 from fitv2_tpu_torch.kernels.quant import (
     calibrate_quant_scales, load_quant_state, prequantize_weights)
 from fitv2_tpu_torch.models.grid_utils import (
@@ -67,10 +67,17 @@ class SamplingConfig:
     guidance_high: float = 1.0
 
 
+def _float64_ladder(steps: int) -> np.ndarray:
+    """JAX's float64 ladder (``np.linspace``): its guidance interval decides
+    the CFG window on it and, when the model runs on every step, scans it
+    rounded to float32 (fitv2_tpu/sample/pipeline.py:196-203, 337-342)."""
+    return np.linspace(0.0, 1.0, steps + 1)
+
+
 def guidance_phases(cfg: SamplingConfig) -> tuple[int, int]:
     """Ladder indices [i0, i1) of the CFG window: steps before i0 and from
     i1 on are conditional only. Decided on the float64 ladder, as in JAX."""
-    t_cur = np.linspace(0.0, 1.0, cfg.num_sampling_steps + 1)[:-1]
+    t_cur = _float64_ladder(cfg.num_sampling_steps)[:-1]
     idx = np.flatnonzero((t_cur >= cfg.guidance_low)
                          & (t_cur <= cfg.guidance_high))
     return (int(idx[0]), int(idx[-1]) + 1) if idx.size else (0, 0)
@@ -127,10 +134,14 @@ def build_sampler(model, cfg: SamplingConfig, vae=None,
     grid, mask, size, rope = bucket_inputs(2 * B)
     y_null = torch.full((B,), cfg.num_classes, dtype=torch.int64,
                         device=device)
-    sigmas = torch.linspace(0.0, 1.0, cfg.num_sampling_steps + 1,
-                            dtype=torch.float32).numpy()
     steps = cfg.num_sampling_steps
     use_interval = (cfg.guidance_low, cfg.guidance_high) != (0.0, 1.0)
+    # JAX's ladders: jnp.linspace, except for the guidance interval's
+    # every-step scan, which runs on the float64 ladder rounded to float32
+    if use_interval and cfg.velocity_eval_every == 1:
+        sigmas = _float64_ladder(steps).astype(np.float32)
+    else:
+        sigmas = euler_ladder(steps)
     i0, i1 = guidance_phases(cfg) if use_interval else (0, steps)
     if use_interval:
         grid_c, mask_c, size_c, rope_c = bucket_inputs(B)

@@ -390,29 +390,73 @@ def test_int8_gemm_bias_kernel_saturated(dev, out_dtype):
     _assert_int8_gemm_bias_exact(xq, wq, scale, bias, out_dtype)
 
 
-@pytest.mark.parametrize('m,k,h', [(400, 1152, 1160), (4096, 1152, 3072),
-                                   (33, 64, 40)])
-def test_int8_gemm_swiglu_kernel_matches_plain(dev, m, k, h):
-    xq, wq, scale, bias = _int8_operands(dev, m, k, 2 * h, seed=6)
-    scale = scale * 0.3
-    bias = 0.1 * bias
+def _assert_swiglu_close(xq, wq, scale, bias, osr):
+    """K7 against its plain version: at most one level off, on at most 0.1%
+    of the s8 outputs (a rounding tie flipped by a 1-ulp sigmoid)."""
+    (m, k), h = xq.shape, wq.shape[0] // 2
     before = K.int8_gemm_swiglu_quant.launches
-    out = K.swiglu_requant_gemm(xq, wq, scale, bias, 20.0)
+    out = K.swiglu_requant_gemm(xq, wq, scale, bias, osr)
     assert K.int8_gemm_swiglu_quant.launches == before + 1
-    ref = K.int8_gemm_swiglu_quant_reference(xq, wq, scale, bias, 20.0)
+    if m > 16:
+        ref = K.int8_gemm_swiglu_quant_reference(xq, wq, scale, bias, osr)
+    else:  # torch._int_mm on CUDA refuses M <= 16: the plain version on
+        # the CPU
+        ref = K.int8_gemm_swiglu_quant_reference(
+            xq.cpu(), wq.cpu(), scale.cpu(), bias.cpu(), osr).to(out.device)
     assert out.dtype == torch.int8 and out.shape == (m, h)
     assert (ref != 0).float().mean() > 0.5  # not vacuous
     diff = (out.int() - ref.int()).abs()
-    assert diff.max() <= 1 and (diff > 0).float().mean() <= 1e-3
+    assert diff.max() <= 1 and (diff > 0).float().mean() <= 1e-3, (
+        diff.max().item(), (diff > 0).float().mean().item())
+
+
+@pytest.mark.parametrize('m,k,h', [
+    (400, 1152, 1160), (4096, 1152, 3072), (2048, 1152, 3072), (33, 64, 40),
+    (1, 1152, 3072), (17, 1152, 3072), (129, 1152, 3072)])
+def test_int8_gemm_swiglu_kernel_matches_plain(dev, m, k, h):
+    """The int8 path's fc1 at M = 4096 (CFG batch) and 2048 (conditional
+    only); ragged M (1, 17, 129 rows: a tile row of 128 cut short or just
+    passed); H = 1160 and 40, whose last tile of 96 output columns is
+    ragged in both the gate and the value half; K = 64 shorter than the
+    128-byte box."""
+    xq, wq, scale, bias = _int8_operands(dev, m, k, 2 * h, seed=6)
+    _assert_swiglu_close(xq, wq, scale * 0.3, 0.1 * bias, 20.0)
+
+
+def test_int8_gemm_swiglu_kernel_saturated(dev):
+    """Every operand +-127 at K = 3072: |acc| up to 127^2 * 3072 > 2^24, so
+    its f32 conversion rounds (both sides round the same s32 the same
+    way), and the requantization clips."""
+    m, k, h = 256, 3072, 288
+    g = _gen(dev, 13)
+
+    def pm127(*shape):
+        bits = torch.randint(0, 2, shape, device=dev, generator=g,
+                             dtype=torch.int8)
+        return 127 * (2 * bits - 1)
+
+    xq = pm127(m, k)
+    xq[:128] = 127  # rows of the extreme sums
+    wq = pm127(2 * h, k)
+    wq[:8] = 127
+    wq[h:h + 8] = -127
+    scale = torch.rand(2 * h, device=dev, generator=g) * 3e-6 + 1e-7
+    bias = 0.1 * torch.randn(2 * h, device=dev, generator=g)
+    assert torch._int_mm(xq, wq.t()).abs().max().item() == 127 ** 2 * k
+    _assert_swiglu_close(xq, wq, scale, bias, 20.0)
 
 
 @pytest.mark.parametrize('dtype', DTYPES, ids=['fp32', 'bf16'])
-@pytest.mark.parametrize('n,masked', [(1024, True), (1024, False),
+@pytest.mark.parametrize('n,masked', [(256, True), (256, False),
+                                      (1024, True), (1024, False),
                                       (200, True), (37, False)])
 @pytest.mark.parametrize('dh', HEAD_DIMS)
 def test_fused_attention_kernel_matches_plain(dev, dtype, n, masked, dh):
-    """N = 1024 is the HR context; the mask has a full row, a partial one
-    and an empty one (every key padded: a uniform average)."""
+    """N <= 256 keeps the normalised keys resident for both passes of the
+    bf16 kernel (256 the XL context; 200 and 37 end in a ragged tile);
+    N = 1024, the HR context, stages them again in each pass. The mask has
+    a full row, a partial one and an empty one (every key padded: a
+    uniform average)."""
     g = _gen(dev, 7)
     b, h = 3, 2
     qkv = torch.randn(b, n, 3 * h * dh, device=dev, generator=g).to(dtype)
@@ -509,6 +553,51 @@ def test_fit_forward_cuda_matches_cpu(dev, n_h, n_w):
     depth = SMALL['depth']
     assert [w.launches - c for w, c in zip(K.KERNEL_WRAPPERS, counts)] == \
         [2 * depth + 1, depth, depth, 0, 0, 0]
+    assert want.abs().max() > 0
+    rel = ((got - want).norm() / want.norm()).item()
+    assert rel <= 1e-5, rel
+
+
+@pytest.mark.parametrize('attn_impl', ['auto', 'fused'])
+@pytest.mark.parametrize('n_h,n_w', [(8, 8), (6, 8)], ids=['full', 'padded'])
+def test_small_cifar_fit_forward_cuda_matches_cpu(dev, attn_impl, n_h, n_w):
+    """The model of configs/fitv2_small_cifar.yaml (hidden 128, 4 heads:
+    Dh 32) in fp32, its zero-init leaves perturbed: the kernels on CUDA
+    (K1, K2 and K4, or K1 and K5) against the plain versions on the CPU,
+    relative L2 within 1e-5, on the full 8 x 8 grid and a padded 6 x 8."""
+    import os
+    from fitv2_tpu_torch.models.grid_utils import make_grid_mask_size
+    from fitv2_tpu_torch.utils import config_to_model, load_config
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    net = load_config(os.path.join(repo, 'configs', 'fitv2_small_cifar.yaml')
+                      )['diffusion']['network_config']
+    torch.manual_seed(0)
+    model = config_to_model(net, attn_impl=attn_impl)
+    assert model.head_dim == 32
+    g = torch.Generator().manual_seed(1)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if 'adaLN_modulation.fc_out' in name or 'final_layer.linear' in name:
+                p.add_(0.05 * torch.randn(p.shape, generator=g))
+    model.eval()
+    b, n_ctx = 2, model.context_size
+    x = torch.randn(b, n_ctx, 16, generator=g)
+    t = torch.rand(b, generator=g)
+    y = torch.tensor([3, 10])
+    grid, mask, size = make_grid_mask_size(b, n_h, n_w, n_ctx)
+    mask = None if n_h * n_w == n_ctx else mask
+    with torch.no_grad():
+        want = model(x, t, y, grid, mask, size)
+        counts = [w.launches for w in K.KERNEL_WRAPPERS]
+        got = model.to(dev)(x.to(dev), t.to(dev), y.to(dev), grid.to(dev),
+                            None if mask is None else mask.to(dev),
+                            size.to(dev)).cpu()
+    depth = model.depth
+    launched = [w.launches - c for w, c in zip(K.KERNEL_WRAPPERS, counts)]
+    if attn_impl == 'fused':
+        assert launched == [2 * depth + 1, 0, 0, depth, 0, 0]
+    else:
+        assert launched == [2 * depth + 1, depth, depth, 0, 0, 0]
     assert want.abs().max() > 0
     rel = ((got - want).norm() / want.norm()).item()
     assert rel <= 1e-5, rel

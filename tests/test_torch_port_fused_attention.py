@@ -101,6 +101,43 @@ def test_plain_matches_pallas_kernel(monkeypatch, dtype, masked, norm):
 
 @pytest.mark.parametrize('dtype', ['fp32', 'bf16'])
 @pytest.mark.parametrize('masked', [True, False], ids=['masked', 'unmasked'])
+def test_plain_matches_pallas_kernel_at_small_cifar_shape(monkeypatch, dtype,
+                                                          masked):
+    """configs/fitv2_small_cifar.yaml's attention: 64 tokens, hidden 128 over
+    4 heads (Dh 32, the head dim the card kernels gained); the mask leaves
+    one row full, one partial and one with no valid key."""
+    monkeypatch.setattr(fa, '_INTERPRET', True)
+    qkv, cos, sin, mask, h = _inputs(dtype, masked, b=3, n=64, h=4, dh=32,
+                                     seed=2)
+    got, want = _run_both(
+        qkv, cos, sin, mask, h, dtype, (True, True),
+        lambda a, c, s, m, hh, eps, nq, nk: fa.fused_qkln_rope_attention(
+            a, c, s, m, hh, eps, nq, nk))
+    _assert_close(got, want, dtype)
+
+
+def test_every_config_head_dim_is_instantiated():
+    """The head dim that attention (K4) and the fused attention (K5) are
+    called with, for the model of every config in configs/, is one the card
+    kernels are built for, so no config that ``supports`` admits raises on
+    the card."""
+    import glob
+    import os
+    from fitv2_tpu_torch.kernels.flash_attention import HEAD_DIMS
+    from fitv2_tpu_torch.utils import load_config
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    seen = {}
+    for path in sorted(glob.glob(os.path.join(repo, 'configs', '*.yaml'))):
+        net = load_config(path)['diffusion']['network_config']['params']
+        c, heads = net['hidden_size'], net['num_heads']
+        dh = c // heads
+        assert c % heads == 0 and dh in HEAD_DIMS, (path, dh, HEAD_DIMS)
+        seen[os.path.basename(path)] = dh
+    assert seen['fitv2_small_cifar.yaml'] == 32 and seen['fitv2_xl.yaml'] == 72
+
+
+@pytest.mark.parametrize('dtype', ['fp32', 'bf16'])
+@pytest.mark.parametrize('masked', [True, False], ids=['masked', 'unmasked'])
 def test_plain_matches_reference_chain(dtype, masked):
     qkv, cos, sin, mask, h = _inputs(dtype, masked, b=3, n=24, h=2, dh=8,
                                      seed=1)

@@ -3,13 +3,14 @@
 
 Run from the repository root on a machine with the card:
 
-    python3 tools/torch_profile_step.py [--path bf16|int8] [--tree DIR]
+    python3 tools/torch_profile_step.py [--path bf16|int8|fused] [--tree DIR]
 
 Builds chip_smoke.py's FiTv2-XL/2 (random weights from its seed, the
 zero-init leaves perturbed) in bf16 on the card (``--path int8``: the int8
-W8A8 model on the same weights, calibrated by the sampler), at
-chip_smoke.py's batch and CFG scale at 256x256, warms the sampler up, then
-measures:
+W8A8 model on the same weights, calibrated by the sampler; ``--path
+fused``: ``attn_impl='fused'`` on chip_smoke.py's padded 160x320 bucket,
+200 of 256 tokens valid), at chip_smoke.py's batch and CFG scale (256x256
+unless fused), warms the sampler up, then measures:
 
 - wall ms per step: three unprofiled STEPS-step sampler calls, each ended
   by ``torch.cuda.synchronize()``;
@@ -37,7 +38,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 STEPS = 10
 
 # kernel name fragment -> group; the first match wins
-GROUPS = (('fused_attention_kernel', 'fused_attention (K5)'),
+GROUPS = (('fused_attention_', 'fused_attention (K5)'),
           ('attention_', 'attention (K3/K4)'),
           ('adaln_kernel', 'adaln (K1)'),
           ('qk_rope_kernel', 'qk_rope (K2)'),
@@ -54,7 +55,8 @@ def group_of(name: str) -> str:
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
-    ap.add_argument('--path', choices=('bf16', 'int8'), default='bf16')
+    ap.add_argument('--path', choices=('bf16', 'int8', 'fused'),
+                    default='bf16')
     ap.add_argument('--tree', default=ROOT)
     args = ap.parse_args()
     sys.path.insert(0, ROOT)
@@ -65,13 +67,16 @@ def main() -> None:
     import fitv2_tpu_torch
     from fitv2_tpu_torch.sample import SamplingConfig, build_sampler
 
-    model = chip_smoke.xl_model_bf16(
-        **(dict(gemm_precision='int8') if args.path == 'int8' else {}))
+    options = {'bf16': {}, 'int8': dict(gemm_precision='int8'),
+               'fused': dict(attn_impl='fused')}[args.path]
+    model = chip_smoke.xl_model_bf16(**options)
+    hw = chip_smoke.PADDED_HW if args.path == 'fused' else (256, 256)
     batch = chip_smoke.BATCH
     labels = torch.arange(batch) * 111 % 1000
     z = torch.randn(batch, 256, 16, generator=torch.Generator().manual_seed(
         chip_smoke.SEED + 3))
-    scfg = SamplingConfig(num_sampling_steps=STEPS,
+    scfg = SamplingConfig(image_height=hw[0], image_width=hw[1],
+                          num_sampling_steps=STEPS,
                           cfg_scale=chip_smoke.CFG_SCALE,
                           per_device_batch=batch, dtype=torch.bfloat16)
     sample = build_sampler(model, scfg)  # int8: calibrates here
