@@ -51,6 +51,21 @@ Phases (any failure raises and exits non-zero; nothing is caught):
                 256 tokens valid), batch 8, 250 steps, VAE, npz of
                 (8, 160, 320, 3); K5 in every block, K2-K4 never; the one
                 -step velocity against the unfused path; images/s.
+  9. hr       - FiTv2-HR-XL/2 (configs/fitv2_hr_xl.yaml's widths: context
+                1024, online decoupled NTK RoPE trained at 16 x 16; the
+                same seeded weights): K1, K2 (per-sample online tables)
+                and K4 (no mask, 800 of 1024 keys valid) at N 1024 against
+                their plain versions; the fp32 one-step velocity at 512x512,
+                batch 1, CUDA vs CPU; then in bf16, batch 4, 250 steps, CFG
+                1.5, VAE, npz: 512x512 ('keep', N 1024 unmasked) and
+                320x640 (800 of 1024 tokens valid); then XL/2 through
+                BucketedSampler at 320x320 ('ntkpro2', context grown to
+                400), batch 8; exact launch counts and images/s of each.
+ 10. eval     - InceptionV3 with seeded pytorch-fid-layout weights, on the
+                card against the CPU on 8 images (TF32 off); activation
+                images/s at batch 64 over 512 seeded 256x256 images;
+                cli/evaluate with --device cuda on phase 5's and phase 9's
+                npz files: finite FID, sFID, IS, precision and recall.
 Each path's counts are set to 0 just before it runs and read just after.
 The line before the last is the JSON list of kernels; the last line is
 {"ok": true, "device": {...}}.
@@ -58,9 +73,12 @@ The line before the last is the JSON list of kernels; the last line is
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
+import io
 import json
+import math
 import os
 import re
 import statistics
@@ -110,6 +128,17 @@ XL = dict(context_size=256, patch_size=2, in_channels=4, hidden_size=1152,
           num_classes=1000, learn_sigma=False, use_sit=True, use_swiglu=True,
           q_norm='layernorm', k_norm='layernorm', qk_norm_weight=False,
           rel_pos_embed='rope', adaln_type='lora', adaln_lora_dim=288)
+# FiTv2-HR-XL/2 (configs/fitv2_hr_xl.yaml): XL's parameters, a 1024-token
+# context and online decoupled NTK RoPE trained at a 16 x 16 grid
+HR_XL = dict(XL, context_size=1024, online_rope=True, custom_freqs='ntk-aware',
+             decouple=True, ori_max_pe_len=16, max_cached_len=1024)
+HR_BATCH = 4
+HR_N = 1024
+HR_BUCKETS = ((512, 512), (320, 640))  # 1024 and 800 of 1024 tokens
+EXTRAP_HW = (320, 320)  # XL/2 (16 x 16) at 20 x 20 through BucketedSampler
+TOL_INCEPTION_REL = 1e-4  # phase 10: card vs CPU, fp32 without TF32, of the
+                          # largest magnitude (cuDNN sums in another order)
+EVAL_IMAGES, EVAL_BATCH = 512, 64
 
 
 def say(*args):
@@ -407,14 +436,18 @@ def _attention_case(K, dtype, q, k, v, mask, bounded, time_plain=True):
     nbytes = 4 * q.numel() * q.element_size() + (
         0 if mask is None else mask.numel() * mask.element_size())
     kind = 'bf16' if dtype == torch.bfloat16 else 'fp32'
-    bound, by = _bound_ms(nbytes, 4 * b * h * n * n * dh, kind)
+    # Q K^T and P V over each row's valid keys: a masked key adds nothing
+    keys = b * n if mask is None else int((mask > 0).sum())
+    bound, by = _bound_ms(nbytes, 4 * h * n * keys * dh, kind)
+    plain_max = ref.float().abs().max().item()
     plain_say = f'plain {pms * 1e3:.1f} us, ' if time_plain else ''
     say(f'[kernels] {label} {kind} ({b},{n},{h},{dh}): kernel '
         f'{ms * 1e3:.1f} us, {plain_say}'
         f'scaled_dot_product_attention {lms * 1e3:.1f} us, bound '
-        f'{bound * 1e3:.1f} us ({by})')
+        f'{bound * 1e3:.1f} us ({by}); max abs err {err:.3e} of max '
+        f'|plain| {plain_max:.3e}')
     return dict(variant=variant, mask=mask is not None, dtype=kind,
-                max_abs_err=err, us=ms * 1e3,
+                max_abs_err=err, plain_max_abs=plain_max, us=ms * 1e3,
                 plain_us=pms * 1e3 if time_plain else None,
                 library_us=lms * 1e3, library_max_abs_err=lib_err,
                 bound_us=bound * 1e3, bound_by=by)
@@ -454,11 +487,14 @@ def _fused_attention_case(K, qkv, cos, sin, mask, h):
         qkv, cos, sin, mask, h))
     pair_ms = _time_ms(pair)
     kind = 'bf16' if dtype == torch.bfloat16 else 'fp32'
-    # qkv in, out, the fp32 cos/sin tables, the mask; Q K^T and P V
+    # qkv in, out, the fp32 cos/sin tables, the mask; Q K^T and P V for
+    # each row's valid queries over its valid keys (padded query rows are 0)
+    pairs = (b * n * n if mask is None
+             else int(((mask > 0).sum(1).double() ** 2).sum()))
     bound, by = _bound_ms(
         (qkv.numel() + out.numel()) * qkv.element_size() + 2 * cos.numel() * 4
-        + (0 if mask is None else mask.numel() * 4), 4 * b * h * n * n * dh,
-        kind)
+        + (0 if mask is None else mask.numel() * 4),
+        4 * h * pairs * dh, kind)
     say(f'[kernels] {label} {kind} ({b},{n},{c3}): kernel {ms * 1e3:.1f} us,'
         f' plain {pms * 1e3:.1f} us, unfused K2 + K4 {pair_ms * 1e3:.1f} us, '
         f'bound {bound * 1e3:.1f} us ({by})')
@@ -695,8 +731,9 @@ def _read_counts():
     return {w.__name__: w.launches for w in K.KERNEL_WRAPPERS}
 
 
-def phase_main(model_gpu, vae, card):
-    """The main path in bf16: sampler -> VAE -> uint8 -> npz, counted."""
+def phase_main(model_gpu, vae, card, out_dir):
+    """The main path in bf16: sampler -> VAE -> uint8 -> npz (kept in
+    out_dir for phase 10), counted."""
     import numpy as np
     import torch
     from fitv2_tpu_torch.sample import (
@@ -730,11 +767,10 @@ def phase_main(model_gpu, vae, card):
     _reset_counts()
     t0 = time.perf_counter()
     images = sample(labels, z=z)
-    with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(tmp, 'samples.npz')
-        save_npz(path, images.cpu().numpy())
-        t_full = time.perf_counter() - t0
-        arr = np.load(path)['arr_0']
+    path = os.path.join(out_dir, 'main.npz')
+    save_npz(path, images.cpu().numpy())
+    t_full = time.perf_counter() - t0
+    arr = np.load(path)['arr_0']
     counts = _read_counts()
     if arr.shape != (BATCH, 256, 256, 3) or arr.dtype != np.uint8:
         raise AssertionError(f'main: npz holds {arr.shape} {arr.dtype}')
@@ -776,27 +812,33 @@ def _one_step_velocity(model, z, labels, hw=(256, 256)):
     return (build_sampler(model, scfg)(labels, z=z) - z_img.float()).float()
 
 
-def _counted_pipeline(tag, model, scfg, vae, labels, z, want):
-    """Warm up (2 steps), then the user's call: build_sampler with the VAE,
-    sample, uint8 -> npz, with every count set to 0 just before and read
-    just after. Checks the npz and the counts; returns the seconds."""
+def _counted_pipeline(tag, model, scfg, vae, labels, z, want, build=None,
+                      out_dir=None):
+    """Warm up (2 steps), then the user's call: build_sampler with the VAE
+    (or `build(scfg)`), sample, uint8 -> npz (`tag`.npz, kept in out_dir
+    when given), with every count set to 0 just before and read just
+    after. Checks the npz and the counts; returns the seconds."""
     import numpy as np
     import torch
     from fitv2_tpu_torch.sample import build_sampler, save_npz
+    if build is None:
+        def build(cfg):
+            return build_sampler(model, cfg, vae)
     warm = dataclasses.replace(scfg, num_sampling_steps=2)
-    build_sampler(model, warm, vae)(labels, z=z)
+    build(warm)(labels, z=z)
     torch.cuda.synchronize()
-    sample = build_sampler(model, scfg, vae)
-    _reset_counts()
-    t0 = time.perf_counter()
-    images = sample(labels, z=z)
-    with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(tmp, 'samples.npz')
+    sample = build(scfg)
+    with contextlib.ExitStack() as stack:
+        folder = out_dir or stack.enter_context(tempfile.TemporaryDirectory())
+        path = os.path.join(folder, f'{tag}.npz')
+        _reset_counts()
+        t0 = time.perf_counter()
+        images = sample(labels, z=z)
         save_npz(path, images.cpu().numpy())
         secs = time.perf_counter() - t0
         arr = np.load(path)['arr_0']
-    counts = _read_counts()
-    shape = (BATCH, scfg.image_height, scfg.image_width, 3)
+        counts = _read_counts()
+    shape = (len(labels), scfg.image_height, scfg.image_width, 3)
     if arr.shape != shape or arr.dtype != np.uint8:
         raise AssertionError(f'{tag}: npz holds {arr.shape} {arr.dtype}, '
                              f'want {shape} uint8')
@@ -929,6 +971,208 @@ def phase_fused(model_bf16, vae, card):
     return _read_counts()
 
 
+def _hr_model(model, dtype, device):
+    """FiTv2-HR-XL/2 holding `model`'s weights (XL/2's parameters: the
+    context and the RoPE config hold no weights) in `dtype` on `device`."""
+    import torch
+    from fitv2_tpu_torch.models import FiT
+    with torch.device(device):
+        hr = FiT(**HR_XL, dtype=dtype)
+    hr.load_state_dict(model.state_dict())
+    return hr.eval()
+
+
+def hr_model_bf16():
+    """_xl_model_fp32's weights as FiTv2-HR-XL/2 on the card in bf16."""
+    import torch
+    return _hr_model(_xl_model_fp32(), torch.bfloat16, 'cuda')
+
+
+def _hr_grid(sizes):
+    """Per-sample (grid (B, 2, HR_N), size (B, 1, 2)) of (h, w) token grids,
+    each padded to HR_N, on the card."""
+    import numpy as np
+    import torch
+    from fitv2_tpu_torch.models.grid_utils import make_grid
+    grid = np.zeros((len(sizes), 2, HR_N), np.int64)
+    for i, (h, w) in enumerate(sizes):
+        grid[i, :, :h * w] = make_grid(h, w)
+    size = torch.tensor(sizes, dtype=torch.int64).reshape(len(sizes), 1, 2)
+    return torch.from_numpy(grid).cuda(), size.cuda()
+
+
+def _hr_kernel_cases(K, rope_cfg):
+    """K1, K2 and K4 at the HR path's shapes (CFG batch 8, N 1024, bf16)
+    against their plain versions: K2 with per-sample online NTK tables
+    (half the batch at 32 x 32, half at 20 x 40), K4 without a mask and
+    with 800 of 1024 keys valid."""
+    import torch
+    from fitv2_tpu_torch.models import rope as rope_lib
+    dev = torch.device('cuda')
+    gen = torch.Generator(device=dev).manual_seed(SEED + 9)
+    b2 = 2 * HR_BATCH
+    x = (torch.randn(b2, HR_N, D, device=dev, generator=gen) * 2 + 3
+         ).to(torch.bfloat16)
+    mod = (0.5 * torch.randn(b2, 6 * D, device=dev, generator=gen)
+           ).to(torch.bfloat16)
+    shift, scale = mod.chunk(6, dim=-1)[:2]
+    adaln = _adaln_case(K, x, shift, scale)
+    grid, size = _hr_grid([(32, 32)] * HR_BATCH + [(20, 40)] * HR_BATCH)
+    cos, sin = rope_lib.online_rope_from_grid(rope_cfg, grid, size)
+    if torch.equal(cos[0], cos[-1]):
+        raise AssertionError('hr: the per-sample tables do not differ')
+    qkv = torch.randn(b2, HR_N, 3, H, DH, device=dev, generator=gen
+                      ).to(torch.bfloat16)
+    q, k, v = qkv.unbind(2)
+    qk_rope = _qk_rope_case(K, q, k, cos, sin)
+    qn, kn = K.qk_norm_rope_reference(q, k, cos, sin)
+    mask = torch.zeros(b2, HR_N, device=dev)
+    mask[:, :800] = 1.0
+    attention = [dict(_attention_case(K, torch.bfloat16, qn, kn, v, m, True),
+                      shape=[b2, HR_N, H, DH]) for m in (None, mask)]
+    torch.cuda.synchronize()
+    return {'adaln': [adaln], 'qk_rope': [qk_rope], 'attention': attention}
+
+
+def phase_hr(model_cpu, model_bf16, vae, card, out_dir):
+    """The HR path and an extrapolated XL bucket; returns the kernel cases
+    and each path's counts."""
+    import torch
+    from fitv2_tpu_torch import kernels as K
+    from fitv2_tpu_torch.sample import (
+        BucketedSampler, SamplingConfig, build_sampler)
+    hr_cpu = _hr_model(model_cpu, torch.float32, 'cpu')
+    cases = _hr_kernel_cases(K, hr_cpu.rope_config)
+
+    # fp32 one CFG Euler step at 512x512, batch 1: CUDA vs CPU
+    scfg = SamplingConfig(image_height=512, image_width=512,
+                          num_sampling_steps=1, cfg_scale=CFG_SCALE,
+                          per_device_batch=1, dtype=torch.float32,
+                          interpolation='keep')
+    z = torch.randn(1, HR_N, 16, generator=torch.Generator().manual_seed(
+        SEED + 5))
+    labels = torch.tensor([207])
+    z_img = hr_cpu.unpatchify(z, (64, 64))
+    t0 = time.perf_counter()
+    v_cpu = build_sampler(hr_cpu, scfg)(labels, z=z) - z_img
+    t_cpu = time.perf_counter() - t0
+    hr_gpu = copy.deepcopy(hr_cpu).to('cuda')
+    del hr_cpu
+    v_gpu = build_sampler(hr_gpu, scfg)(labels, z=z).cpu() - z_img
+    del hr_gpu
+    norm = v_cpu.norm().item()
+    if not torch.isfinite(v_gpu).all() or norm == 0.0:
+        raise AssertionError('hr parity: non-finite or zero velocity')
+    rel = (v_gpu - v_cpu).norm().item() / norm
+    say(f'[hr] HR-XL fp32 depth {HR_XL["depth"]}, 512x512 (N 1024, online '
+        f'NTK), batch 1 (CFG 2), 1 Euler step: |v| {norm:.4e}, relative L2 CUDA vs CPU '
+        f'{rel:.3e} <= {TOL_SLICE_REL_L2}: '
+        f'{"ok" if rel <= TOL_SLICE_REL_L2 else "FAIL"} (CPU step '
+        f'{t_cpu:.1f} s)')
+    if not rel <= TOL_SLICE_REL_L2:
+        raise AssertionError(f'hr parity: relative L2 {rel}')
+
+    hr = _hr_model(model_bf16, torch.bfloat16, 'cuda')
+    labels = torch.arange(HR_BATCH) * 111 % 1000
+    z = torch.randn(HR_BATCH, HR_N, 16,
+                    generator=torch.Generator().manual_seed(SEED + 6))
+    counts = {}
+    want = _expected_counts(STEPS, hr.depth, fused_qk_rope=1,
+                            flash_masked_attention=1)
+    for h, w in HR_BUCKETS:
+        tag = f'hr_{h}x{w}'
+        scfg = SamplingConfig(image_height=h, image_width=w,
+                              num_sampling_steps=STEPS, cfg_scale=CFG_SCALE,
+                              per_device_batch=HR_BATCH,
+                              dtype=torch.bfloat16, interpolation='keep')
+        secs = _counted_pipeline(tag, hr, scfg, vae, labels, z, want,
+                                 out_dir=out_dir)
+        counts[tag] = _read_counts()
+        say(f'[hr] HR-XL/2 bf16 {h}x{w} ({h * w // 256} of {HR_N} tokens '
+            f'valid), online NTK, batch {HR_BATCH}, {STEPS} steps, CFG '
+            f'{CFG_SCALE}: full pipeline {secs:.3f} s = '
+            f'{HR_BATCH / secs:.4f} images/s [{card}]')
+    del hr
+
+    h, w = EXTRAP_HW
+    tag = f'xl_{h}x{w}'
+    base = SamplingConfig(image_height=h, image_width=w,
+                          num_sampling_steps=STEPS, cfg_scale=CFG_SCALE,
+                          per_device_batch=BATCH, dtype=torch.bfloat16)
+    bucket_cfg = BucketedSampler(model_bf16, base, vae).config_for(h, w)
+    if bucket_cfg.interpolation != 'ntkpro2':
+        raise AssertionError(f'{tag}: bucket config {bucket_cfg}')
+    n_tok = (h // 16) * (w // 16)  # > 256: the context grows to n_tok
+    z = torch.randn(BATCH, n_tok, 16,
+                    generator=torch.Generator().manual_seed(SEED + 7))
+    secs = _counted_pipeline(
+        tag, model_bf16, base, vae, torch.arange(BATCH) * 111 % 1000, z,
+        _expected_counts(STEPS, model_bf16.depth, fused_qk_rope=1,
+                         flash_masked_attention=1),
+        build=lambda cfg: BucketedSampler(model_bf16, cfg, vae).get(h, w))
+    counts[tag] = _read_counts()
+    say(f'[hr] XL/2 bf16 through BucketedSampler at {h}x{w} (ntkpro2, '
+        f'context {n_tok}), batch {BATCH}, {STEPS} steps, CFG {CFG_SCALE}: '
+        f'full pipeline {secs:.3f} s = {BATCH / secs:.4f} images/s [{card}]')
+    return cases, counts
+
+
+def phase_eval(card, out_dir):
+    """InceptionV3 on the card against the CPU, its activation rate, and
+    cli/evaluate on the card over phase 5's and phase 9's npz files."""
+    import numpy as np
+    import torch
+    from fitv2_tpu_torch.cli import evaluate
+    from fitv2_tpu_torch.eval import inception as inc
+    wpath = os.path.join(out_dir, 'pt_inception.pt')
+    torch.save(inc.random_fid_state_dict(SEED), wpath)
+    main_npz = os.path.join(out_dir, 'main.npz')
+    hr_npz = os.path.join(out_dir, 'hr_512x512.npz')
+    imgs = torch.from_numpy(np.load(main_npz)['arr_0'])
+    with torch.no_grad():  # TF32 is off since phase 1
+        on_card = inc.load_inception(wpath, 'cuda')(
+            inc.preprocess_uint8(imgs.cuda()))
+        on_cpu = inc.load_inception(wpath, 'cpu')(inc.preprocess_uint8(imgs))
+    for key in ('pool3', 'spatial', 'logits'):
+        got, ref = on_card[key].cpu().double(), on_cpu[key].double()
+        rel = ((got - ref).abs().max() / ref.abs().max()).item()
+        say(f'[eval] InceptionV3 {key} {tuple(got.shape)}, card vs CPU '
+            f'(fp32, TF32 off) on {len(imgs)} images: {rel:.3e} of the '
+            f'largest <= {TOL_INCEPTION_REL}: '
+            f'{"ok" if rel <= TOL_INCEPTION_REL else "FAIL"}')
+        if not rel <= TOL_INCEPTION_REL or not torch.isfinite(got).all():
+            raise AssertionError(f'eval: {key} card vs CPU {rel}')
+
+    model = inc.load_inception(wpath, 'cuda')
+    many = np.random.default_rng(SEED).integers(
+        0, 256, (EVAL_IMAGES, 256, 256, 3), dtype=np.uint8)
+    inc.compute_activations(model, many[:EVAL_BATCH], EVAL_BATCH)  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    acts = inc.compute_activations(model, many, EVAL_BATCH)
+    secs = time.perf_counter() - t0
+    if acts['pool3'].shape != (EVAL_IMAGES, 2048):
+        raise AssertionError(f'eval: pool3 {acts["pool3"].shape}')
+    rate = EVAL_IMAGES / secs
+    say(f'[eval] InceptionV3 activations (uint8 256x256 -> resize -> pool3,'
+        f' spatial, softmax on the host) at batch {EVAL_BATCH}: '
+        f'{EVAL_IMAGES} images in {secs:.3f} s = {rate:.1f} images/s; a '
+        f'FID-50K batch plus its reference batch at this rate: '
+        f'{2 * 50_000 / rate:.1f} s [{card}]')
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        evaluate.main([main_npz, hr_npz, '--inception-weights', wpath,
+                       '--device', 'cuda'])
+    metrics = json.loads(buf.getvalue().strip().splitlines()[-1])
+    keys = ('fid', 'sfid', 'inception_score', 'precision', 'recall')
+    if not all(k in metrics and math.isfinite(metrics[k]) for k in keys):
+        raise AssertionError(f'eval: cli/evaluate printed {metrics}')
+    say(f'[eval] cli/evaluate --device cuda main.npz ({len(imgs)} x 256^2) '
+        f'vs hr_512x512.npz: {json.dumps(metrics)} (seeded weights: '
+        'comparable across this pipeline only)')
+
+
 def main():
     card = phase_device()
     import torch
@@ -941,14 +1185,24 @@ def main():
         'K7 int8_gemm_swiglu_kernel']
     model_cpu = _xl_model_fp32()
     model_gpu, _ = phase_parity(model_cpu)
-    del model_cpu
     torch.manual_seed(SEED + 2)
     vae = AutoencoderKL().to(device='cuda', dtype=torch.bfloat16).eval()
-    counts = phase_main(model_gpu, vae, card)  # model_gpu is now bf16
-    model_int8, int8_counts, _ = phase_int8(model_gpu, vae, card)
-    phase_serving_max(model_int8, vae, card)
-    del model_int8
-    fused_counts = phase_fused(model_gpu, vae, card)
+    with tempfile.TemporaryDirectory() as out_dir:
+        # model_gpu is bf16 from here on
+        counts = phase_main(model_gpu, vae, card, out_dir)
+        model_int8, int8_counts, _ = phase_int8(model_gpu, vae, card)
+        serving_counts = phase_serving_max(model_int8, vae, card)
+        del model_int8
+        fused_counts = phase_fused(model_gpu, vae, card)
+        hr_cases, hr_counts = phase_hr(model_cpu, model_gpu, vae, card,
+                                       out_dir)
+        del model_cpu
+        phase_eval(card, out_dir)
+    for name, cases in hr_cases.items():
+        results[name]['cases'] += [dict(c, path='hr') for c in cases]
+    by_path = {'main': counts, 'int8': int8_counts,
+               'serving_max': serving_counts, 'fused': fused_counts,
+               **hr_counts}
     src = 'fitv2_tpu_torch/kernels/csrc/'
     meta = [
         ('adaln', 'fused_adaln_norm', counts, src + 'adaln.cu',
@@ -965,8 +1219,13 @@ def main():
         ('int8_gemm_swiglu_quant', 'int8_gemm_swiglu_quant', int8_counts,
          src + 'int8_gemm.cu', 'fitv2_tpu/ops/int8_gemm.py:125'),
     ]
+    # `launches`: the kernel's own path (as before); `launches_by_path`:
+    # every counted path's run
     kernels = [dict(name=name, route='cuda', source=source, replaces=rep,
-                    launches=path_counts[wrapper], **results[name])
+                    launches=path_counts[wrapper],
+                    launches_by_path={p: c[wrapper]
+                                      for p, c in by_path.items()},
+                    **results[name])
                for name, wrapper, path_counts, source, rep in meta]
     say(card)  # nvidia-smi's name, power.limit line
     print(json.dumps({'kernels': kernels}))

@@ -8,6 +8,11 @@ the flax names joined with '.', so the map is: unstack the blocks, rename
 ``kernel`` -> ``weight`` and transpose it (flax Dense kernels are (in, out),
 ``nn.Linear`` weights (out, in)).
 
+``inception_state_from_jax`` maps the JAX package's InceptionV3 parameters
+(BatchNorm already folded; conv kernels (kh, kw, I, O)) onto
+``fitv2_tpu_torch.eval.inception.InceptionV3.state_dict()`` (weights
+(O, I, kh, kw)).
+
 ``quant_state_from_jax`` carries the int8 serving mode's collections
 (``quant_calib``: per-site activation absmax; ``quant_weights``: int8
 kernels and per-channel scales) onto the port's ``Int8Linear`` buffers,
@@ -116,4 +121,21 @@ def quant_state_from_jax(collections_np: Mapping[str, Any], depth: int
                 arr.reshape(-1) if leaf == 'w_scale' else arr.reshape(()))
         else:
             raise ValueError(f'{path}: not a quantization leaf')
+    return out
+
+
+def inception_state_from_jax(params_np: Mapping[str, Any]
+                             ) -> Dict[str, torch.Tensor]:
+    """JAX InceptionV3 params (numpy leaves) -> the port's InceptionV3
+    state_dict: ``conv/kernel`` (kh, kw, I, O) -> ``conv.weight``
+    (O, I, kh, kw), ``fc/kernel`` (in, out) -> ``fc.weight`` (out, in)."""
+    out: Dict[str, torch.Tensor] = {}
+    for path, value in _flatten(params_np.get('params', params_np)).items():
+        *layer, leaf = path.split('/')
+        if leaf == 'kernel':
+            leaf = 'weight'
+            value = value.transpose(3, 2, 0, 1) if value.ndim == 4 \
+                else value.T
+        out['.'.join([*layer, leaf])] = torch.from_numpy(
+            np.array(value, dtype=np.float32, order='C'))
     return out

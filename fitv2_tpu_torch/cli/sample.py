@@ -5,13 +5,17 @@ Usage:
         --ckpt FiTv2_XL/model_ema.safetensors \
         --image-height 256 --image-width 256 --cfg-scale 1.5 \
         --num-sampling-steps 250 --num-fid-samples 50000 \
+        [--interpolation dynntk --ori-max-pe-len 16 --decouple] \
         [--vae path/to/sd-vae.safetensors] [--device cuda] --out samples.npz
 
 The flags are those of ``fitv2_tpu.cli.sample`` plus ``--device``. The
 serving speed modes compose: ``--gemm-precision int8`` (W8A8 GEMMs,
 calibrated when the sampler is built), ``--guidance-low/--guidance-high``
 (CFG only inside a t window) and ``--velocity-eval-every N
-[--velocity-extrap-order 2]`` (the model on every N-th step only). Flags of
+[--velocity-extrap-order 2]`` (the model on every N-th step only).
+``--interpolation`` samples a bucket beyond the training grid with that
+RoPE frequency mode; ``no`` (the default) samples with normal frequencies,
+online RoPE off, as the JAX CLI does, also for the HR configs. Flags of
 modes that are not ported yet are accepted by the parser and refused with
 an error that names the missing slice.
 """
@@ -73,8 +77,6 @@ def parse_args(argv=None):
 def _refuse_unported(args) -> None:
     """Raise for flags whose mode belongs to a slice not ported yet."""
     unported = [
-        (args.interpolation != 'no', f'--interpolation {args.interpolation}',
-         'HR / resolution extrapolation (slice 4)'),
         (args.sampler_mode != 'ode', f'--sampler-mode {args.sampler_mode}',
          'FiTv1 DDPM/DDIM sampling (slice 6)'),
         (args.data_parallel, '--data-parallel', 'multi-device (slice 9)'),
@@ -119,6 +121,8 @@ def main(argv=None):
         num_sampling_steps=args.num_sampling_steps,
         cfg_scale=args.cfg_scale, num_classes=args.num_classes,
         per_device_batch=args.per_device_batch,
+        interpolation=args.interpolation, decouple=args.decouple,
+        ori_max_pe_len=args.ori_max_pe_len,
         velocity_eval_every=args.velocity_eval_every,
         velocity_extrap_order=args.velocity_extrap_order,
         guidance_low=args.guidance_low, guidance_high=args.guidance_high)

@@ -1,0 +1,13 @@
+"""Evaluation: FID/sFID/IS/precision-recall + image statistics."""
+
+from fitv2_tpu_torch.eval.evaluator import (
+    Evaluator, create_npz_from_sample_folder)
+from fitv2_tpu_torch.eval.statistics import (
+    activation_statistics, compute_all_metrics, fid_from_activations,
+    frechet_distance, inception_score, precision_recall)
+
+__all__ = [
+    'Evaluator', 'create_npz_from_sample_folder', 'activation_statistics',
+    'compute_all_metrics', 'fid_from_activations', 'frechet_distance',
+    'inception_score', 'precision_recall',
+]

@@ -9,7 +9,6 @@ callers pad to the model's context length. Tokens are (B, N, C).
 
 from __future__ import annotations
 
-import dataclasses
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -25,7 +24,8 @@ RopeTables = Tuple[Tensor, Tensor]
 
 
 def embed_pre_trunk(model: 'FiT', x: Tensor, t: Tensor, y: Tensor,
-                    grid: Tensor, rope: Optional[RopeTables] = None):
+                    grid: Tensor, size: Optional[Tensor] = None,
+                    rope: Optional[RopeTables] = None):
     """Time shift, patch/time/label embeddings, RoPE tables and the global
     adaLN term. Returns (x, c, freqs_cos, freqs_sin, global_adaln)."""
     ts = model.time_shifting
@@ -33,7 +33,8 @@ def embed_pre_trunk(model: 'FiT', x: Tensor, t: Tensor, y: Tensor,
     t = t.to(model.dtype)
     x = model.x_embedder(x.to(model.dtype))
     c = model.t_embedder(t) + model.y_embedder(y)  # (B, D)
-    freqs_cos, freqs_sin = rope if rope is not None else model.rope(grid)
+    freqs_cos, freqs_sin = (rope if rope is not None
+                            else model.rope(grid, size))
     global_adaln = (model.global_adaLN_modulation(c)
                     if model.adaln_type == 'lora' else 0.0)
     return x, c, freqs_cos, freqs_sin, global_adaln
@@ -89,10 +90,6 @@ class FiT(nn.Module):
         if gemm_precision not in ('bf16', 'int8'):
             raise ValueError(f'gemm_precision={gemm_precision!r}: use '
                              "'bf16' or 'int8'")
-        if online_rope:
-            raise NotImplementedError(
-                'online_rope (per-sample RoPE frequencies) belongs to the HR '
-                'slice and is not ported yet')
         if rope_layout not in ('split', 'interleaved'):
             raise ValueError(f'rope_layout={rope_layout!r}')
         self.context_size = context_size
@@ -113,8 +110,8 @@ class FiT(nn.Module):
             theta=rope_theta, max_cached_len=max_cached_len,
             max_pe_len_h=max_pe_len_h, max_pe_len_w=max_pe_len_w,
             decouple=decouple, ori_max_pe_len=ori_max_pe_len,
-            layout=rope_layout)
-        self._rope_cache: Dict[Tuple[str, torch.device],
+            online=online_rope, layout=rope_layout)
+        self._rope_cache: Dict[Tuple[rope_lib.RopeConfig, torch.device],
                                Dict[str, Tensor]] = {}
 
         D = hidden_size
@@ -175,18 +172,24 @@ class FiT(nn.Module):
     def head_dim(self) -> int:
         return self.hidden_size // self.num_heads
 
-    def rope(self, grid: Tensor, mode: Optional[str] = None
+    def rope(self, grid: Tensor, size: Optional[Tensor] = None,
+             config: Optional[rope_lib.RopeConfig] = None
              ) -> Tuple[Optional[Tensor], Optional[Tensor]]:
         """float32 cos/sin (B, N, Dh) for a (B, 2, N) grid, on grid's device.
 
-        ``mode`` overrides the model's frequency mode (the sampler's
-        ``interpolation='no'`` samples with 'normal' frequencies)."""
+        ``config`` replaces the model's ``rope_config`` (the sampler's
+        interpolation modes; the counterpart of JAX's ``model.clone``). An
+        online config recomputes the frequencies from each sample's (h, w)
+        in ``size`` (B, 1, 2); a cached one gathers from tables built once
+        per config and device."""
         if self.rel_pos_embed is None:
             return None, None
-        cfg = self.rope_config
-        if mode is not None:
-            cfg = dataclasses.replace(cfg, mode=mode)
-        key = (cfg.mode, grid.device)
+        cfg = config if config is not None else self.rope_config
+        if cfg.online:
+            if size is None:
+                raise ValueError('online RoPE needs the per-sample size')
+            return rope_lib.online_rope_from_grid(cfg, grid, size)
+        key = (cfg, grid.device)
         if key not in self._rope_cache:
             self._rope_cache[key] = {
                 k: v.to(grid.device)
@@ -198,14 +201,14 @@ class FiT(nn.Module):
                 mask: Optional[Tensor] = None, size: Optional[Tensor] = None,
                 rope: Optional[RopeTables] = None) -> Tensor:
         """x: (B, N, p**2*C_in); t: (B,); y: (B,) int; grid: (B, 2, N) int;
-        mask: (B, N) or None; size: (B, 1, 2), unused by static RoPE.
-        Returns (B, N, p**2*C_out) in the model dtype.
+        mask: (B, N) or None; size: (B, 1, 2) (h, w) per sample, read by
+        online RoPE only. Returns (B, N, p**2*C_out) in the model dtype.
 
         ``mask=None`` means every token is valid: no key masking and no
         padded-output zeroing (the full-grid sampling case). ``rope``
-        passes precomputed ``self.rope(grid)`` tables."""
+        passes precomputed ``self.rope(grid, size)`` tables."""
         x, c, cos, sin, global_adaln = embed_pre_trunk(self, x, t, y, grid,
-                                                       rope)
+                                                       size, rope)
         for block in self.blocks:
             x = block(x, c, mask, cos, sin, global_adaln)
         return finalize_post_trunk(self, x, c, mask)

@@ -6,9 +6,10 @@ six modes (``normal``, ``linear``, ``ntk-aware[-pro1/-pro2]``,
 ``ntk-by-parts``, ``yarn``). Static per-model cos/sin tables are built once
 (the post-scale folded in), so a forward pass is two gathers and a concat.
 
-All table math runs in float32, as in the JAX package. The online per-sample
-path (``online_rope_from_grid``) and 2+1D video RoPE belong to the HR slice
-and are not ported yet.
+All table math runs in float32, as in the JAX package. The online path
+(``online_rope_from_grid``) recomputes the frequencies per sample from each
+sample's (h, w) token grid size, on the grid's device; the HR configs
+(online decoupled NTK) take it.
 """
 
 from __future__ import annotations
@@ -89,8 +90,10 @@ def get_1d_rope_freqs(mode: str, theta: float, dim: int, max_pe_len,
     """
     mode = mode.lower()
     max_pe_len = _f32(max_pe_len)
+    dev = max_pe_len.device
     scale = torch.clamp(max_pe_len / ori_max_pe_len, min=1.0)
-    bands = torch.arange(0, dim, 2, dtype=torch.float32) / dim  # (dim//2,)
+    bands = torch.arange(0, dim, 2, dtype=torch.float32,
+                         device=dev) / dim  # (dim//2,)
     base_freqs = 1.0 / (theta ** bands)
 
     if mode == 'normal':
@@ -107,18 +110,18 @@ def get_1d_rope_freqs(mode: str, theta: float, dim: int, max_pe_len,
         freqs_ntk = newbase[..., None] ** (-bands)
         low, high = find_correction_range(beta_0, beta_1, dim, theta,
                                           ori_max_pe_len)
-        m = 1 - _linear_ramp(low, high, dim // 2)
+        m = 1 - _linear_ramp(low, high, dim // 2).to(dev)
         freqs = freqs_linear * (1 - m) + freqs_ntk * m
         low, high = find_correction_range(gamma_0, gamma_1, dim, theta,
                                           ori_max_pe_len)
-        m = 1 - _linear_ramp(low, high, dim // 2)
+        m = 1 - _linear_ramp(low, high, dim // 2).to(dev)
         freqs = freqs * (1 - m) + base_freqs * m
     elif mode == 'yarn':
         beta_fast, beta_slow = 32, 1
         freqs_interp = 1.0 / (scale[..., None] * theta ** bands)
         low, high = find_correction_range(beta_fast, beta_slow, dim, theta,
                                           ori_max_pe_len)
-        m = 1 - _linear_ramp(low, high, dim // 2)
+        m = 1 - _linear_ramp(low, high, dim // 2).to(dev)
         freqs = freqs_interp * (1 - m) + base_freqs * m
     else:
         raise ValueError(
@@ -266,3 +269,48 @@ def rope_from_grid(cache: Dict[str, Tensor], grid: Tensor,
         return (torch.cat([ch, cw, ch, cw], dim=-1),
                 torch.cat([sh, sw, sh, sw], dim=-1))
     return torch.cat([ch, cw], dim=-1), torch.cat([sh, sw], dim=-1)
+
+
+def rope_21d_from_grid(cache: Dict[str, Tensor], grid: Tensor,
+                       layout: str = 'interleaved') -> Tuple[Tensor, Tensor]:
+    """2+1D RoPE for video tokens: the time index offsets both spatial
+    indices before the 2D table lookup. grid: (B, 3, N) with (w, h, t)
+    rows."""
+    shifted = torch.stack([grid[:, 0] + grid[:, 2], grid[:, 1] + grid[:, 2]],
+                          dim=1)
+    return rope_from_grid(cache, shifted, layout)
+
+
+def online_rope_from_grid(cfg: RopeConfig, grid: Tensor, size: Tensor
+                          ) -> Tuple[Tensor, Tensor]:
+    """Per-sample frequencies: cos, sin (B, N, head_dim) float32 on grid's
+    device, each sample's ladder scaled to its own token grid size.
+
+    grid: (B, 2, N) integer, ``grid[:, 0]`` the W index and ``grid[:, 1]``
+    the H index; size: (B, 1, 2) or (B, 2) holding (h, w) per sample. The
+    post-scale (mscale / proportion) is applied per sample.
+    """
+    dim = cfg.axis_dim
+    size = size.reshape(size.shape[0], -1)[:, :2].to(device=grid.device,
+                                                     dtype=torch.float32)
+    size_h, size_w = size[:, 0], size[:, 1]
+    if cfg.decouple:
+        freqs_h = get_1d_rope_freqs(cfg.mode, cfg.theta, dim, size_h,
+                                    cfg.ori_max_pe_len)
+        freqs_w = get_1d_rope_freqs(cfg.mode, cfg.theta, dim, size_w,
+                                    cfg.ori_max_pe_len)
+    else:
+        freqs_h = get_1d_rope_freqs(cfg.mode, cfg.theta, dim,
+                                    torch.maximum(size_h, size_w),
+                                    cfg.ori_max_pe_len)
+        freqs_w = freqs_h
+    ang_w = grid[:, 0].to(torch.float32)[..., None] * freqs_w[:, None, :]
+    ang_h = grid[:, 1].to(torch.float32)[..., None] * freqs_h[:, None, :]
+    if cfg.layout == 'split':
+        ang = torch.cat([ang_h, ang_w, ang_h, ang_w], dim=-1)
+    else:
+        ang = torch.cat([torch.repeat_interleave(ang_h, 2, dim=-1),
+                         torch.repeat_interleave(ang_w, 2, dim=-1)], dim=-1)
+    scale = _post_scale(cfg.mode, size_h, size_w, cfg.ori_max_pe_len)
+    scale = (scale * torch.ones_like(size_h)).reshape(-1, 1, 1)
+    return torch.cos(ang) * scale, torch.sin(ang) * scale

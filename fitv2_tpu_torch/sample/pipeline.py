@@ -15,8 +15,12 @@ Training-free speed modes, composable with each other and with int8:
   - int8 W8A8 (``FiT(gemm_precision='int8')``): the sampler calibrates the
     static activation scales and prequantizes the weights once.
 
-Not ported yet: RoPE interpolation other than 'no' (HR slice), DDPM/DDIM
-(FiTv1 slice), data-parallel sampling (multi-device).
+RoPE resolution extrapolation: ``SamplingConfig.interpolation`` picks the
+frequency mode the bucket samples with (``apply_rope_interpolation``);
+the model's parameters are shared, only its RoPE config is replaced.
+
+Not ported yet: DDPM/DDIM (FiTv1 slice), data-parallel sampling
+(multi-device).
 """
 
 from __future__ import annotations
@@ -36,6 +40,7 @@ from fitv2_tpu_torch.kernels.quant import (
     calibrate_quant_scales, load_quant_state, prequantize_weights)
 from fitv2_tpu_torch.models.grid_utils import (
     make_grid_mask_size, pixels_to_tokens)
+from fitv2_tpu_torch.models.rope import RopeConfig
 from fitv2_tpu_torch.vae.autoencoder_kl import images_to_uint8
 
 Tensor = torch.Tensor
@@ -43,6 +48,19 @@ Tensor = torch.Tensor
 # built-in int8 calibration: (noise scale, t) of each batch, as in JAX
 CALIBRATION_POINTS = ((1.0, 0.05), (0.9, 0.3), (0.8, 0.6), (0.7, 0.9))
 CALIBRATION_SEED = 0
+
+# CLI name -> RoPE frequency mode. 'keep' samples with the model's own RoPE
+# config (the HR configs' online decoupled NTK)
+INTERPOLATION_MODES = {
+    'no': 'normal',
+    'keep': None,
+    'linear': 'linear',
+    'dynntk': 'ntk-aware',
+    'ntkpro1': 'ntk-aware-pro1',
+    'ntkpro2': 'ntk-aware-pro2',
+    'partntk': 'ntk-by-parts',
+    'yarn': 'yarn',
+}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -53,6 +71,9 @@ class SamplingConfig:
     cfg_scale: float = 1.5
     num_classes: int = 1000
     per_device_batch: int = 8
+    interpolation: str = 'no'        # key of INTERPOLATION_MODES
+    decouple: bool = False
+    ori_max_pe_len: Optional[int] = None  # the training grid's side
     vae_scale: float = 0.18215
     # the state z is cast to this dtype as the model's input every step, and
     # the VAE decodes latents in it
@@ -83,8 +104,37 @@ def guidance_phases(cfg: SamplingConfig) -> tuple[int, int]:
     return (int(idx[0]), int(idx[-1]) + 1) if idx.size else (0, 0)
 
 
+def apply_rope_interpolation(model, cfg: SamplingConfig) -> RopeConfig:
+    """The RoPE config the model samples ``cfg``'s bucket with.
+
+    'keep': the model's own; 'no': normal frequencies, online off; any
+    other mode: that mode with ``max_pe_len_h/w`` the target token grid,
+    ``decouple`` and ``ori_max_pe_len`` from ``cfg``, online off and the
+    cached tables long enough for the grid.
+    """
+    if cfg.interpolation not in INTERPOLATION_MODES:
+        raise ValueError(f'interpolation={cfg.interpolation!r}: use one of '
+                         f'{sorted(INTERPOLATION_MODES)}')
+    rc = model.rope_config
+    if cfg.interpolation == 'keep':
+        return rc
+    if cfg.interpolation == 'no':
+        return dataclasses.replace(rc, mode='normal', online=False)
+    if cfg.ori_max_pe_len is None:
+        raise ValueError('interpolated sampling needs ori_max_pe_len (the '
+                         'training grid size)')
+    n_h, n_w = pixels_to_tokens(cfg.image_height, cfg.image_width,
+                                model.patch_size)
+    return dataclasses.replace(
+        rc, mode=INTERPOLATION_MODES[cfg.interpolation], max_pe_len_h=n_h,
+        max_pe_len_w=n_w, decouple=cfg.decouple,
+        ori_max_pe_len=cfg.ori_max_pe_len, online=False,
+        max_cached_len=max(rc.max_cached_len, n_h, n_w))
+
+
 def build_sampler(model, cfg: SamplingConfig, vae=None,
-                  quant_collections: Optional[Dict[str, Tensor]] = None
+                  quant_collections: Optional[Dict[str, Tensor]] = None,
+                  context_size: Optional[int] = None
                   ) -> Callable[..., Tensor]:
     """Returns ``sample_fn(labels, generator=None, z=None)``.
 
@@ -102,6 +152,10 @@ def build_sampler(model, cfg: SamplingConfig, vae=None,
     prequantized. The calibration noise comes from a seeded CPU
     ``torch.Generator``, so it differs from the JAX sampler's
     ``jax.random`` draw and the scales differ slightly from JAX's.
+
+    ``context_size`` pads the tokens to that length instead of the model's
+    own (a bucket larger than the training context; the weights are
+    shared, as JAX's ``model.clone(context_size=...)`` shares its params).
     """
     if model.learn_sigma:
         raise ValueError('flow-matching Euler sampling needs a velocity '
@@ -116,20 +170,22 @@ def build_sampler(model, cfg: SamplingConfig, vae=None,
     n_h, n_w = pixels_to_tokens(cfg.image_height, cfg.image_width,
                                 model.patch_size)
     lat_h, lat_w = cfg.image_height // 8, cfg.image_width // 8
-    n_ctx = model.context_size
+    n_ctx = context_size or model.context_size
     if n_h * n_w > n_ctx:
-        raise ValueError(f'bucket {n_h}x{n_w} exceeds context {n_ctx}')
+        raise ValueError(f'bucket {n_h}x{n_w} exceeds context {n_ctx}; '
+                         'pass a larger context_size for this bucket')
+    rope_cfg = apply_rope_interpolation(model, cfg)
     B = cfg.per_device_batch
     token_dim = model.patch_size ** 2 * model.in_channels
 
     def bucket_inputs(batch: int):
-        """grid/mask/size and RoPE tables at a batch; on a full bucket the
-        mask is statically absent (no key masking, no padded-output
-        zeroing: identical results). RoPE interpolation 'no' (the only one
-        ported) samples with normal frequencies."""
+        """grid/mask/size and the bucket's RoPE tables (computed once: they
+        do not depend on t) at a batch; on a full bucket the mask is
+        statically absent (no key masking, no padded-output zeroing:
+        identical results)."""
         g, m, s = make_grid_mask_size(batch, n_h, n_w, n_ctx, device)
         return (g, None if n_h * n_w == n_ctx else m, s,
-                model.rope(g, mode='normal'))
+                model.rope(g, s, config=rope_cfg))
 
     grid, mask, size, rope = bucket_inputs(2 * B)
     y_null = torch.full((B,), cfg.num_classes, dtype=torch.int64,
@@ -209,7 +265,7 @@ def build_sampler(model, cfg: SamplingConfig, vae=None,
     # stable fingerprint of everything that changes the sampled
     # distribution; generate_fid_samples stamps it into a resume dir
     fp_src = (f'{cfg!r}|model={type(model).__name__}|nh={n_h}|nw={n_w}'
-              f'|vae={vae is not None}|quant={quant_collections is not None}'
+              f'|ctx={n_ctx}|vae={vae is not None}|quant={quant_collections is not None}'
               f'|int8={model.gemm_precision}')
     sample_fn.config_fingerprint = hashlib.sha1(
         fp_src.encode()).hexdigest()[:16]

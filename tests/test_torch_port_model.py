@@ -272,8 +272,9 @@ def test_converter_rejects_leftover_keys():
 
 
 def test_unported_options_raise():
-    with pytest.raises(NotImplementedError, match='online_rope'):
-        FiT(**dict(SMALL, online_rope=True))
+    # online RoPE is ported (tests/test_torch_port_hr.py); it builds
+    assert FiT(**dict(SMALL, online_rope=True, custom_freqs='ntk-aware',
+                      ori_max_pe_len=4)).rope_config.online
     for kw in (dict(save_attention=True), dict(add_rel_pe_to_v=True)):
         with pytest.raises(NotImplementedError):
             Attention(144, 2, **kw)

@@ -328,13 +328,44 @@ def test_cli_samples_to_npz_on_cpu(models, tmp_path):
 
 
 @pytest.mark.parametrize('flags,slice_name', [
-    (['--interpolation', 'dynntk'], 'slice 4'),
     (['--sampler-mode', 'ddim'], 'slice 6'),
     (['--data-parallel'], 'slice 9'),
 ])
 def test_cli_refuses_flags_of_later_slices(flags, slice_name):
     with pytest.raises(NotImplementedError, match=slice_name):
         cli.main(['--cfgdir', 'unused.yaml', '--ckpt', 'unused', *flags])
+
+
+def test_cli_interpolation_to_npz_on_cpu(models, tmp_path):
+    """--interpolation dynntk --decouple --ori-max-pe-len on a padded 4 x 3
+    bucket of a model trained at 2 x 2, against the same run through the
+    library and against JAX's sampler on the same noise."""
+    jm, params, pm, pnp = models
+    cfg_path, ckpt = _write_cli_inputs(tmp_path, pnp)
+    out = str(tmp_path / 'dynntk.npz')
+    cli.main(['--cfgdir', cfg_path, '--ckpt', ckpt, '--image-height', '64',
+              '--image-width', '48', '--num-sampling-steps', '3',
+              '--num-fid-samples', '2', '--per-device-batch', '2',
+              '--num-classes', '10', '--interpolation', 'dynntk',
+              '--decouple', '--ori-max-pe-len', '2', '--device', 'cpu',
+              '--out', out])
+    arr = np.load(out)['arr_0']
+    assert arr.shape == (2, 4, 8, 6) and np.isfinite(arr).all()
+    kw = dict(image_height=64, image_width=48, num_sampling_steps=3,
+              num_classes=10, per_device_batch=2, interpolation='dynntk',
+              decouple=True, ori_max_pe_len=2)
+    fn = build_sampler(pm, SamplingConfig(**kw))
+    np.testing.assert_allclose(
+        arr, generate_fid_samples(fn, 2, 2, num_classes=10, seed=0),
+        rtol=1e-6, atol=1e-6)
+    rng = jax.random.PRNGKey(1)
+    labels = np.array([5, 0])
+    want = np.asarray(j_build_sampler(jm, params, JSamplingConfig(
+        dtype=jnp.float32, **kw))(rng, jnp.asarray(labels)))
+    z = np.array(jax.random.normal(rng, (B, 16, 16), jnp.float32))
+    got = build_sampler(pm, SamplingConfig(dtype=torch.float32, **kw))(
+        torch.from_numpy(labels), z=torch.from_numpy(z)).numpy()
+    np.testing.assert_allclose(got, want, rtol=TOL, atol=TOL)
 
 
 def test_cli_int8_serving_max_to_npz_on_cpu(models, tmp_path):

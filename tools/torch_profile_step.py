@@ -3,14 +3,16 @@
 
 Run from the repository root on a machine with the card:
 
-    python3 tools/torch_profile_step.py [--path bf16|int8|fused] [--tree DIR]
+    python3 tools/torch_profile_step.py [--path bf16|int8|fused|hr] [--tree DIR]
 
 Builds chip_smoke.py's FiTv2-XL/2 (random weights from its seed, the
 zero-init leaves perturbed) in bf16 on the card (``--path int8``: the int8
 W8A8 model on the same weights, calibrated by the sampler; ``--path
 fused``: ``attn_impl='fused'`` on chip_smoke.py's padded 160x320 bucket,
-200 of 256 tokens valid), at chip_smoke.py's batch and CFG scale (256x256
-unless fused), warms the sampler up, then measures:
+200 of 256 tokens valid; ``--path hr``: the same weights as FiTv2-HR-XL/2,
+online decoupled NTK RoPE, at 512x512 (1024 tokens) and chip_smoke.py's HR
+batch), at chip_smoke.py's batch and CFG scale (256x256 unless fused or
+hr), warms the sampler up, then measures:
 
 - wall ms per step: three unprofiled STEPS-step sampler calls, each ended
   by ``torch.cuda.synchronize()``;
@@ -55,7 +57,7 @@ def group_of(name: str) -> str:
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
-    ap.add_argument('--path', choices=('bf16', 'int8', 'fused'),
+    ap.add_argument('--path', choices=('bf16', 'int8', 'fused', 'hr'),
                     default='bf16')
     ap.add_argument('--tree', default=ROOT)
     args = ap.parse_args()
@@ -67,18 +69,24 @@ def main() -> None:
     import fitv2_tpu_torch
     from fitv2_tpu_torch.sample import SamplingConfig, build_sampler
 
-    options = {'bf16': {}, 'int8': dict(gemm_precision='int8'),
-               'fused': dict(attn_impl='fused')}[args.path]
-    model = chip_smoke.xl_model_bf16(**options)
-    hw = chip_smoke.PADDED_HW if args.path == 'fused' else (256, 256)
-    batch = chip_smoke.BATCH
+    if args.path == 'hr':
+        model = chip_smoke.hr_model_bf16()
+        hw, batch, n_ctx = (512, 512), chip_smoke.HR_BATCH, chip_smoke.HR_N
+    else:
+        options = {'bf16': {}, 'int8': dict(gemm_precision='int8'),
+                   'fused': dict(attn_impl='fused')}[args.path]
+        model = chip_smoke.xl_model_bf16(**options)
+        hw = chip_smoke.PADDED_HW if args.path == 'fused' else (256, 256)
+        batch, n_ctx = chip_smoke.BATCH, 256
     labels = torch.arange(batch) * 111 % 1000
-    z = torch.randn(batch, 256, 16, generator=torch.Generator().manual_seed(
+    z = torch.randn(batch, n_ctx, 16, generator=torch.Generator().manual_seed(
         chip_smoke.SEED + 3))
     scfg = SamplingConfig(image_height=hw[0], image_width=hw[1],
                           num_sampling_steps=STEPS,
                           cfg_scale=chip_smoke.CFG_SCALE,
-                          per_device_batch=batch, dtype=torch.bfloat16)
+                          per_device_batch=batch, dtype=torch.bfloat16,
+                          **({'interpolation': 'keep'} if args.path == 'hr'
+                             else {}))
     sample = build_sampler(model, scfg)  # int8: calibrates here
     sample(labels, z=z)  # warm-up
     torch.cuda.synchronize()
