@@ -66,8 +66,31 @@ Phases (any failure raises and exits non-zero; nothing is caught):
                 images/s at batch 64 over 512 seeded 256x256 images;
                 cli/evaluate with --device cuda on phase 5's and phase 9's
                 npz files: finite FID, sFID, IS, precision and recall.
+ 11. train    - (a) each kernel's autograd Function (K1, K2, K3/K4 without
+                a mask and with 200/256 keys valid, K5) at the training
+                shapes (batch 32, N 256), bf16 and fp32: its forward output
+                against the plain version's at phase 3's gates, then its
+                gradients against autograd of the plain version on the
+                same card inputs (fp32 1e-5, bf16 3e-2 of the largest
+                |grad|), with each side's forward and backward times;
+                (b) XL width, depth 4, fp32, batch 2: one flow loss and
+                backward on CUDA against the CPU, every parameter's
+                gradient within 1e-4 relative L2 (none missing); (c)
+                cli/train.py's build_trainer on configs/fitv2_xl.yaml (depth
+                36, batch 32, bf16 compute over fp32 masters, bf16 mu, fp32
+                EMA, the native loader) on 512 synthetic shards padded to
+                256 tokens: 30 steps with a checkpoint at 20, then a new
+                trainer resumed from 20 to 30, deterministic algorithms on;
+                every loss (the first near 2.0), ms a step (synced every
+                step), peak memory, exact launch counts a step (K1 73, K2
+                36, K4 36, the rest 0) and the resumed run's parameters,
+                EMA and moments bit-identical to the uninterrupted run's;
+                then the rate, ms a step and images/s, from a third run
+                with deterministic algorithms off and the metrics read
+                every 8 steps: steps 9-16, from a sync to a sync.
 Each path's counts are set to 0 just before it runs and read just after.
-The line before the last is the JSON list of kernels; the last line is
+The line before the last is the JSON list of kernels (K1-K5 with their
+Functions' forward and backward times and gradient errors); the last line is
 {"ok": true, "device": {...}}.
 """
 
@@ -139,6 +162,20 @@ EXTRAP_HW = (320, 320)  # XL/2 (16 x 16) at 20 x 20 through BucketedSampler
 TOL_INCEPTION_REL = 1e-4  # phase 10: card vs CPU, fp32 without TF32, of the
                           # largest magnitude (cuDNN sums in another order)
 EVAL_IMAGES, EVAL_BATCH = 512, 64
+# phase 11 (training): configs/fitv2_xl.yaml's per-host batch; steps, the
+# checkpoint the second trainer resumes from; synthetic shards; the depth of
+# the CUDA-vs-CPU gradient check; an untrained FiT outputs 0, so the first
+# loss is E|x1 - x0|^2 = 2 per valid element, within sampling noise
+TRAIN_BATCH = 32
+TRAIN_STEPS, TRAIN_RESUME = 30, 20
+TRAIN_TIMED = 8  # the rate's window: steps TRAIN_TIMED + 1 to 2 TRAIN_TIMED
+TRAIN_SHARDS = 512
+TRAIN_PARITY_DEPTH = 4
+TRAIN_FIRST_LOSS = (1.9, 2.1)
+TOL_GRAD_BF16 = 3e-2  # a Function's bf16 gradients vs autograd of the plain
+                      # version, of the largest |grad|: that autograd rounds
+                      # its bf16 intermediates (K2's RoPE products, K5's p),
+                      # the backward functions keep fp32 to the end
 
 
 def say(*args):
@@ -655,14 +692,14 @@ def phase_kernels():
     return results
 
 
-def _xl_model_fp32():
+def _xl_model_fp32(depth=XL['depth']):
     """XL/2 on the CPU in fp32, seeded init, zero-init leaves perturbed (an
     untrained FiT outputs velocity exactly 0 and would make parity
     vacuous)."""
     import torch
     from fitv2_tpu_torch.models import FiT
     torch.manual_seed(SEED)
-    model = FiT(**XL)
+    model = FiT(**dict(XL, depth=depth))
     gen = torch.Generator().manual_seed(SEED + 1)
     with torch.no_grad():
         for name, p in model.named_parameters():
@@ -724,6 +761,7 @@ def _reset_counts():
     from fitv2_tpu_torch import kernels as K
     for w in K.KERNEL_WRAPPERS:
         w.launches = 0
+    K.flash_masked_attention.bounded_launches = 0
 
 
 def _read_counts():
@@ -1173,7 +1211,390 @@ def phase_eval(card, out_dir):
         'comparable across this pipeline only)')
 
 
+def _grad_case(label, dtype, function, plain, arrays, seed, gate):
+    """A kernel's autograd Function (its kernel forward, then its
+    ``*_backward``) against autograd of its plain version on the same card
+    inputs: first the Function's forward output, recorded by autograd as
+    the trainer records it, against the plain output at phase 3's gates
+    (_compare with `gate`, 'norm' or 'attention'); then the gradients
+    (fp32: within TOL_FP32_REL of the largest |grad|; bf16:
+    TOL_GRAD_BF16); then the median times of each side's forward
+    (autograd recording) and of its backward alone (the graph kept between
+    calls). `function` and `plain` take `arrays` (leaf tensors)."""
+    import torch
+    gen = torch.Generator(device='cuda').manual_seed(seed)
+    with torch.no_grad():
+        out = plain(*arrays)
+    outs = out if isinstance(out, tuple) else (out,)
+    cots = [torch.randn(o.shape, device='cuda', generator=gen).to(o.dtype)
+            for o in outs]
+
+    def grads(fn):
+        leaves = [a.detach().requires_grad_(True) for a in arrays]
+        got = fn(*leaves)
+        got = got if isinstance(got, tuple) else (got,)
+        if not all(g.grad_fn is not None for g in got):
+            raise AssertionError(f'{label}: an output without a grad_fn')
+        return got, torch.autograd.grad(got, leaves, cots)
+
+    kernel_out, kernel_grads = grads(function)
+    fwd_err = _compare(f'{label} Function forward', dtype,
+                       tuple(o.detach() for o in kernel_out), outs, gate)
+    del kernel_out
+    worst = worst_rel = 0.0
+    for o, r in zip(kernel_grads, grads(plain)[1]):
+        if not torch.isfinite(o).all():
+            raise AssertionError(f'{label} {dtype}: non-finite gradient')
+        err = (o.float() - r.float()).abs().max().item()
+        rel = err / r.float().abs().max().item()
+        worst, worst_rel = max(worst, err), max(worst_rel, rel)
+    tol = TOL_FP32_REL if dtype == torch.float32 else TOL_GRAD_BF16
+    kind = 'bf16' if dtype == torch.bfloat16 else 'fp32'
+    ok = worst_rel <= tol
+    say(f'[train] {label} {kind} gradients vs autograd of the plain version:'
+        f' max abs {worst:.3e}, {worst_rel:.3e} of the largest <= {tol}: '
+        f'{"ok" if ok else "FAIL"}')
+    if not ok:
+        raise AssertionError(f'{label} {kind}: gradients {worst_rel} > {tol}')
+    times = {}
+    for side, fn in (('', function), ('plain_', plain)):
+        leaves = [a.detach().requires_grad_(True) for a in arrays]
+        out = fn(*leaves)
+        outs = out if isinstance(out, tuple) else (out,)
+        times[side + 'fwd_us'] = _time_ms(lambda: fn(*leaves)) * 1e3
+        times[side + 'bwd_us'] = _time_ms(lambda: torch.autograd.grad(
+            outs, leaves, cots, retain_graph=True)) * 1e3
+        del out, outs
+    say(f'[train] {label} {kind}: Function forward {times["fwd_us"]:.1f} us '
+        f'(the kernel) + backward {times["bwd_us"]:.1f} us; plain autograd '
+        f'forward {times["plain_fwd_us"]:.1f} + backward '
+        f'{times["plain_bwd_us"]:.1f} us')
+    return dict(case=label, dtype=kind, fwd_max_abs_err=fwd_err,
+                max_abs_err=worst, rel_err=worst_rel,
+                us=times['fwd_us'] + times['bwd_us'],
+                plain_us=times['plain_fwd_us'] + times['plain_bwd_us'],
+                **times)
+
+
+def phase_train_kernels():
+    """Phase 11 (a): each Function on the card at the training shapes (XL,
+    batch TRAIN_BATCH, N 256), bf16 and fp32; the attention without a mask
+    and with N_VALID of N keys valid. Returns the cases by kernel."""
+    import torch
+    from fitv2_tpu_torch import kernels as K
+    dev = torch.device('cuda')
+    gen = torch.Generator(device=dev).manual_seed(SEED + 11)
+    b = TRAIN_BATCH
+    mask = torch.zeros(b, N, device=dev)
+    mask[:, :N_VALID] = 1.0
+    cases = {'adaln': [], 'qk_rope': [], 'attention': [],
+             'fused_attention': []}
+    for dtype in (torch.bfloat16, torch.float32):
+        x = (torch.randn(b, N, D, device=dev, generator=gen) * 2 + 3
+             ).to(dtype)
+        mod = (0.5 * torch.randn(b, 6 * D, device=dev, generator=gen)
+               ).to(dtype)
+
+        def adaln(fn):
+            return lambda a, m: fn(a, *m.chunk(6, dim=-1)[:2])
+        cases['adaln'].append(_grad_case(
+            f'adaln ({b},{N},{D})', dtype, adaln(K.adaln_norm),
+            adaln(K.adaln_norm_reference), [x, mod], 1, 'norm'))
+
+        qkv = torch.randn(b, N, 3, H, DH, device=dev, generator=gen
+                          ).to(dtype)
+        ang = torch.rand(b, N, DH, device=dev, generator=gen) * 6.3
+        cos, sin = torch.cos(ang), torch.sin(ang)
+
+        def qk(fn):
+            return lambda a: fn(*a.unbind(2)[:2], cos, sin)
+        cases['qk_rope'].append(_grad_case(
+            f'qk_rope ({b},{N},{H},{DH})', dtype, qk(K.qk_norm_rope),
+            qk(K.qk_norm_rope_reference), [qkv], 2, 'norm'))
+
+        q, k, v = qkv.unbind(2)
+        qn, kn = K.qk_norm_rope_reference(q, k, cos, sin)
+        qkv_n = torch.stack([qn, kn, v], dim=2)  # LayerNormed q and k
+        for bounded in (True, False):
+            plain = (K.attention_bounded_reference if bounded
+                     else K.attention_reference)
+            for m in (None, mask):
+                tag = ('no mask' if m is None
+                       else f'mask {N_VALID}/{N}')
+                cases['attention'].append(dict(_grad_case(
+                    f'attention[{"bounded" if bounded else "online"},{tag}]',
+                    dtype,
+                    lambda a, m=m, bd=bounded: K.masked_attention(
+                        *a.unbind(2), m, bounded_logits=bd),
+                    lambda a, m=m, p=plain: p(*a.unbind(2), m), [qkv_n], 3,
+                    'attention'),
+                    variant='bounded' if bounded else 'online',
+                    mask=m is not None))
+
+        flat = qkv.reshape(b, N, 3 * D)
+        for m in (mask, None):
+            tag = 'no mask' if m is None else f'mask {N_VALID}/{N}'
+            cases['fused_attention'].append(dict(_grad_case(
+                f'fused_attention[{tag}] ({b},{N},{3 * D})', dtype,
+                lambda a, m=m: K.qkln_rope_attention(a, cos, sin, m, H),
+                lambda a, m=m: K.fused_qkln_rope_attention_reference(
+                    a, cos, sin, m, H), [flat], 4, 'attention'),
+                mask=m is not None))
+        torch.cuda.synchronize()
+    return cases
+
+
+def phase_train_parity():
+    """Phase 11 (b): FiTv2 at XL width, depth TRAIN_PARITY_DEPTH, fp32,
+    batch 2 (a padded 10 x 20 grid), one flow loss and backward on the same
+    weights, batch and draws: CUDA (kernels and their backward functions)
+    against the CPU (plain versions under autograd). Every parameter must
+    get a gradient on CUDA, each within TOL_SLICE_REL_L2 relative L2."""
+    import torch
+    from fitv2_tpu_torch.flow import create_transport
+    from fitv2_tpu_torch.models.grid_utils import make_grid_mask_size
+    from fitv2_tpu_torch.train import flow_loss
+    depth = TRAIN_PARITY_DEPTH
+    model = _xl_model_fp32(depth)
+    gen = torch.Generator().manual_seed(SEED + 12)
+    grid, mask, size = make_grid_mask_size(2, 10, 20, N)
+    batch = dict(feature=torch.randn(2, N, 16, generator=gen), grid=grid,
+                 mask=mask, label=torch.tensor([207, 360]), size=size)
+    draws = dict(t=torch.tensor([0.3, 0.75]),
+                 x0=torch.randn(2, N, 16, generator=gen),
+                 drop_ids=torch.tensor([0, 1]))
+    transport = create_transport('Linear', 'velocity', snr_type='lognorm')
+    out = {}
+    for device in ('cpu', 'cuda'):
+        m = copy.deepcopy(model).to(device).train()
+        _reset_counts()
+        loss, _ = flow_loss(m, transport,
+                            {k: v.to(device) for k, v in batch.items()},
+                            draws={k: v.to(device) for k, v in draws.items()})
+        loss.backward()
+        out[device] = (loss.item(), _read_counts(),
+                       {n: p.grad for n, p in m.named_parameters()})
+    (loss_cpu, _, g_cpu), (loss_gpu, counts, g_gpu) = out['cpu'], out['cuda']
+    want = _expected_counts(1, depth, fused_qk_rope=1,
+                            flash_masked_attention=1)
+    if counts != want:
+        raise AssertionError(f'train parity: launch counts {counts} != {want}')
+    missing = [n for n, g in g_gpu.items() if g is None]
+    if missing:
+        raise AssertionError(f'train parity: no gradient on CUDA for '
+                             f'{missing[:5]} ({len(missing)} parameters)')
+    rel_loss = abs(loss_gpu - loss_cpu) / abs(loss_cpu)
+    rels = {n: ((g.cpu() - g_cpu[n]).norm() / g_cpu[n].norm()).item()
+            for n, g in g_gpu.items()}
+    worst = max(rels, key=rels.get)
+    ok = rel_loss <= TOL_SLICE_REL_L2 and rels[worst] <= TOL_SLICE_REL_L2
+    say(f'[train] XL width depth {depth} fp32 batch 2, one flow loss + '
+        f'backward, CUDA vs CPU: loss {loss_gpu:.6f} vs {loss_cpu:.6f} '
+        f'(relative {rel_loss:.3e}); all {len(g_gpu)} parameters have a '
+        f'gradient; worst gradient relative L2 {rels[worst]:.3e} ({worst}) '
+        f'<= {TOL_SLICE_REL_L2}: {"ok" if ok else "FAIL"}; launches '
+        f'{counts} == expected')
+    if not ok:
+        raise AssertionError(f'train parity: loss {rel_loss}, {worst} '
+                             f'{rels[worst]}')
+    return rels[worst]
+
+
+def _train_run(cli, cfg, args, resume, log_every=1, write=True):
+    """One Trainer run of phase 11 (c) from cli/train.py's build_trainer,
+    reading the metrics every `log_every` steps: every step's loss, the
+    wall time at each logged step (after a sync), the checkpoint saves
+    (none are written unless `write`), the peak device memory and the
+    launch counts of the run."""
+    import torch
+    from fitv2_tpu_torch import kernels as K
+    torch.manual_seed(SEED)  # the initial weights
+    trainer = cli.build_trainer(cfg, args)
+    trainer.cfg.log_every = log_every
+    if (trainer.model.dtype != torch.bfloat16 or any(
+            p.dtype != torch.float32 for p in trainer.master_model.parameters())
+            or trainer.optimizer_config.mu_dtype != torch.bfloat16
+            or trainer.cfg.loader_backend != 'native'):
+        raise AssertionError('train: expected bf16 compute, fp32 masters, '
+                             'a bf16 first moment and the native loader')
+    losses, stamps, saves = [], {}, []
+    step_fn, save_fn = trainer._train_step, trainer.ckpt.save
+
+    def step(state, batch, generator):
+        state, metrics = step_fn(state, batch, generator)
+        losses.append(metrics['loss'])
+        return state, metrics
+
+    def save(step, state_dict):
+        t0 = time.perf_counter()
+        path = save_fn(step, state_dict) if write else None
+        saves.append((step, time.perf_counter() - t0))
+        return path
+
+    def hook(step, metrics):
+        torch.cuda.synchronize()
+        stamps[step] = time.perf_counter()
+
+    trainer._train_step, trainer.ckpt.save = step, save
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    state = trainer.train(max_steps=args.max_steps, resume=resume,
+                          metric_hook=hook)
+    torch.cuda.synchronize()
+    counts = dict(_read_counts(), flash_masked_attention_bounded=(
+        K.flash_masked_attention.bounded_launches))
+    peak = torch.cuda.max_memory_allocated()
+    losses = [v.item() for v in losses]
+    return trainer, state, losses, stamps, saves, counts, peak
+
+
+def phase_train(card, out_dir):
+    """Phase 11 (c): cli/train.py's build_trainer on configs/fitv2_xl.yaml
+    (depth 36, the per-host batch 32, bf16 compute over fp32 masters, a
+    bf16 first moment, fp32 EMA, the native loader) on TRAIN_SHARDS
+    synthetic shards with non-square grids padded to 256: TRAIN_STEPS
+    steps with a checkpoint at TRAIN_RESUME, then a new trainer resumed
+    from TRAIN_RESUME to TRAIN_STEPS, deterministic algorithms on (and the
+    metrics read every step). Then the rate: a third run, deterministic
+    algorithms off, reading the metrics every TRAIN_TIMED steps as a
+    trainer's log cadence does and writing no checkpoint; the window is
+    steps TRAIN_TIMED + 1 to 2 TRAIN_TIMED, loader included, from a sync
+    to a sync. Returns the launch counts of the first two runs and the
+    rate."""
+    import shutil
+    import torch
+    from fitv2_tpu_torch.cli import train as cli
+    from fitv2_tpu_torch.data import make_synthetic_latent_shards
+    from fitv2_tpu_torch.utils import load_config
+    shards = os.path.join(out_dir, 'latents')
+    make_synthetic_latent_shards(shards, n=TRAIN_SHARDS, target_len=N,
+                                 seed=SEED)
+    cfg = load_config(['configs/fitv2_xl.yaml'])
+    cfg['data']['params']['train']['data_path'] = shards
+    cfg['accelerate']['checkpointing_steps'] = TRAIN_RESUME
+    run_dir = os.path.join(out_dir, 'train')
+    args = cli.parse_args(['--cfgdir', 'configs/fitv2_xl.yaml',
+                           '--output-dir', run_dir, '--max-steps',
+                           str(TRAIN_STEPS), '--device', 'cuda'])
+    torch.use_deterministic_algorithms(True)
+    # no NaN fill of every new tensor (a debugging aid of deterministic
+    # mode that would add a kernel to each allocation and to the step time)
+    fill = torch.utils.deterministic.fill_uninitialized_memory
+    torch.utils.deterministic.fill_uninitialized_memory = False
+    try:
+        trainer, state, losses, stamps, saves, counts, peak = _train_run(
+            cli, cfg, args, False)
+        batch = trainer.cfg.global_batch_size
+        depth = trainer.model.depth
+        final = {key: {n: t.detach().cpu() for n, t in getattr(
+            state, key).items()} for key in ('params', 'ema_params')}
+        moments = [{k: v.cpu() for k, v in st.items()}
+                   for st in state.optimizer.state_dict()['state'].values()]
+        del trainer, state
+        torch.cuda.empty_cache()
+        ckpts = sorted(os.listdir(os.path.join(run_dir, 'checkpoints')))
+        if ckpts != [f'checkpoint-{TRAIN_RESUME}',
+                     f'checkpoint-{TRAIN_STEPS}']:
+            raise AssertionError(f'train: checkpoints {ckpts}')
+        shutil.rmtree(os.path.join(run_dir, 'checkpoints',
+                                   f'checkpoint-{TRAIN_STEPS}'))
+        trainer, state, losses_b, _, saves_b, counts_b, _ = _train_run(
+            cli, cfg, args, True)
+    finally:
+        torch.use_deterministic_algorithms(False)
+        torch.utils.deterministic.fill_uninitialized_memory = fill
+
+    if len(losses) != TRAIN_STEPS or not all(map(math.isfinite, losses)):
+        raise AssertionError(f'train: losses {losses}')
+    first_ok = TRAIN_FIRST_LOSS[0] <= losses[0] <= TRAIN_FIRST_LOSS[1]
+    say(f'[train] XL/2 depth {depth} bf16 (fp32 masters, bf16 mu, fp32 EMA)'
+        f', batch {batch}, {TRAIN_STEPS} steps, native loader over '
+        f'{TRAIN_SHARDS} shards: losses '
+        f'{", ".join(f"{v:.4f}" for v in losses)}')
+    say(f'[train] first loss {losses[0]:.4f} in {TRAIN_FIRST_LOSS} (an '
+        f'untrained FiT outputs 0: E|x1 - x0|^2 per valid element is 2): '
+        f'{"ok" if first_ok else "FAIL"}')
+    if not first_ok:
+        raise AssertionError(f'train: first loss {losses[0]}')
+    # the wall time of each logged step after step 5, ended by a sync;
+    # the step after a checkpoint save carries the save, and is left out
+    saved = {s for s, _ in saves}
+    step_ms = [(stamps[s] - stamps[s - 1]) * 1e3 for s in sorted(stamps)
+               if s > 5 and s - 1 in stamps and s - 1 not in saved]
+    det_ms = statistics.median(step_ms)
+    say(f'[train] deterministic algorithms on, metrics read and a sync every '
+        f'step: step wall time median of {len(step_ms)} steps after step 5 '
+        f'{det_ms:.2f} ms; range {min(step_ms):.2f}-{max(step_ms):.2f} ms; '
+        'peak device memory '
+        f'{peak / 2 ** 30:.2f} GiB (max_memory_allocated); checkpoint saves '
+        f'{", ".join(f"step {s}: {t:.2f} s" for s, t in saves)} [{card}]')
+
+    for label, got, steps in (('uninterrupted', counts, TRAIN_STEPS),
+                              ('resumed', counts_b,
+                               TRAIN_STEPS - TRAIN_RESUME)):
+        want = dict(_expected_counts(steps, depth, fused_qk_rope=1,
+                                     flash_masked_attention=1),
+                    flash_masked_attention_bounded=steps * depth)
+        if got != want:
+            raise AssertionError(f'train {label}: launches {got} != {want}')
+        say(f'[train] {label} run, {steps} steps: launches {got} == expected '
+            f'(a step: K1 {2 * depth + 1}, K2 {depth}, K4 {depth}; K3, K5, '
+            'K6, K7 0)')
+
+    if losses_b != losses[TRAIN_RESUME:]:
+        raise AssertionError(f'train: resumed losses {losses_b} != '
+                             f'{losses[TRAIN_RESUME:]}')
+    differ = []
+    for key in ('params', 'ema_params'):
+        for n, t in getattr(state, key).items():
+            if not torch.equal(t.detach().cpu(), final[key][n]):
+                differ.append((f'{key}.{n}', (t.detach().cpu() - final[key][n]
+                                              ).abs().max().item()))
+    for i, st in enumerate(state.optimizer.state_dict()['state'].values()):
+        for k, v in st.items():
+            if not torch.equal(v.cpu(), moments[i][k]):
+                differ.append((f'{k}[{i}]', (v.cpu().float() - moments[i][k]
+                                             .float()).abs().max().item()))
+    if differ:
+        say(f'[train] resumed vs uninterrupted: {len(differ)} tensors '
+            f'differ, e.g. {differ[:5]}')
+        raise AssertionError('train: the resumed run is not bit-identical')
+    say(f'[train] resumed from step {TRAIN_RESUME} to {TRAIN_STEPS}: losses '
+        f'equal, and parameters, EMA, mu and nu bit-identical to the '
+        f'uninterrupted run (deterministic algorithms on; saves '
+        f'{saves_b})')
+
+    del trainer, state
+    torch.cuda.empty_cache()
+    timed = 2 * TRAIN_TIMED
+    args = cli.parse_args(['--cfgdir', 'configs/fitv2_xl.yaml',
+                           '--output-dir', os.path.join(out_dir, 'timed'),
+                           '--max-steps', str(timed), '--device', 'cuda'])
+    _, _, losses_t, stamps, _, counts_t, _ = _train_run(
+        cli, cfg, args, False, log_every=TRAIN_TIMED, write=False)
+    want = dict(_expected_counts(timed, depth, fused_qk_rope=1,
+                                 flash_masked_attention=1),
+                flash_masked_attention_bounded=timed * depth)
+    if counts_t != want or not all(map(math.isfinite, losses_t)):
+        raise AssertionError(f'train timed run: launches {counts_t}, losses '
+                             f'{losses_t}')
+    ms = (stamps[timed] - stamps[TRAIN_TIMED]) * 1e3 / TRAIN_TIMED
+    say(f'[train] rate, deterministic algorithms off, metrics read every '
+        f'{TRAIN_TIMED} steps: steps {TRAIN_TIMED + 1}-{timed} (loader '
+        f'included, from a sync to a sync) {ms:.2f} ms a step = '
+        f'{batch / ms * 1e3:.2f} images/s; launches {counts_t} == expected '
+        f'[{card}]')
+    return counts, counts_b, dict(
+        ms_per_step=ms, images_per_s=batch / ms * 1e3,
+        deterministic_ms_per_step=det_ms, peak_bytes=peak,
+        first_loss=losses[0], losses=losses)
+
+
 def main():
+    # cuBLAS picks deterministic kernels with a fixed workspace (phase 11's
+    # resume check); set before the library starts
+    os.environ.setdefault('CUBLAS_WORKSPACE_CONFIG', ':4096:8')
     card = phase_device()
     import torch
     from fitv2_tpu_torch.vae import AutoencoderKL
@@ -1198,11 +1619,36 @@ def main():
                                        out_dir)
         del model_cpu
         phase_eval(card, out_dir)
+        del model_gpu, vae
+        torch.cuda.empty_cache()
+        train_cases = phase_train_kernels()
+        phase_train_parity()
+        train_counts, resumed_counts, _ = phase_train(card, out_dir)
     for name, cases in hr_cases.items():
         results[name]['cases'] += [dict(c, path='hr') for c in cases]
+    # each Function's forward + backward on the training shapes: the
+    # training path's case (bf16, N_VALID of N valid where it has a mask)
+    for name, cases in train_cases.items():
+        main_case = next(c for c in cases if c['dtype'] == 'bf16'
+                         and c.get('mask', True)
+                         and c.get('variant', 'bounded') == 'bounded')
+        results[name].update(
+            train_ms=main_case['us'] / 1e3,
+            train_plain_ms=main_case['plain_us'] / 1e3,
+            backward_ms=main_case['bwd_us'] / 1e3,
+            backward_plain_ms=main_case['plain_bwd_us'] / 1e3,
+            grad_max_abs_err=max(c['max_abs_err'] for c in cases),
+            train_fwd_max_abs_err=max(c['fwd_max_abs_err'] for c in cases),
+            train_cases=cases)
+    for name in ('int8_gemm_bias', 'int8_gemm_swiglu_quant'):  # no backward
+        results[name].update(train_ms=None, train_plain_ms=None,
+                             backward_ms=None, backward_plain_ms=None,
+                             grad_max_abs_err=None,
+                             train_fwd_max_abs_err=None)
     by_path = {'main': counts, 'int8': int8_counts,
                'serving_max': serving_counts, 'fused': fused_counts,
-               **hr_counts}
+               **hr_counts, 'train': train_counts,
+               'train_resumed': resumed_counts}
     src = 'fitv2_tpu_torch/kernels/csrc/'
     meta = [
         ('adaln', 'fused_adaln_norm', counts, src + 'adaln.cu',

@@ -13,6 +13,10 @@ the flax names joined with '.', so the map is: unstack the blocks, rename
 ``fitv2_tpu_torch.eval.inception.InceptionV3.state_dict()`` (weights
 (O, I, kh, kw)).
 
+``train_state_from_jax`` carries a JAX ``TrainState`` (numpy leaves:
+params, EMA, optax's adam mu / nu and counts, MultiSteps' accumulator)
+onto the port's ``train.TrainState`` through the same parameter mapping.
+
 ``quant_state_from_jax`` carries the int8 serving mode's collections
 (``quant_calib``: per-site activation absmax; ``quant_weights``: int8
 kernels and per-channel scales) onto the port's ``Int8Linear`` buffers,
@@ -139,3 +143,61 @@ def inception_state_from_jax(params_np: Mapping[str, Any]
         out['.'.join([*layer, leaf])] = torch.from_numpy(
             np.array(value, dtype=np.float32, order='C'))
     return out
+
+
+def _find_state(node: Any, *fields: str) -> Any:
+    """The first optax state (a namedtuple) in ``node`` with ``fields``."""
+    if all(hasattr(node, f) for f in fields):
+        return node
+    if isinstance(node, (tuple, list)):
+        for child in node:
+            found = _find_state(child, *fields)
+            if found is not None:
+                return found
+    return None
+
+
+def train_state_from_jax(state_np: Any, model: torch.nn.Module, cfg,
+                         *, rope_layout: str = 'split'):
+    """A JAX ``TrainState`` (``jax.device_get`` of one: numpy leaves) ->
+    a ``fitv2_tpu_torch.train.TrainState`` for the port's fp32 ``model``
+    (whose parameters become the master parameters) and
+    ``OptimizerConfig`` ``cfg``.
+
+    params, ema_params, adam's mu (cast to ``cfg.mu_dtype``) and nu go
+    through ``state_dict_from_jax``; the adam count becomes the optimizer's
+    count, ``state.step`` the step; under ``optax.MultiSteps`` its
+    mini-step, gradient step and accumulated gradients carry over too."""
+    from fitv2_tpu_torch.train.train_step import create_train_state
+    kw = dict(depth=model.depth, num_heads=model.num_heads,
+              adaln_type=model.adaln_type, rope_layout=rope_layout)
+    state = create_train_state(model, cfg)
+    adam = _find_state(state_np.opt_state, 'mu', 'nu', 'count')
+    if adam is None:
+        raise ValueError('no adam state (mu, nu, count) in opt_state')
+    multi = _find_state(state_np.opt_state, 'mini_step', 'acc_grads')
+    with torch.no_grad():
+        for key, tree in (('params', state_np.params),
+                          ('ema_params', state_np.ema_params)):
+            sd = state_dict_from_jax(tree, **kw)
+            for name, t in getattr(state, key).items():
+                t.copy_(sd[name])
+        mu = state_dict_from_jax(adam.mu, **kw)
+        nu = state_dict_from_jax(adam.nu, **kw)
+        for name, p in state.params.items():
+            state.optimizer.state[p] = {
+                'mu': mu[name].to(p.device, cfg.mu_dtype or p.dtype),
+                'nu': nu[name].to(p.device, p.dtype)}
+        if multi is not None:
+            if state.accumulator is None:
+                raise ValueError('the JAX state accumulates gradients; set '
+                                 'grad_accum_steps')
+            acc = state_dict_from_jax(multi.acc_grads, **kw)
+            torch._foreach_copy_(state.accumulator.acc,
+                                 [acc[n] for n in state.params])
+            state.accumulator.mini_step = int(multi.mini_step)
+            state.accumulator.gradient_step = int(multi.gradient_step)
+    for group in state.optimizer.param_groups:
+        group['count'] = int(adam.count)
+    state.step = int(state_np.step)
+    return state

@@ -1,6 +1,8 @@
-"""Hand-written Hopper (sm_90a) CUDA kernels of the sampling path, each with
-its plain PyTorch version beside it. The CUDA library is built on first use
-(``_build.py``); importing this package builds nothing."""
+"""Hand-written Hopper (sm_90a) CUDA kernels of the sampling and training
+paths, each with its plain PyTorch version beside it; K1-K5 also run inside
+autograd Functions whose backward passes are PyTorch code (``_grad.py``).
+The CUDA library is built on first use (``_build.py``); importing this
+package builds nothing."""
 
 from fitv2_tpu_torch.kernels.attention import masked_attention
 from fitv2_tpu_torch.kernels.flash_attention import (

@@ -12,8 +12,10 @@ from typing import Optional
 
 import torch
 
+from fitv2_tpu_torch.kernels._grad import needs_grad
 from fitv2_tpu_torch.kernels.flash_attention import (
-    attention_bounded_reference, attention_reference, flash_masked_attention)
+    FlashMaskedAttention, attention_bounded_reference, attention_reference,
+    flash_masked_attention)
 
 Tensor = torch.Tensor
 
@@ -29,10 +31,14 @@ def masked_attention(q: Tensor, k: Tensor, v: Tensor,
     allows the softmax without a max pass. Returns (B, N, H, Dh).
 
     The plain versions run on the CPU; a CUDA tensor goes through the
-    kernel (csrc/attention.cu).
+    kernel (csrc/attention.cu), inside ``FlashMaskedAttention`` where
+    autograd records the call.
     """
     if q.device.type == 'cpu':
         ref = attention_bounded_reference if bounded_logits \
             else attention_reference
         return ref(q, k, v, mask)
+    if needs_grad(q, k, v):
+        return FlashMaskedAttention.apply(q, k, v, mask, bounded_logits,
+                                          flash_masked_attention)
     return flash_masked_attention(q, k, v, mask, bounded=bounded_logits)

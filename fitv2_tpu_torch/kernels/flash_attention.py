@@ -21,16 +21,23 @@ elements; the wrapper raises otherwise.
 
 Each variant has a plain PyTorch version with the same signature:
 ``attention_reference`` (max-subtracted) and ``attention_bounded_reference``.
+
+``FlashMaskedAttention`` gives the kernel a gradient:
+``flash_masked_attention_backward`` recomputes the normalised
+probabilities in fp32 (padded keys at 0) and applies the softmax-attention
+gradients of fitv2_tpu/ops/flash_attention.py's ``_bwd`` (K3), which are
+also those of attention_core.py's ``_bwd`` (K4).
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
 from fitv2_tpu_torch.kernels import _build
+from fitv2_tpu_torch.kernels._grad import attention_backward
 from fitv2_tpu_torch.kernels.fused_qk_rope import _check_heads
 
 Tensor = torch.Tensor
@@ -120,7 +127,55 @@ def flash_masked_attention(q: Tensor, k: Tensor, v: Tensor,
                     dh ** -0.5, int(bounded), dtype, stream),
                  'fitv2_attention')
     flash_masked_attention.launches += 1
+    flash_masked_attention.bounded_launches += int(bounded)
     return out
 
 
+# every launch, and those of the bounded variant (K4); the rest are K3
 flash_masked_attention.launches = 0
+flash_masked_attention.bounded_launches = 0
+
+
+def attention_probabilities(q: Tensor, k: Tensor, mask: Optional[Tensor],
+                            bounded: bool) -> Tensor:
+    """fp32 (B, H, Nq, Nk) normalised probabilities as the forward forms
+    them: ``e / max(rowsum(e), 1e-20)`` with e = exp(logit) (bounded) or
+    exp(logit - rowmax); padded keys get 0 (bounded) or the softmax's
+    share of a -1e30 logit."""
+    logits = _logits(q, k, mask)
+    e = torch.exp(logits if bounded
+                  else logits - logits.amax(-1, keepdim=True))
+    return e / torch.clamp(e.sum(-1, keepdim=True), min=1e-20)
+
+
+def flash_masked_attention_backward(q: Tensor, k: Tensor, v: Tensor,
+                                    mask: Optional[Tensor], g: Tensor,
+                                    bounded: bool = False
+                                    ) -> Tuple[Tensor, Tensor, Tensor]:
+    """Gradients of the attention for q, k and v given the output's
+    gradient g: fp32 softmax gradients from normalised p, cast to the input
+    dtypes (dense (B, N, H, Dh), whatever the inputs' strides)."""
+    dq, dk, dv = attention_backward(
+        attention_probabilities(q, k, mask, bounded), q.float(), k.float(),
+        v.float(), g.float(), q.shape[-1] ** -0.5, mask)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+class FlashMaskedAttention(torch.autograd.Function):
+    """K3/K4 with a gradient. The forward runs ``forward(q, k, v, mask,
+    bounded)`` (the kernel's wrapper; a test passes a plain version); the
+    backward is ``flash_masked_attention_backward``. The mask gets no
+    gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, mask, bounded, forward):
+        ctx.save_for_backward(q, k, v, mask)
+        ctx.bounded = bounded
+        return forward(q, k, v, mask, bounded)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, mask = ctx.saved_tensors
+        return (*flash_masked_attention_backward(q, k, v, mask, g,
+                                                 ctx.bounded),
+                None, None, None)

@@ -11,16 +11,22 @@ model widths ``VECTOR_WIDTHS`` on 4-element boundaries; and a scalar one
 for any other width or alignment.
 
 Dispatch is by device: a CPU tensor takes the plain version
-``adaln_norm_reference``; a CUDA tensor launches the kernel or raises.
+``adaln_norm_reference``; a CUDA tensor launches the kernel or raises. Where
+autograd records the call, the kernel runs inside ``AdaLNNorm``, whose
+backward is ``adaln_norm_backward`` (the vjp of fitv2_tpu/ops/
+fused_adaln.py's ``_bwd``, in fp32).
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import Tuple
 
 import torch
 
 from fitv2_tpu_torch.kernels import _build
+from fitv2_tpu_torch.kernels._grad import (
+    layernorm_backward, layernorm_stats, needs_grad)
 
 Tensor = torch.Tensor
 
@@ -86,10 +92,45 @@ def fused_adaln_norm(x: Tensor, shift: Tensor, scale: Tensor,
 fused_adaln_norm.launches = 0
 
 
+def adaln_norm_backward(x: Tensor, shift: Tensor, scale: Tensor, g: Tensor,
+                        eps: float = 1e-6) -> Tuple[Tensor, Tensor, Tensor]:
+    """Gradients of ``adaln_norm`` for x, shift and scale given the output's
+    gradient g, in fp32, cast to the input dtypes. shift and scale may be
+    strided (B, D) views (the chunks of the adaLN output); their gradients
+    are dense (B, D)."""
+    xhat, rstd = layernorm_stats(x, eps)
+    g32 = g.float()
+    dshift = g32.sum(1)
+    dscale = (g32 * xhat).sum(1)
+    dx = layernorm_backward(g32 * (1.0 + scale.float()[:, None, :]), xhat,
+                            rstd)
+    return dx.to(x.dtype), dshift.to(shift.dtype), dscale.to(scale.dtype)
+
+
+class AdaLNNorm(torch.autograd.Function):
+    """K1 with a gradient. The forward runs ``forward(x, shift, scale,
+    eps)`` (the kernel's wrapper; a test passes the plain version); the
+    backward is ``adaln_norm_backward``."""
+
+    @staticmethod
+    def forward(ctx, x, shift, scale, eps, forward):
+        ctx.save_for_backward(x, shift, scale)
+        ctx.eps = eps
+        return forward(x, shift, scale, eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, shift, scale = ctx.saved_tensors
+        return (*adaln_norm_backward(x, shift, scale, g, ctx.eps), None,
+                None)
+
+
 def adaln_norm(x: Tensor, shift: Tensor, scale: Tensor,
                eps: float = 1e-6) -> Tensor:
     """modulate(LayerNorm_no_affine(x), shift, scale) for x (B, N, D) and
     (B, D) conditioning: the plain version on the CPU, the kernel on CUDA."""
     if x.device.type == 'cpu':
         return adaln_norm_reference(x, shift, scale, eps)
+    if needs_grad(x, shift, scale):
+        return AdaLNNorm.apply(x, shift, scale, eps, fused_adaln_norm)
     return fused_adaln_norm(x, shift, scale, eps)

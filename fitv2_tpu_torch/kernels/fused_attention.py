@@ -10,7 +10,11 @@ where the unfused kernel divides at the end.
 
 Dispatch is by device (``qkln_rope_attention``): a CPU tensor takes the
 plain version ``fused_qkln_rope_attention_reference``; a CUDA tensor
-launches the kernel or raises.
+launches the kernel or raises. Where autograd records the call, the kernel
+runs inside ``FusedQKLNRopeAttention``, whose backward is
+``qkln_rope_attention_backward`` (the vjp of fitv2_tpu/ops/
+fused_attention.py's ``_bwd``, in fp32: the gradient of the flat qkv; the
+tables get none).
 """
 
 from __future__ import annotations
@@ -21,7 +25,11 @@ from typing import Optional
 import torch
 
 from fitv2_tpu_torch.kernels import _build
-from fitv2_tpu_torch.kernels.flash_attention import HEAD_DIMS, _logits
+from fitv2_tpu_torch.kernels._grad import (
+    attention_backward, layernorm_backward, layernorm_stats, needs_grad,
+    rope_backward, rotate_half)
+from fitv2_tpu_torch.kernels.flash_attention import (
+    HEAD_DIMS, _logits, attention_probabilities)
 from fitv2_tpu_torch.kernels.fused_qk_rope import qk_norm_rope_reference
 
 Tensor = torch.Tensor
@@ -119,6 +127,67 @@ def fused_qkln_rope_attention(qkv: Tensor, cos: Tensor, sin: Tensor,
 fused_qkln_rope_attention.launches = 0
 
 
+def qkln_rope_attention_backward(
+        qkv: Tensor, cos: Tensor, sin: Tensor, mask: Optional[Tensor],
+        g: Tensor, num_heads: int, eps: float = 1e-6, norm_q: bool = True,
+        norm_k: bool = True) -> Tensor:
+    """Gradient of ``qkln_rope_attention`` for the flat (B, N, 3C) qkv
+    given the output's gradient g, in fp32, cast to qkv's dtype.
+
+    Recomputes the normalised, rotated q and k (rounded to qkv's dtype, as
+    the forward feeds them to the attention) and the max-subtracted
+    softmax; padded query rows carry no gradient (the forward zeroes
+    them); then the attention, RoPE and LayerNorm backward passes."""
+    b, n, c3 = qkv.shape
+    c = c3 // 3
+    dh = c // num_heads
+    q, k, v = (t.reshape(b, n, num_heads, dh) for t in qkv.split(c, dim=-1))
+    cs = cos[:, :, None, :].to(qkv.dtype).float()
+    sn = sin[:, :, None, :].to(qkv.dtype).float()
+
+    def prologue(x, norm):
+        stats = layernorm_stats(x, eps) if norm else None
+        xn = stats[0].to(x.dtype).float() if norm else x.float()
+        return (xn * cs + rotate_half(xn) * sn).to(x.dtype).float(), stats
+
+    qr, q_stats = prologue(q, norm_q)
+    kr, k_stats = prologue(k, norm_k)
+    g32 = g.float()
+    if mask is not None:
+        g32 = g32 * mask.float()[..., None]
+    dqr, dkr, dv = attention_backward(
+        attention_probabilities(qr, kr, mask, bounded=False), qr, kr,
+        v.float(), g32.reshape(b, n, num_heads, dh), dh ** -0.5, mask)
+
+    def epilogue(dr, stats):
+        dx = rope_backward(dr, cs, sn)
+        return layernorm_backward(dx, *stats) if stats else dx
+
+    grads = (epilogue(dqr, q_stats), epilogue(dkr, k_stats), dv)
+    return torch.cat([t.reshape(b, n, c) for t in grads], dim=-1
+                     ).to(qkv.dtype)
+
+
+class FusedQKLNRopeAttention(torch.autograd.Function):
+    """K5 with a gradient. The forward runs ``forward(qkv, cos, sin, mask,
+    num_heads, eps, norm_q, norm_k)`` (the kernel's wrapper; a test passes
+    the plain version); the backward is ``qkln_rope_attention_backward``."""
+
+    @staticmethod
+    def forward(ctx, qkv, cos, sin, mask, num_heads, eps, norm_q, norm_k,
+                forward):
+        ctx.save_for_backward(qkv, cos, sin, mask)
+        ctx.args = (num_heads, eps, norm_q, norm_k)
+        return forward(qkv, cos, sin, mask, num_heads, eps, norm_q, norm_k)
+
+    @staticmethod
+    def backward(ctx, g):
+        qkv, cos, sin, mask = ctx.saved_tensors
+        dqkv = qkln_rope_attention_backward(qkv, cos, sin, mask, g,
+                                            *ctx.args)
+        return (dqkv,) + (None,) * 8
+
+
 def qkln_rope_attention(qkv: Tensor, cos: Tensor, sin: Tensor,
                         mask: Optional[Tensor], num_heads: int,
                         eps: float = 1e-6, norm_q: bool = True,
@@ -128,5 +197,9 @@ def qkln_rope_attention(qkv: Tensor, cos: Tensor, sin: Tensor,
     if qkv.device.type == 'cpu':
         return fused_qkln_rope_attention_reference(
             qkv, cos, sin, mask, num_heads, eps, norm_q, norm_k)
+    if needs_grad(qkv):
+        return FusedQKLNRopeAttention.apply(
+            qkv, cos, sin, mask, num_heads, eps, norm_q, norm_k,
+            fused_qkln_rope_attention)
     return fused_qkln_rope_attention(qkv, cos, sin, mask, num_heads, eps,
                                      norm_q, norm_k)

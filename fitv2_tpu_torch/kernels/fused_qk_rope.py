@@ -13,16 +13,21 @@ for any other even head dim up to ``MAX_HEAD_DIM`` or alignment.
 
 Dispatch is by device: a CPU tensor takes the plain version
 ``qk_norm_rope_reference``; a CUDA tensor launches the kernel or raises.
+Where autograd records the call, the kernel runs inside ``QKNormRope``,
+whose backward is ``qk_norm_rope_backward`` (the vjp of fitv2_tpu/ops/
+fused_qk_rope.py's ``_bwd``, in fp32; the tables get no gradient).
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
 from fitv2_tpu_torch.kernels import _build
+from fitv2_tpu_torch.kernels._grad import (
+    layernorm_backward, layernorm_stats, needs_grad, rope_backward)
 
 Tensor = torch.Tensor
 
@@ -116,6 +121,48 @@ def fused_qk_rope(q: Tensor, k: Tensor, cos: Tensor, sin: Tensor,
 fused_qk_rope.launches = 0
 
 
+def qk_norm_rope_backward(q: Tensor, k: Tensor, cos: Tensor, sin: Tensor,
+                          gq: Optional[Tensor], gk: Optional[Tensor],
+                          eps: float = 1e-6, norm_q: bool = True,
+                          norm_k: bool = True
+                          ) -> Tuple[Optional[Tensor], Optional[Tensor]]:
+    """Gradients of ``qk_norm_rope`` for q and k given the outputs'
+    gradients, in fp32, cast to the input dtypes: the RoPE transpose with
+    the tables rounded to the input dtype as in the forward, then the
+    LayerNorm backward where that tensor was normalised. q and k may be
+    strided views; their gradients are dense (B, N, H, Dh)."""
+    c = cos[:, :, None, :].to(q.dtype).float()
+    s = sin[:, :, None, :].to(q.dtype).float()
+
+    def one(x, g, norm):
+        if g is None:
+            return None
+        dx = rope_backward(g.float(), c, s)
+        if norm:
+            dx = layernorm_backward(dx, *layernorm_stats(x, eps))
+        return dx.to(x.dtype)
+
+    return one(q, gq, norm_q), one(k, gk, norm_k)
+
+
+class QKNormRope(torch.autograd.Function):
+    """K2 with a gradient. The forward runs ``forward(q, k, cos, sin, eps,
+    norm_q, norm_k)`` (the kernel's wrapper; a test passes the plain
+    version); the backward is ``qk_norm_rope_backward``."""
+
+    @staticmethod
+    def forward(ctx, q, k, cos, sin, eps, norm_q, norm_k, forward):
+        ctx.save_for_backward(q, k, cos, sin)
+        ctx.args = (eps, norm_q, norm_k)
+        return forward(q, k, cos, sin, eps, norm_q, norm_k)
+
+    @staticmethod
+    def backward(ctx, gq, gk):
+        q, k, cos, sin = ctx.saved_tensors
+        dq, dk = qk_norm_rope_backward(q, k, cos, sin, gq, gk, *ctx.args)
+        return dq, dk, None, None, None, None, None, None
+
+
 def qk_norm_rope(q: Tensor, k: Tensor, cos: Tensor, sin: Tensor,
                  eps: float = 1e-6, norm_q: bool = True, norm_k: bool = True
                  ) -> Tuple[Tensor, Tensor]:
@@ -123,4 +170,7 @@ def qk_norm_rope(q: Tensor, k: Tensor, cos: Tensor, sin: Tensor,
     version on the CPU, the kernel on CUDA."""
     if q.device.type == 'cpu':
         return qk_norm_rope_reference(q, k, cos, sin, eps, norm_q, norm_k)
+    if needs_grad(q, k):
+        return QKNormRope.apply(q, k, cos, sin, eps, norm_q, norm_k,
+                                fused_qk_rope)
     return fused_qk_rope(q, k, cos, sin, eps, norm_q, norm_k)

@@ -1,10 +1,11 @@
 """FiT / FiTv2: flexible diffusion transformer over padded token sequences.
 
-Counterpart of fitv2_tpu/models/fit.py, forward only. The depth-D block
-stack is a plain Python loop over ``blocks``; RoPE cos/sin are computed once
-per forward from the token grid (or passed in precomputed by a caller that
-reuses one grid, as the sampler does). All shapes are static per bucket:
-callers pad to the model's context length. Tokens are (B, N, C).
+Counterpart of fitv2_tpu/models/fit.py, for sampling and training. The
+depth-D block stack is a plain Python loop over ``blocks``; RoPE cos/sin
+are computed once per forward from the token grid (or passed in
+precomputed by a caller that reuses one grid, as the sampler does). All
+shapes are static per bucket: callers pad to the model's context length.
+Tokens are (B, N, C).
 """
 
 from __future__ import annotations
@@ -13,6 +14,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from fitv2_tpu_torch.models import rope as rope_lib
 from fitv2_tpu_torch.models.modules import (
@@ -25,14 +27,18 @@ RopeTables = Tuple[Tensor, Tensor]
 
 def embed_pre_trunk(model: 'FiT', x: Tensor, t: Tensor, y: Tensor,
                     grid: Tensor, size: Optional[Tensor] = None,
-                    rope: Optional[RopeTables] = None):
-    """Time shift, patch/time/label embeddings, RoPE tables and the global
+                    rope: Optional[RopeTables] = None, train: bool = False,
+                    force_drop_ids: Optional[Tensor] = None,
+                    generator: Optional[torch.Generator] = None):
+    """Time shift, patch/time/label embeddings (labels dropped to the null
+    class in training, see ``LabelEmbedder``), RoPE tables and the global
     adaLN term. Returns (x, c, freqs_cos, freqs_sin, global_adaln)."""
     ts = model.time_shifting
     t = torch.clamp(ts * t / (1.0 + (ts - 1.0) * t), max=1.0)
     t = t.to(model.dtype)
     x = model.x_embedder(x.to(model.dtype))
-    c = model.t_embedder(t) + model.y_embedder(y)  # (B, D)
+    c = model.t_embedder(t) + model.y_embedder(
+        y, train, force_drop_ids, generator)  # (B, D)
     freqs_cos, freqs_sin = (rope if rope is not None
                             else model.rope(grid, size))
     global_adaln = (model.global_adaLN_modulation(c)
@@ -57,10 +63,11 @@ class FiT(nn.Module):
     ``gemm_precision='int8'`` makes the blocks' qkv, proj and MLP GEMMs
     int8 W8A8 (``Int8Linear``); adaLN, the embedders and the final layer
     stay in ``dtype``. The sampler calibrates and prequantizes them.
-    Knobs of the JAX model that do not change a forward pass
-    (``use_checkpoint``, ``remat_policy``, ``scan_blocks``, ``use_sit``;
-    ``class_dropout_prob`` only sizes the label table) are accepted for
-    config compatibility.
+    ``use_checkpoint`` with ``remat_policy='full'`` recomputes each block
+    in the backward pass (``torch.utils.checkpoint``) where autograd
+    records the forward; the JAX package's ``dots*`` policies are not
+    ported. Knobs of the JAX model that do not change a forward pass
+    (``scan_blocks``, ``use_sit``) are accepted for config compatibility.
     """
 
     def __init__(self, context_size: int = 256, patch_size: int = 2,
@@ -105,6 +112,8 @@ class FiT(nn.Module):
         self.time_shifting = time_shifting
         self.rope_layout = rope_layout
         self.gemm_precision = gemm_precision
+        self.use_checkpoint = use_checkpoint
+        self.remat_policy = remat_policy
         self.rope_config = rope_lib.RopeConfig(
             head_dim=hidden_size // num_heads, mode=custom_freqs,
             theta=rope_theta, max_cached_len=max_cached_len,
@@ -197,20 +206,43 @@ class FiT(nn.Module):
         return rope_lib.rope_from_grid(self._rope_cache[key], grid,
                                        cfg.layout)
 
+    def _remat(self) -> bool:
+        """Whether blocks recompute in the backward pass: ``use_checkpoint``
+        and autograd recording. Only the 'full' policy is ported."""
+        if not (self.use_checkpoint and torch.is_grad_enabled()):
+            return False
+        if self.remat_policy in ('dots', 'dots_all', 'dots_offload'):
+            raise NotImplementedError(
+                f'remat_policy={self.remat_policy!r} is not ported (ROADMAP.md'
+                " §1, slice 5 remainder); use remat_policy='full'")
+        if self.remat_policy != 'full':
+            raise ValueError(f'unknown remat_policy: {self.remat_policy!r}')
+        return True
+
     def forward(self, x: Tensor, t: Tensor, y: Tensor, grid: Tensor,
                 mask: Optional[Tensor] = None, size: Optional[Tensor] = None,
-                rope: Optional[RopeTables] = None) -> Tensor:
+                rope: Optional[RopeTables] = None, train: bool = False,
+                force_drop_ids: Optional[Tensor] = None,
+                generator: Optional[torch.Generator] = None) -> Tensor:
         """x: (B, N, p**2*C_in); t: (B,); y: (B,) int; grid: (B, 2, N) int;
         mask: (B, N) or None; size: (B, 1, 2) (h, w) per sample, read by
         online RoPE only. Returns (B, N, p**2*C_out) in the model dtype.
 
         ``mask=None`` means every token is valid: no key masking and no
         padded-output zeroing (the full-grid sampling case). ``rope``
-        passes precomputed ``self.rope(grid, size)`` tables."""
-        x, c, cos, sin, global_adaln = embed_pre_trunk(self, x, t, y, grid,
-                                                       size, rope)
+        passes precomputed ``self.rope(grid, size)`` tables. ``train``,
+        ``force_drop_ids`` and ``generator`` drive the label dropout
+        (``LabelEmbedder``)."""
+        x, c, cos, sin, global_adaln = embed_pre_trunk(
+            self, x, t, y, grid, size, rope, train, force_drop_ids,
+            generator)
+        remat = self._remat()
         for block in self.blocks:
-            x = block(x, c, mask, cos, sin, global_adaln)
+            if remat:
+                x = checkpoint(block, x, c, mask, cos, sin, global_adaln,
+                               use_reentrant=False)
+            else:
+                x = block(x, c, mask, cos, sin, global_adaln)
         return finalize_post_trunk(self, x, c, mask)
 
     def unpatchify(self, x: Tensor, hw: Tuple[int, int],

@@ -1,7 +1,7 @@
 """FiT transformer building blocks as ``torch.nn`` modules.
 
-Counterpart of fitv2_tpu/models/modules.py, forward only. Submodule and
-parameter names follow the JAX package's flax names (``mlp_0``, ``fc_out``,
+Counterpart of fitv2_tpu/models/modules.py. Submodule and parameter names
+follow the JAX package's flax names (``mlp_0``, ``fc_out``,
 ``embedding_table`` ...) so a JAX parameter tree maps onto ``state_dict()``
 by transposing Dense kernels (fitv2_tpu_torch/ckpt/convert.py).
 
@@ -142,18 +142,35 @@ class TimestepEmbedder(nn.Module):
 
 class LabelEmbedder(nn.Module):
     """Class-label embedding table with the CFG null class as its last row
-    (``num_classes + 1`` rows when class dropout is on)."""
+    (``num_classes + 1`` rows when class dropout is on).
+
+    In training, labels drop to the null class: where ``force_drop_ids ==
+    1`` if given (in or out of training), else each with probability
+    ``dropout_prob``, drawn on the CPU from ``generator`` (the global CPU
+    generator if None), so that the draws do not depend on the device."""
 
     def __init__(self, num_classes: int, hidden_size: int,
                  dropout_prob: float = 0.1):
         super().__init__()
         self.num_classes = num_classes
+        self.dropout_prob = dropout_prob
         rows = num_classes + int(dropout_prob > 0)
         self.embedding_table = nn.Parameter(torch.zeros(rows, hidden_size))
         nn.init.normal_(self.embedding_table, std=0.02)
 
-    def forward(self, labels: Tensor) -> Tensor:
-        return self.embedding_table[labels.long()]
+    def forward(self, labels: Tensor, train: bool = False,
+                force_drop_ids: Optional[Tensor] = None,
+                generator: Optional[torch.Generator] = None) -> Tensor:
+        labels = labels.long()
+        if force_drop_ids is not None:
+            labels = torch.where(force_drop_ids.to(labels.device) == 1,
+                                 self.num_classes, labels)
+        elif train and self.dropout_prob > 0:
+            drop = torch.rand(labels.shape, generator=generator
+                              ) < self.dropout_prob
+            labels = torch.where(drop.to(labels.device), self.num_classes,
+                                 labels)
+        return self.embedding_table[labels]
 
 
 class SwiGLU(nn.Module):

@@ -1,0 +1,357 @@
+"""FiTv2 train step: flow loss, gradients, clipping, AdamW, EMA.
+
+Counterpart of fitv2_tpu/train/train_step.py, whose optimizer is optax's
+``chain(clip_by_global_norm, adamw)``, wrapped in ``MultiSteps`` when
+gradients accumulate. The port's pieces follow optax's arithmetic:
+
+- ``clip_by_global_norm``: the gradients are scaled by ``max / norm`` only
+  when the global norm is not below ``max`` (no epsilon added);
+- ``AdamW``: the moments are updated in fp32; the bias-corrected first
+  moment is formed from that fp32 value before the stored moment is cast
+  to ``mu_dtype`` (bf16 in the trainer); the schedule takes the count of
+  updates applied so far, so the first update uses ``lr(0)``;
+- ``GradAccumulator`` (``optax.MultiSteps``): the running mean of k
+  micro-gradients, clipped and applied on the k-th; the optimizer's count
+  advances only then;
+- ``update_ema`` runs after every micro-step, as in JAX.
+
+Mixed precision: the trainer keeps fp32 master parameters (``TrainState``)
+and runs a compute-dtype copy of the model, whose gradients are copied
+into the masters, which is what flax's cast-at-use gives JAX. With an fp32
+model the masters are the model's own parameters.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import warnings
+from typing import Any, Callable, Dict, List, Optional, Tuple, Union
+
+import torch
+from torch import nn
+
+from fitv2_tpu_torch.flow.transport import Transport
+
+Tensor = torch.Tensor
+Schedule = Callable[[int], float]
+
+
+@dataclasses.dataclass(frozen=True)
+class OptimizerConfig:
+    """The JAX package's AdamW defaults. ``mu_dtype`` None keeps the first
+    moment in the parameters' dtype (fp32)."""
+    learning_rate: float = 1e-4
+    betas: Tuple[float, float] = (0.9, 0.999)
+    eps: float = 1e-8
+    weight_decay: float = 0.0
+    max_grad_norm: float = 1.0
+    grad_accum_steps: int = 1
+    lr_schedule: Optional[Schedule] = None  # step -> lr; overrides the rate
+    optimizer: str = 'adamw'
+    mu_dtype: Optional[torch.dtype] = None
+
+
+def global_norm(tensors: List[Tensor]) -> Tensor:
+    """fp32 0-d L2 norm over all tensors, on their device."""
+    norms = torch._foreach_norm([t.float() for t in tensors])
+    return torch.linalg.vector_norm(torch.stack(norms))
+
+
+def clip_by_global_norm(grads: List[Tensor], max_norm: float,
+                        norm: Optional[Tensor] = None) -> Tensor:
+    """optax.clip_by_global_norm in place: scale every gradient by
+    ``max_norm / norm`` unless ``norm < max_norm``. Returns the norm (0-d,
+    on the device: no host sync)."""
+    if norm is None:
+        norm = global_norm(grads)
+    scale = torch.where(norm < max_norm, torch.ones_like(norm),
+                        max_norm / norm)
+    torch._foreach_mul_(grads, scale)
+    return norm
+
+
+class AdamW(torch.optim.Optimizer):
+    """optax.adamw (eps_root 0, no Nesterov): ``mu_hat / (sqrt(nu_hat) +
+    eps) + weight_decay * p``, scaled by ``-lr(count)``.
+
+    ``lr`` is a rate or a ``step -> lr`` schedule called with the count of
+    updates applied so far. ``mu_dtype`` is the stored first moment's dtype
+    (None: the parameter's); the moment is updated in fp32 and cast after
+    the bias-corrected value is formed, as optax does. The count is kept in
+    each parameter group, so it is in ``state_dict()``."""
+
+    def __init__(self, params, lr: Union[float, Schedule] = 1e-4,
+                 betas: Tuple[float, float] = (0.9, 0.999), eps: float = 1e-8,
+                 weight_decay: float = 0.0,
+                 mu_dtype: Optional[torch.dtype] = None):
+        super().__init__(params, dict(betas=tuple(betas), eps=eps,
+                                      weight_decay=weight_decay, count=0))
+        self.schedule = lr if callable(lr) else (lambda step: float(lr))
+        self.mu_dtype = mu_dtype
+
+    def load_state_dict(self, state_dict: Dict[str, Any]) -> None:
+        """torch's loader casts floating state to the parameter's dtype;
+        the first moment goes back to ``mu_dtype`` (exactly: it was
+        saved in that dtype)."""
+        super().load_state_dict(state_dict)
+        if self.mu_dtype is not None:
+            for state in self.state.values():
+                if 'mu' in state:
+                    state['mu'] = state['mu'].to(self.mu_dtype)
+
+    def _moments(self, p: Tensor) -> Tuple[Tensor, Tensor]:
+        state = self.state[p]
+        if not state:
+            state['mu'] = torch.zeros_like(p, dtype=self.mu_dtype or p.dtype)
+            state['nu'] = torch.zeros_like(p)
+        return state['mu'], state['nu']
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        if closure is not None:
+            raise ValueError('AdamW.step takes no closure')
+        for group in self.param_groups:
+            params = [p for p in group['params'] if p.grad is not None]
+            if not params:
+                continue
+            lr = self.schedule(group['count'])
+            group['count'] += 1
+            count = group['count']
+            b1, b2 = group['betas']
+            grads = [p.grad for p in params]
+            mus, nus = zip(*(self._moments(p) for p in params))
+            # mu = (1 - b1) g + b1 mu and nu = (1 - b2) g^2 + b2 nu, in
+            # fp32; as in optax, b1 mu is a product in the stored dtype
+            # (b1 rounded to it), rounded before the fp32 sum
+            b1_mu = float(torch.tensor(b1, dtype=mus[0].dtype))
+            mus32 = [m.float() for m in torch._foreach_mul(mus, b1_mu)]
+            torch._foreach_add_(mus32, torch._foreach_mul(grads, 1.0 - b1))
+            sq = torch._foreach_mul(grads, grads)
+            torch._foreach_mul_(sq, 1.0 - b2)
+            torch._foreach_mul_(nus, b2)
+            torch._foreach_add_(nus, sq)
+            del sq
+            # optax's bias corrections: 1 - decay**count in float32
+            bc1 = float(torch.tensor(1.0) - torch.tensor(b1) ** count)
+            bc2 = float(torch.tensor(1.0) - torch.tensor(b2) ** count)
+            update = torch._foreach_div(mus32, bc1)
+            denom = torch._foreach_div(nus, bc2)
+            torch._foreach_sqrt_(denom)
+            torch._foreach_add_(denom, group['eps'])
+            torch._foreach_div_(update, denom)
+            del denom
+            if group['weight_decay']:
+                torch._foreach_add_(update, torch._foreach_mul(
+                    params, group['weight_decay']))
+            torch._foreach_mul_(update, -lr)
+            torch._foreach_add_(params, update)
+            torch._foreach_copy_(list(mus), mus32)
+
+
+class GradAccumulator:
+    """optax.MultiSteps with ``use_grad_mean``: ``acc + (g - acc) / (n +
+    1)`` over ``every_k`` micro-steps; ``update`` returns the mean on the
+    k-th and None before it."""
+
+    def __init__(self, every_k: int, like: List[Tensor]):
+        self.every_k = every_k
+        self.mini_step = 0
+        self.gradient_step = 0
+        self.acc = [torch.zeros_like(t, dtype=torch.float32) for t in like]
+
+    def update(self, grads: List[Tensor]) -> Optional[List[Tensor]]:
+        delta = torch._foreach_sub(grads, self.acc)
+        torch._foreach_div_(delta, float(self.mini_step + 1))
+        torch._foreach_add_(self.acc, delta)
+        emit = self.mini_step == self.every_k - 1
+        self.mini_step = (self.mini_step + 1) % self.every_k
+        if not emit:
+            return None
+        out, self.acc = self.acc, [torch.zeros_like(a) for a in self.acc]
+        self.gradient_step += 1
+        return out
+
+    def state_dict(self) -> Dict[str, Any]:
+        return dict(mini_step=self.mini_step,
+                    gradient_step=self.gradient_step, acc=self.acc)
+
+    def load_state_dict(self, sd: Dict[str, Any]) -> None:
+        self.mini_step = int(sd['mini_step'])
+        self.gradient_step = int(sd['gradient_step'])
+        with torch.no_grad():
+            torch._foreach_copy_(self.acc, list(sd['acc']))
+
+
+def update_ema(ema_params: Dict[str, Tensor], params: Dict[str, Tensor],
+               decay: float = 0.9999) -> Dict[str, Tensor]:
+    """In place, ``ema <- ema * decay + p * (1 - decay)``.
+
+    The EMA must be float32: in bf16 the increment falls below the dtype's
+    precision and the EMA never moves off its initial value; a dtype whose
+    eps exceeds ``1 - decay`` warns, as in JAX."""
+    names = list(ema_params)
+    emas = [ema_params[n] for n in names]
+    for e in emas:
+        eps = torch.finfo(e.dtype).eps
+        if eps > 1.0 - decay:
+            warnings.warn(
+                f'update_ema: EMA dtype {e.dtype} has machine eps {eps:.1e} '
+                f'> 1-decay {1.0 - decay:.1e}; the EMA update underflows and '
+                'ema_params stays frozen at its initial value. Keep EMA (and '
+                'params) in float32.', stacklevel=2)
+            break
+    with torch.no_grad():
+        ps = torch._foreach_mul([params[n].to(e.dtype)
+                                 for n, e in zip(names, emas)], 1.0 - decay)
+        torch._foreach_mul_(emas, decay)
+        torch._foreach_add_(emas, ps)
+    return ema_params
+
+
+def scale_lr_by_global_batch(base_lr: float, global_batch_size: int,
+                             base_batch_size: int = 256) -> float:
+    """Linear LR scaling."""
+    return base_lr * global_batch_size / base_batch_size
+
+
+@dataclasses.dataclass
+class TrainState:
+    """What a train step carries from one call to the next.
+
+    step: micro-steps taken; params: fp32 master parameters by the
+    model's names (the model's own parameters when it computes in fp32);
+    ema_params: their fp32 EMA; optimizer: the moments and the count of
+    applied updates; accumulator: the running gradient mean when
+    gradients accumulate."""
+    step: int
+    params: Dict[str, Tensor]
+    ema_params: Dict[str, Tensor]
+    optimizer: AdamW
+    accumulator: Optional[GradAccumulator] = None
+
+    def state_dict(self) -> Dict[str, Any]:
+        return dict(step=self.step, params=self.params,
+                    ema_params=self.ema_params,
+                    optimizer=self.optimizer.state_dict(),
+                    accumulator=(self.accumulator.state_dict()
+                                 if self.accumulator else None))
+
+    def load_state_dict(self, sd: Dict[str, Any]) -> None:
+        """Copy a ``state_dict()`` into this state's tensors in place; the
+        names, shapes and dtypes must match."""
+        for key in ('params', 'ema_params'):
+            mine, theirs = getattr(self, key), sd[key]
+            if set(mine) != set(theirs):
+                raise KeyError(f'{key}: names differ: '
+                               f'{sorted(set(mine) ^ set(theirs))[:5]}')
+            with torch.no_grad():
+                for name, t in mine.items():
+                    if theirs[name].shape != t.shape:
+                        raise ValueError(f'{key}.{name}: shape '
+                                         f'{tuple(theirs[name].shape)} != '
+                                         f'{tuple(t.shape)}')
+                    t.copy_(theirs[name])
+        self.optimizer.load_state_dict(sd['optimizer'])
+        if (sd['accumulator'] is None) != (self.accumulator is None):
+            raise ValueError('gradient accumulation differs from the '
+                             'checkpoint')
+        if self.accumulator is not None:
+            self.accumulator.load_state_dict(sd['accumulator'])
+        self.step = int(sd['step'])
+
+
+def create_train_state(model: nn.Module, cfg: OptimizerConfig) -> TrainState:
+    """Masters, EMA, AdamW and accumulator for ``model``. An fp32 model's
+    parameters are the masters; any other dtype gets fp32 copies on the
+    model's device."""
+    if cfg.optimizer != 'adamw':
+        raise NotImplementedError(
+            f'optimizer {cfg.optimizer!r} is not ported yet (ROADMAP.md §1, '
+            "slice 5 remainder); use 'adamw'")
+    named = dict(model.named_parameters())
+    params = {n: p if p.dtype == torch.float32
+              else p.detach().float().clone() for n, p in named.items()}
+    ema = {n: p.detach().clone() for n, p in params.items()}
+    optimizer = AdamW(list(params.values()),
+                      lr=cfg.lr_schedule or cfg.learning_rate,
+                      betas=cfg.betas, eps=cfg.eps,
+                      weight_decay=cfg.weight_decay, mu_dtype=cfg.mu_dtype)
+    accumulator = (GradAccumulator(cfg.grad_accum_steps,
+                                   list(params.values()))
+                   if cfg.grad_accum_steps > 1 else None)
+    return TrainState(0, params, ema, optimizer, accumulator)
+
+
+def flow_loss(model: nn.Module, transport: Transport,
+              batch: Dict[str, Tensor],
+              generator: Optional[torch.Generator] = None,
+              draws: Optional[Dict[str, Tensor]] = None
+              ) -> Tuple[Tensor, Dict[str, Tensor]]:
+    """Mean flow-matching loss of a train-mode forward on ``batch``
+    (feature, grid, mask, label, size). t, x0 and the label drops are drawn
+    from ``generator`` (t, x0, then the drops) unless ``draws`` gives them
+    (``t``, ``x0``, ``drop_ids``)."""
+    draws = draws or {}
+
+    def model_fn(xt, t):
+        return model(xt, t, batch['label'], batch['grid'], batch['mask'],
+                     batch.get('size'), train=True,
+                     force_drop_ids=draws.get('drop_ids'),
+                     generator=generator)
+
+    out = transport.training_losses(model_fn, batch['feature'],
+                                    mask=batch['mask'], generator=generator,
+                                    t=draws.get('t'), x0=draws.get('x0'))
+    return out['loss'].mean(), out
+
+
+def make_train_step(model: nn.Module, transport: Transport,
+                    max_grad_norm: float = 1.0, ema_decay: float = 0.9999
+                    ) -> Callable[..., Tuple[TrainState, Dict[str, Tensor]]]:
+    """The train step of ``model`` (the compute-dtype FiT):
+    ``train_step(state, batch, generator=None, draws=None) -> (state,
+    metrics)``. It updates ``state`` in place: masters -> model, loss and
+    backward, gradients -> fp32 masters, accumulation, clipping, AdamW,
+    EMA. metrics: ``loss`` and ``grad_norm`` (of this micro-step's
+    gradient), 0-d tensors on the device. A parameter that the backward
+    leaves without a gradient raises: every parameter of the FiT is used,
+    so a missing one means a detached output upstream of it."""
+    names, model_params = zip(*model.named_parameters())
+
+    def train_step(state: TrainState, batch: Dict[str, Tensor],
+                   generator: Optional[torch.Generator] = None,
+                   draws: Optional[Dict[str, Tensor]] = None):
+        masters = list(state.params.values())
+        copies = [p for p, m in zip(model_params, masters) if p is not m]
+        if copies:
+            with torch.no_grad():
+                torch._foreach_copy_(
+                    copies, [m for p, m in zip(model_params, masters)
+                             if p is not m])
+        model.zero_grad(set_to_none=True)
+        loss, _ = flow_loss(model, transport, batch, generator, draws)
+        loss.backward()
+        missing = [n for n, p in zip(names, model_params) if p.grad is None]
+        if missing:
+            raise RuntimeError(
+                f'no gradient for {len(missing)} parameters ({missing[:5]}'
+                '...): an output upstream of them has no grad_fn')
+        grads = [p.grad.float() for p in model_params]
+        model.zero_grad(set_to_none=True)
+        norm = global_norm(grads)
+        clip_norm = norm
+        if state.accumulator is not None:
+            grads = state.accumulator.update(grads)
+            clip_norm = None
+        if grads is not None:
+            clip_by_global_norm(grads, max_grad_norm, clip_norm)
+            for m, g in zip(masters, grads):
+                m.grad = g
+            state.optimizer.step()
+            for m in masters:
+                m.grad = None
+        update_ema(state.ema_params, state.params, ema_decay)
+        state.step += 1
+        return state, {'loss': loss.detach(), 'grad_norm': norm}
+
+    return train_step

@@ -1,0 +1,232 @@
+"""Config-driven FiTv2 training loop on one device.
+
+Counterpart of fitv2_tpu/train/trainer.py: the resumable data stream, the
+train step (bf16 compute over fp32 master parameters, AdamW, EMA),
+rotating checkpoints, metric logging and the preemption guard, in one
+loop. Where the JAX trainer builds a mesh, the port runs on one device,
+``cuda`` unless the config asks for the CPU; the mesh, pipeline and FSDP
+options and the ddpm objective raise.
+
+Differences from the JAX trainer, by design:
+- the initial parameters are the given model's own (the port initialises
+  a FiT when it is built), and that model, in fp32, holds the master
+  parameters; with ``mixed_precision='bf16'`` a bf16 copy computes;
+- each micro-step's draws (t, x0, label drops) come from a CPU generator
+  seeded from (seed, step), so a resumed run replays the uninterrupted
+  run's draws;
+- a checkpoint that cannot be read raises; JAX starts afresh silently.
+"""
+
+from __future__ import annotations
+
+import copy
+import dataclasses
+import json
+import logging
+import os
+import time
+from typing import Any, Callable, Dict, Optional
+
+import numpy as np
+import torch
+
+from fitv2_tpu_torch.ckpt.checkpoint import (
+    CheckpointManager, latest_checkpoint_step)
+from fitv2_tpu_torch.data.latent_dataset import INLatentLoader
+from fitv2_tpu_torch.flow.transport import Transport, create_transport
+from fitv2_tpu_torch.train.lr_scheduler import get_scheduler
+from fitv2_tpu_torch.train.preemption import PreemptionGuard
+from fitv2_tpu_torch.train.train_step import (
+    OptimizerConfig, TrainState, create_train_state, make_train_step,
+    scale_lr_by_global_batch)
+
+logger = logging.getLogger('fitv2_tpu_torch.trainer')
+
+_DTYPES = {'bf16': torch.bfloat16, 'no': torch.float32}
+
+
+@dataclasses.dataclass
+class TrainerConfig:
+    # data
+    data_path: str = ''
+    target_len: int = 256
+    random_mode: str = 'random'
+    global_batch_size: int = 256
+    num_workers: int = 8
+    loader_backend: str = 'native'  # or 'python'
+    # schedule and optimizer
+    max_steps: int = 2_000_000
+    learning_rate: float = 1e-4
+    scale_lr: bool = False
+    lr_schedule: str = 'constant_with_warmup'
+    lr_warmup_steps: int = 1000
+    max_grad_norm: float = 1.0
+    weight_decay: float = 0.0
+    grad_accum_steps: int = 1
+    optimizer: str = 'adamw'
+    # Adam's first moment: bf16 halves that state; None keeps fp32
+    mu_dtype: Optional[str] = 'bfloat16'
+    ema_decay: float = 0.9999
+    seed: int = 42
+    objective: str = 'flow'  # the ddpm objective is not ported
+    # transport
+    path_type: str = 'Linear'
+    prediction: str = 'velocity'
+    snr_type: str = 'lognorm'
+    # 'bf16': bf16 compute with fp32 masters, moments and EMA; 'no': fp32
+    mixed_precision: str = 'bf16'
+    device: str = 'cuda'
+    # the JAX trainer's mesh axes a config may set; one device here, so
+    # each must be 1
+    mesh_stage: int = 1
+    mesh_fsdp: int = 1
+    mesh_tensor: int = 1
+    # checkpoints and logging
+    output_dir: str = 'runs/fitv2'
+    checkpointing_steps: int = 4000
+    checkpoints_total_limit: Optional[int] = 4
+    milestone_steps: tuple = ()
+    async_checkpointing: bool = False
+    # on SIGTERM/SIGINT: finish the step, checkpoint, return (preempted)
+    handle_preemption: bool = True
+    log_every: int = 100
+
+
+def _refuse_unported(cfg: TrainerConfig) -> None:
+    if (cfg.mesh_stage, cfg.mesh_fsdp, cfg.mesh_tensor) != (1, 1, 1):
+        raise NotImplementedError(
+            'the port trains on one device: mesh, pipeline and FSDP '
+            'options are not ported (ROADMAP.md §1, slice 9)')
+    if cfg.objective != 'flow':
+        raise NotImplementedError(
+            f'objective {cfg.objective!r} is not ported (ROADMAP.md §1, '
+            'slice 6); the port trains the flow objective')
+    if cfg.mixed_precision not in _DTYPES:
+        raise ValueError(f'mixed_precision={cfg.mixed_precision!r}: one of '
+                         f'{sorted(_DTYPES)}')
+
+
+def step_generator(seed: int, step: int) -> torch.Generator:
+    """The CPU generator of micro-step ``step``'s draws."""
+    state = np.random.SeedSequence([seed, step]).generate_state(1, np.uint64)
+    return torch.Generator().manual_seed(int(state[0]))
+
+
+class Trainer:
+    def __init__(self, model, config: TrainerConfig,
+                 transport: Optional[Transport] = None,
+                 loader: Optional[Any] = None):
+        if getattr(model, 'gemm_precision', 'bf16') == 'int8':
+            # int8 rounding has no gradient: W8A8 is a serving mode only
+            raise ValueError("gemm_precision='int8' is inference-only; "
+                             'train in bf16 and quantize for serving')
+        _refuse_unported(config)
+        self.cfg = config
+        self.device = torch.device(config.device)
+        if self.device.type == 'cuda' and not torch.cuda.is_available():
+            raise RuntimeError(f'device {config.device!r}: no CUDA card; '
+                               "pass device='cpu' to train on the CPU")
+        self.preempted = False
+        self.transport = transport or create_transport(
+            config.path_type, config.prediction, snr_type=config.snr_type)
+        # the fp32 model holds the master parameters; a bf16 copy computes
+        self.master_model = model.to(self.device, torch.float32)
+        dtype = _DTYPES[config.mixed_precision]
+        self.model = (self.master_model if dtype == torch.float32
+                      else copy.deepcopy(self.master_model).to(dtype))
+        self.loader = loader
+        self.ckpt = CheckpointManager(
+            os.path.join(config.output_dir, 'checkpoints'),
+            total_limit=config.checkpoints_total_limit,
+            milestone_steps=config.milestone_steps,
+            async_save=config.async_checkpointing)
+        lr = config.learning_rate
+        if config.scale_lr:
+            lr = scale_lr_by_global_batch(lr, config.global_batch_size)
+        self.optimizer_config = OptimizerConfig(
+            learning_rate=lr, max_grad_norm=config.max_grad_norm,
+            weight_decay=config.weight_decay,
+            grad_accum_steps=config.grad_accum_steps,
+            optimizer=config.optimizer,
+            mu_dtype=getattr(torch, config.mu_dtype) if config.mu_dtype
+            else None,
+            lr_schedule=get_scheduler(
+                config.lr_schedule, lr,
+                num_warmup_steps=config.lr_warmup_steps,
+                num_training_steps=config.max_steps))
+        self._train_step = make_train_step(
+            self.model, self.transport, config.max_grad_norm,
+            config.ema_decay)
+
+    def init_state(self) -> TrainState:
+        """A fresh state from the master model's current parameters."""
+        return create_train_state(self.master_model, self.optimizer_config)
+
+    def _to_device(self, batch_np: Dict[str, np.ndarray]
+                   ) -> Dict[str, torch.Tensor]:
+        return {k: torch.from_numpy(np.asarray(v)).to(self.device,
+                                                      non_blocking=True)
+                for k, v in batch_np.items()}
+
+    def train(self, max_steps: Optional[int] = None, resume: bool = True,
+              metric_hook: Optional[Callable[[int, Dict], None]] = None
+              ) -> TrainState:
+        """Train to ``max_steps`` (resuming from the latest checkpoint
+        unless ``resume`` is False); returns the state. Checkpoints at every
+        ``checkpointing_steps``, at ``max_steps`` and on preemption."""
+        cfg = self.cfg
+        max_steps = max_steps or cfg.max_steps
+        if self.loader is None:
+            self.loader = INLatentLoader(
+                cfg.data_path, cfg.target_len, cfg.random_mode,
+                batch_size=cfg.global_batch_size,
+                num_workers=cfg.num_workers, backend=cfg.loader_backend)
+        resume_step = 0
+        if resume:
+            resume_step = latest_checkpoint_step(self.ckpt.ckpt_dir) or 0
+        it = iter(self.loader.train_dataloader(
+            cfg.global_batch_size, max_steps, resume_step, cfg.seed))
+        state = self.init_state()
+        if resume_step:
+            state.load_state_dict(self.ckpt.restore(
+                resume_step, map_location=self.device))
+            logger.info('resumed from step %d', resume_step)
+
+        def run_one(batch_np):
+            return self._train_step(state, self._to_device(batch_np),
+                                    step_generator(cfg.seed, state.step))
+
+        guard = PreemptionGuard(enabled=cfg.handle_preemption)
+        self.preempted = False
+        t0 = time.time()
+        try:
+            # the first batch runs before the loop, as in the JAX trainer
+            _, metrics = run_one(next(it))
+            step = resume_step + 1
+            for batch_np in it:
+                _, metrics = run_one(batch_np)
+                step += 1
+                if step % cfg.log_every == 0:
+                    m = {k: float(v) for k, v in metrics.items()}
+                    m['steps_per_sec'] = cfg.log_every / max(
+                        time.time() - t0, 1e-9)
+                    t0 = time.time()
+                    logger.info('step %d: %s', step, json.dumps(m))
+                    if metric_hook:
+                        metric_hook(step, m)
+                preempted = guard.should_stop(step)
+                if (step % cfg.checkpointing_steps == 0 or step >= max_steps
+                        or preempted):
+                    self.ckpt.save(step, state.state_dict())
+                if preempted:
+                    self.preempted = True
+                    logger.warning('preemption checkpoint written at step '
+                                   '%d; exiting the train loop', step)
+                    break
+                if step >= max_steps:
+                    break
+        finally:
+            guard.restore()
+            if hasattr(it, 'close'):  # stop the loader's producer thread
+                it.close()
+        return state

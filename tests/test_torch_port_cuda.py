@@ -1,7 +1,9 @@
 """PyTorch port on the card: each CUDA kernel against its plain PyTorch
 version at ragged shapes and every head dim the attention kernels are built
 for, in bf16 and fp32, and small FiT forwards (dense, int8, fused
-attention) and a sampler on CUDA against the same model on the CPU.
+attention) and a sampler on CUDA against the same model on the CPU; the
+kernels' autograd Functions (K1-K5) against autograd of the plain
+versions, and an XL-width FiT's gradients on CUDA against the CPU's.
 
 Every test needs a CUDA card of compute capability 9.0 and ``nvcc``; where
 there is none (as on a CPU-only machine) each test skips. The file imports
@@ -659,3 +661,189 @@ def test_int8_and_fused_fit_forward_cuda_matches_cpu(dev, variant):
         assert launched == [2 * depth + 1, 0, 0, depth, 0, 0]
     rel = ((got - want).norm() / want.norm()).item()
     assert rel <= (1e-3 if variant == 'int8' else 1e-5), rel
+
+
+# -- slice 5: the kernels' autograd Functions on the card ---------------------
+# Gradients through the dispatchers (the kernel inside its Function) against
+# autograd of the plain version on the same card inputs: fp32 within 1e-5
+# of the largest |grad|; bf16 within 3e-2 of it (the plain version's
+# autograd rounds its bf16 intermediates, the backward functions keep fp32
+# to the end).
+TOL_GRAD_BF16 = 3e-2
+
+
+def _grads(fn, arrays, cots):
+    leaves = [a.detach().clone().requires_grad_(True) for a in arrays]
+    out = fn(*leaves)
+    outs = out if isinstance(out, tuple) else (out,)
+    return torch.autograd.grad(outs, leaves, cots)
+
+
+def _assert_grads_close(ours, ref):
+    for o, r in zip(ours, ref):
+        assert o.dtype == r.dtype and o.shape == r.shape
+        assert torch.isfinite(o).all()
+        err = (o.float() - r.float()).abs().max().item()
+        top = r.float().abs().max().item()
+        tol = 1e-5 if o.dtype == torch.float32 else TOL_GRAD_BF16
+        assert err <= tol * top, (err, top)
+
+
+def _cots(dev, out, seed):
+    g = _gen(dev, seed)
+    outs = out if isinstance(out, tuple) else (out,)
+    return [torch.randn(o.shape, device=dev, generator=g).to(o.dtype)
+            for o in outs]
+
+
+@pytest.mark.parametrize('dtype', DTYPES, ids=['fp32', 'bf16'])
+@pytest.mark.parametrize('d', [1152, 144])
+def test_adaln_function_gradients(dev, dtype, d):
+    """K1 inside AdaLNNorm; shift and scale are column chunks of the adaLN
+    output (row stride 6D): their gradients land in those columns."""
+    g = _gen(dev, 20)
+    x = (torch.randn(3, 77, d, device=dev, generator=g) * 2 + 3).to(dtype)
+    mod = (0.5 * torch.randn(3, 6 * d, device=dev, generator=g)).to(dtype)
+
+    def run(adaln):
+        def fn(a, m):
+            shift, scale = m.chunk(6, dim=-1)[3:5]
+            return adaln(a, shift, scale)
+        return fn
+    before = K.fused_adaln_norm.launches
+    cots = _cots(dev, K.adaln_norm_reference(x, *mod.chunk(6, -1)[3:5]), 21)
+    ours = _grads(run(K.adaln_norm), [x, mod], cots)
+    assert K.fused_adaln_norm.launches == before + 1
+    _assert_grads_close(ours, _grads(run(K.adaln_norm_reference), [x, mod],
+                                     cots))
+    assert not ours[1][:, :3 * d].any() and not ours[1][:, 5 * d:].any()
+
+
+@pytest.mark.parametrize('dtype', DTYPES, ids=['fp32', 'bf16'])
+@pytest.mark.parametrize('dh', [32, 64, 72, 96, 128])
+@pytest.mark.parametrize('norm_q', [True, False], ids=['norm_q', 'raw_q'])
+def test_qk_rope_function_gradients(dev, dtype, dh, norm_q):
+    """K2 inside QKNormRope on strided q/k views of a (B, N, 3, H, Dh)
+    qkv: the gradient of v's columns stays 0."""
+    g = _gen(dev, 22)
+    qkv = torch.randn(2, 37, 3, 3, dh, device=dev, generator=g).to(dtype)
+    ang = torch.rand(2, 37, dh, device=dev, generator=g) * 6.3
+    cos, sin = torch.cos(ang), torch.sin(ang)
+
+    def run(fn):
+        def call(a):
+            q, k, _ = a.unbind(2)
+            return fn(q, k, cos, sin, norm_q=norm_q)
+        return call
+    before = K.fused_qk_rope.launches
+    cots = _cots(dev, run(K.qk_norm_rope_reference)(qkv), 23)
+    ours = _grads(run(K.qk_norm_rope), [qkv], cots)
+    assert K.fused_qk_rope.launches == before + 1
+    _assert_grads_close(ours, _grads(run(K.qk_norm_rope_reference), [qkv],
+                                     cots))
+    assert not ours[0][:, :, 2].any()
+
+
+@pytest.mark.parametrize('dtype', DTYPES, ids=['fp32', 'bf16'])
+@pytest.mark.parametrize('dh', HEAD_DIMS)
+@pytest.mark.parametrize('bounded', [True, False], ids=['bounded', 'online'])
+@pytest.mark.parametrize('masked', [False, True], ids=['nomask', 'mask'])
+def test_attention_function_gradients(dev, dtype, dh, bounded, masked):
+    """K3/K4 inside FlashMaskedAttention at N 200, every head dim built; the
+    mask has a full row, a partial one and an empty one; q, k, v are
+    column blocks of one qkv."""
+    g = _gen(dev, 24)
+    b, n, h = 3, 200, 2
+    qkv = torch.randn(b, n, 3, h, dh, device=dev, generator=g)
+    if bounded:
+        qkv[:, :, :2] = torch.nn.functional.layer_norm(qkv[:, :, :2], (dh,),
+                                                       eps=1e-6)
+    qkv = qkv.to(dtype)
+    mask = None
+    if masked:
+        mask = torch.zeros(b, n, device=dev)
+        mask[0] = 1.0
+        mask[1, :150] = 1.0
+    plain = K.attention_bounded_reference if bounded else K.attention_reference
+
+    def run(fn):
+        return lambda a: fn(*a.unbind(2), mask)
+    before = K.flash_masked_attention.launches
+    cots = _cots(dev, run(plain)(qkv), 25)
+    ours = _grads(lambda a: K.masked_attention(*a.unbind(2), mask,
+                                               bounded_logits=bounded),
+                  [qkv], cots)
+    assert K.flash_masked_attention.launches == before + 1
+    _assert_grads_close(ours, _grads(run(plain), [qkv], cots))
+
+
+@pytest.mark.parametrize('dtype', DTYPES, ids=['fp32', 'bf16'])
+@pytest.mark.parametrize('dh', HEAD_DIMS)
+@pytest.mark.parametrize('masked', [False, True], ids=['nomask', 'mask'])
+def test_fused_attention_function_gradients(dev, dtype, dh, masked):
+    """K5 inside FusedQKLNRopeAttention: the gradient of the flat qkv, with
+    a full, a partial and an empty mask row."""
+    g = _gen(dev, 26)
+    b, n, h = 3, 200, 2
+    qkv = torch.randn(b, n, 3 * h * dh, device=dev, generator=g).to(dtype)
+    ang = torch.rand(b, n, dh, device=dev, generator=g) * 6.3
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    mask = None
+    if masked:
+        mask = torch.zeros(b, n, device=dev)
+        mask[0] = 1.0
+        mask[1, :150] = 1.0
+    before = K.fused_qkln_rope_attention.launches
+    cots = _cots(dev, K.fused_qkln_rope_attention_reference(
+        qkv, cos, sin, mask, h), 27)
+    ours = _grads(lambda a: K.qkln_rope_attention(a, cos, sin, mask, h),
+                  [qkv], cots)
+    assert K.fused_qkln_rope_attention.launches == before + 1
+    _assert_grads_close(ours, _grads(
+        lambda a: K.fused_qkln_rope_attention_reference(a, cos, sin, mask, h),
+        [qkv], cots))
+
+
+def test_xl_width_fit_gives_every_parameter_a_gradient(dev):
+    """FiTv2 at XL width (1152, 16 heads of 72), depth 2, fp32, one flow
+    loss on a padded batch: on CUDA every parameter gets a gradient
+    through the kernels, within 1e-4 relative L2 of the CPU's (the plain
+    versions) for every parameter."""
+    import copy
+    from fitv2_tpu_torch.flow import create_transport
+    from fitv2_tpu_torch.models import FiT
+    from fitv2_tpu_torch.models.grid_utils import make_grid_mask_size
+    from fitv2_tpu_torch.train import flow_loss
+    torch.manual_seed(0)
+    model = FiT(context_size=256, hidden_size=1152, depth=2, num_heads=16,
+                learn_sigma=False, use_sit=True, use_swiglu=True,
+                q_norm='layernorm', k_norm='layernorm', adaln_type='lora',
+                adaln_lora_dim=288)
+    gen = torch.Generator().manual_seed(1)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if 'adaLN_modulation.fc_out' in name or 'final_layer.linear' in name:
+                p.add_(0.02 * torch.randn(p.shape, generator=gen))
+    grid, mask, size = make_grid_mask_size(2, 10, 20, 256)
+    batch = dict(feature=torch.randn(2, 256, 16, generator=gen), grid=grid,
+                 mask=mask, label=torch.tensor([3, 999]), size=size)
+    draws = dict(t=torch.tensor([0.25, 0.8]),
+                 x0=torch.randn(2, 256, 16, generator=gen),
+                 drop_ids=torch.tensor([0, 1]))
+    tr = create_transport()
+    results = []
+    for device in ('cpu', dev):
+        m = copy.deepcopy(model).to(device)
+        loss, _ = flow_loss(m, tr, {k: v.to(device) for k, v in batch.items()},
+                            draws={k: v.to(device) for k, v in draws.items()})
+        loss.backward()
+        results.append((loss.item(), {n: p.grad for n, p in
+                                      m.named_parameters()}))
+    (loss_cpu, g_cpu), (loss_gpu, g_gpu) = results
+    assert abs(loss_gpu - loss_cpu) <= 1e-5 * abs(loss_cpu)
+    for name, g in g_gpu.items():
+        assert g is not None, name
+        ref = g_cpu[name]
+        assert ref.norm() > 0, name
+        rel = ((g.cpu() - ref).norm() / ref.norm()).item()
+        assert rel <= 1e-4, (name, rel)

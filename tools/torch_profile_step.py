@@ -1,9 +1,11 @@
 #!/usr/bin/env python3
-"""Where the time of one sampler step of the PyTorch port goes, on one H100.
+"""Where the time of one sampler step, or one train step, of the PyTorch
+port goes, on one H100.
 
 Run from the repository root on a machine with the card:
 
-    python3 tools/torch_profile_step.py [--path bf16|int8|fused|hr] [--tree DIR]
+    python3 tools/torch_profile_step.py [--path bf16|int8|fused|hr|train]
+        [--tree DIR]
 
 Builds chip_smoke.py's FiTv2-XL/2 (random weights from its seed, the
 zero-init leaves perturbed) in bf16 on the card (``--path int8``: the int8
@@ -15,11 +17,23 @@ batch), at chip_smoke.py's batch and CFG scale (256x256 unless fused or
 hr), warms the sampler up, then measures:
 
 - wall ms per step: three unprofiled STEPS-step sampler calls, each ended
-  by ``torch.cuda.synchronize()``;
-- device busy ms per step (kernels and copies), kernel launches per step
-  and device ms and count per step of each group (the port's kernels by
-  name, cuBLAS, copies, the rest): ``torch.profiler`` over one more
-  STEPS-step call.
+  by ``torch.cuda.synchronize()`` (the rate, images/s, comes from these);
+- from ``torch.profiler`` over one more STEPS-step call, recording the
+  device's activity only: the device busy ms per step (the union of the
+  kernels' and copies' intervals), the wall ms per step of that profiled
+  window itself and the idle share, 1 - busy / that wall (both from one
+  window, so it is never below 0), kernel launches per step and the
+  summed device ms and count per step of each group (the port's kernels
+  by name, cuBLAS, copies, the rest).
+
+``--path train`` profiles one train step of the same XL/2 weights
+(fp32 masters on the card, a bf16 copy computing, bf16 mu, fp32 EMA) at
+configs/fitv2_xl.yaml's per-host batch of 32 on one batch of synthetic
+shards padded to 256 tokens (the loader is left out): the wall ms per step
+as above; the full step's device busy ms, launches and groups; the
+training forward alone (the flow loss with autograd recording) and the
+update alone (AdamW and the EMA over the masters); the backward is what is
+left of the step.
 
 ``--tree`` imports ``fitv2_tpu_torch`` from another checkout (for example
 the parent commit unpacked by ``git archive``), so that two versions can be
@@ -47,7 +61,8 @@ GROUPS = (('fused_attention_', 'fused_attention (K5)'),
           ('int8_gemm_wgmma', 'int8_gemm_bias (K6)'),
           ('int8_gemm_swiglu', 'int8_gemm_swiglu_quant (K7)'),
           ('nvjet', 'cuBLAS'), ('gemm', 'cuBLAS'), ('cutlass', 'cuBLAS'),
-          ('sm90_xmma', 'cuBLAS'))
+          ('sm90_xmma', 'cuBLAS'),
+          ('multi_tensor_apply', 'foreach (AdamW, EMA, clip, copies)'))
 
 
 def group_of(name: str) -> str:
@@ -55,10 +70,131 @@ def group_of(name: str) -> str:
                 'elementwise and other')
 
 
+def profile(fn, steps):
+    """From torch.profiler over `steps` calls of fn, per step: the device
+    busy ms (the union of the kernels' and copies' intervals, so work that
+    overlaps counts once), the wall ms of the profiled window itself (from
+    before the first call to after a closing sync), launches, and
+    [summed ms, count] of each kernel group."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+    # the device's activity only: recording every host op too would slow a
+    # host-bound step and so inflate the window's idle share
+    with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            fn()
+        torch.cuda.synchronize()
+        window = (time.perf_counter() - t0) * 1e3
+    groups: dict[str, list[float]] = {}
+    launches = 0
+    spans = []
+    for evt in prof.events():
+        if evt.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        copy = 'Memcpy' in evt.name or 'Memset' in evt.name
+        launches += not copy
+        ms_count = groups.setdefault(
+            'memcpy and memset' if copy else group_of(evt.name), [0.0, 0])
+        ms_count[0] += evt.time_range.elapsed_us() / 1e3
+        ms_count[1] += 1
+        spans.append((evt.time_range.start, evt.time_range.end))
+    if not spans:
+        raise RuntimeError('torch.profiler recorded no device activity')
+    # intervals that overlap (another stream, or records that overlap)
+    # count once: a sum of durations would count them twice
+    busy_us, end = 0.0, float('-inf')
+    for start, stop in sorted(spans):
+        if stop > end:
+            busy_us += stop - max(start, end)
+            end = stop
+    return busy_us / 1e3 / steps, window / steps, launches / steps, {
+        g: [ms / steps, n / steps] for g, (ms, n) in
+        sorted(groups.items(), key=lambda kv: -kv[1][0])}
+
+
+def wall_ms(fn, steps):
+    """Three unprofiled runs of `steps` calls, each ended by a sync."""
+    import torch
+    walls = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            fn()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3 / steps)
+    return walls
+
+
+def train_profile(chip_smoke):
+    """The --path train measurements (see the module docstring)."""
+    import copy
+    import tempfile
+    import torch
+    from fitv2_tpu_torch.data import INLatentLoader, make_synthetic_latent_shards
+    from fitv2_tpu_torch.flow import create_transport
+    from fitv2_tpu_torch.train import (
+        OptimizerConfig, create_train_state, flow_loss, get_scheduler,
+        make_train_step, update_ema)
+    from fitv2_tpu_torch.train.trainer import step_generator
+    batch_size, n = chip_smoke.TRAIN_BATCH, chip_smoke.N
+    with tempfile.TemporaryDirectory() as root:
+        make_synthetic_latent_shards(root, n=batch_size, target_len=n,
+                                     seed=chip_smoke.SEED)
+        loader = INLatentLoader(root, n, batch_size=batch_size, num_workers=4)
+        batch_np = next(iter(loader.train_dataloader(batch_size, 1, 0)))
+    batch = {k: torch.from_numpy(v).cuda() for k, v in batch_np.items()}
+    master = chip_smoke._xl_model_fp32().cuda()
+    model = copy.deepcopy(master).to(torch.bfloat16)
+    lr = 1e-4 * batch_size / 256
+    state = create_train_state(master, OptimizerConfig(
+        learning_rate=lr, mu_dtype=torch.bfloat16,
+        lr_schedule=get_scheduler('constant_with_warmup', lr,
+                                  num_warmup_steps=50000)))
+    transport = create_transport('Linear', 'velocity', snr_type='lognorm')
+    train_step = make_train_step(model, transport)
+
+    def step():
+        train_step(state, batch, step_generator(0, state.step))
+
+    def forward():
+        loss, _ = flow_loss(model, transport, batch,
+                            step_generator(0, state.step))
+        del loss  # the graph is dropped unused
+
+    def update():
+        state.optimizer.step()
+        update_ema(state.ema_params, state.params)
+
+    for _ in range(2):
+        step()  # warm-up: cuBLAS plans, the kernel library, the allocator
+    torch.cuda.synchronize()
+    walls = wall_ms(step, STEPS)
+    busy, window, launches, groups = profile(step, STEPS)
+    fwd_busy, _, fwd_launches, fwd_groups = profile(forward, STEPS)
+    for p in state.params.values():  # grads of the right shape for update()
+        p.grad = torch.zeros_like(p)
+    upd_busy, _, upd_launches, _ = profile(update, STEPS)
+    return {
+        'batch': batch_size, 'tokens': n,
+        'valid_tokens': float(batch_np['mask'].sum()),
+        'wall_ms_per_step': walls, 'device_busy_ms_per_step': busy,
+        'profiled_wall_ms_per_step': window, 'idle_share': 1 - busy / window,
+        'images_per_s': [batch_size / w * 1e3 for w in walls],
+        'launches_per_step': launches, 'groups_ms_per_step': groups,
+        'forward': {'device_busy_ms': fwd_busy, 'launches': fwd_launches,
+                    'groups_ms': fwd_groups},
+        'update': {'device_busy_ms': upd_busy, 'launches': upd_launches},
+        'backward_and_rest_busy_ms': busy - fwd_busy - upd_busy,
+        'peak_memory_bytes': torch.cuda.max_memory_allocated(),
+    }
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
-    ap.add_argument('--path', choices=('bf16', 'int8', 'fused', 'hr'),
-                    default='bf16')
+    ap.add_argument('--path', choices=('bf16', 'int8', 'fused', 'hr',
+                                       'train'), default='bf16')
     ap.add_argument('--tree', default=ROOT)
     args = ap.parse_args()
     sys.path.insert(0, ROOT)
@@ -69,6 +205,13 @@ def main() -> None:
     import fitv2_tpu_torch
     from fitv2_tpu_torch.sample import SamplingConfig, build_sampler
 
+    if args.path == 'train':
+        print(json.dumps({
+            'path': args.path, 'tree': os.path.abspath(args.tree),
+            'package': os.path.dirname(fitv2_tpu_torch.__file__),
+            'card': card, 'steps': STEPS, **train_profile(chip_smoke)}),
+            flush=True)
+        return
     if args.path == 'hr':
         model = chip_smoke.hr_model_bf16()
         hw, batch, n_ctx = (512, 512), chip_smoke.HR_BATCH, chip_smoke.HR_N
@@ -90,42 +233,20 @@ def main() -> None:
     sample = build_sampler(model, scfg)  # int8: calibrates here
     sample(labels, z=z)  # warm-up
     torch.cuda.synchronize()
-
-    walls = []
-    for _ in range(3):
-        t0 = time.perf_counter()
-        sample(labels, z=z)
-        torch.cuda.synchronize()
-        walls.append((time.perf_counter() - t0) * 1e3 / STEPS)
-
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        sample(labels, z=z)
-        torch.cuda.synchronize()
-    groups: dict[str, list[float]] = {}
-    launches = 0
-    for evt in prof.events():
-        if evt.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        copy = 'Memcpy' in evt.name or 'Memset' in evt.name
-        launches += not copy
-        ms_count = groups.setdefault(
-            'memcpy and memset' if copy else group_of(evt.name), [0.0, 0])
-        ms_count[0] += evt.time_range.elapsed_us() / 1e3
-        ms_count[1] += 1
-    busy = sum(ms for ms, _ in groups.values()) / STEPS
+    walls = [w / STEPS for w in wall_ms(lambda: sample(labels, z=z), 1)]
+    busy, window, launches, groups = profile(lambda: sample(labels, z=z), 1)
+    busy, window, launches = busy / STEPS, window / STEPS, launches / STEPS
     print(json.dumps({
         'path': args.path, 'tree': os.path.abspath(args.tree),
         'package': os.path.dirname(fitv2_tpu_torch.__file__),
         'card': card, 'steps': STEPS,
         'wall_ms_per_step': walls,
         'device_busy_ms_per_step': busy,
-        'idle_share': [1 - busy / w for w in walls],
-        'launches_per_step': launches / STEPS,
-        'groups_ms_per_step': {
-            g: [ms / STEPS, n / STEPS] for g, (ms, n) in
-            sorted(groups.items(), key=lambda kv: -kv[1][0])},
+        'profiled_wall_ms_per_step': window,
+        'idle_share': 1 - busy / window,
+        'launches_per_step': launches,
+        'groups_ms_per_step': {g: [ms / STEPS, k / STEPS]
+                               for g, (ms, k) in groups.items()},
     }), flush=True)
 
 
