@@ -88,10 +88,39 @@ Phases (any failure raises and exits non-zero; nothing is caught):
                 then the rate, ms a step and images/s, from a third run
                 with deterministic algorithms off and the metrics read
                 every 8 steps: steps 9-16, from a sync to a sync.
+ 12. fitv1    - FiTv1-XL/2 (configs/fit_xl.yaml: depth 28, SwiGLU-large,
+                adaLN 'normal', learn_sigma, no q/k norm): (a) K2 in its
+                RoPE-only mode at (16, 256, 16, 72), bf16 and fp32, against
+                its plain version at phase 3's gates, with its times and
+                bound (K3 unmasked at this shape: phase 3's case, cited),
+                and its autograd Function in that mode at the training
+                shape (32, 256, 16, 72), bf16 and fp32, forward and
+                backward against autograd of the plain version at phase
+                11's gates; (b) fp32, seeded weights with the zero-init leaves
+                perturbed, batch 1: one DDPM p_mean_variance at the middle
+                of the 250-step respaced ladder, CUDA vs CPU, the mean and
+                the log-variance within 1e-4 relative L2; (c) bf16, batch
+                8, 256x256, CFG 1.5, 250 respaced DDPM steps, then DDIM,
+                each: the denoise rate (the median of V1_RATE_CALLS calls,
+                with their range), then VAE, uint8, npz with exact
+                launch counts (a forward: K1 57, K2 28, K3 28; K4-K7 0);
+                (d) cli/train.py's build_trainer on the config as it
+                stands (depth 28, batch 32, the ddpm objective) on phase
+                11's shards: 10 steps with a checkpoint at 6, a new
+                trainer resumed from 6, deterministic algorithms on;
+                finite losses, the first mse near 1 (an untrained FiT
+                outputs 0), exact launch counts a step, ms a step, peak
+                memory, and the resumed run bit-identical.
+The deterministic trainer runs of 11 (c) and 12 (d) run in child processes
+of this script (`--child NAME DIR`) with CUBLAS_WORKSPACE_CONFIG=:4096:8,
+which deterministic algorithms require and which cuBLAS reads once when it
+starts: set for the whole process, it made every sampler step's host side
+2.0-2.4x slower. Everything else runs here without it.
 Each path's counts are set to 0 just before it runs and read just after.
 The line before the last is the JSON list of kernels (K1-K5 with their
-Functions' forward and backward times and gradient errors); the last line is
-{"ok": true, "device": {...}}.
+Functions' forward and backward times and gradient errors; K2's RoPE-only
+case; each path's launches, K3's apart where K4 was counted); the last line
+is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -176,6 +205,16 @@ TOL_GRAD_BF16 = 3e-2  # a Function's bf16 gradients vs autograd of the plain
                       # version, of the largest |grad|: that autograd rounds
                       # its bf16 intermediates (K2's RoPE products, K5's p),
                       # the backward functions keep fp32 to the end
+# phase 12 (FiTv1-XL/2, configs/fit_xl.yaml): the respaced ladder's index
+# of the parity step (mid-ladder of STEPS); the trainer's steps and the
+# checkpoint the second run resumes from; an untrained FiT outputs 0, so
+# the first eps-MSE is E[eps^2] = 1 per valid element (batch 32 of padded
+# grids: its standard deviation is ~0.013)
+V1_CONFIG = 'configs/fit_xl.yaml'
+V1_PARITY_INDEX = STEPS // 2
+V1_TRAIN_STEPS, V1_TRAIN_RESUME = 10, 6
+V1_FIRST_MSE = (0.9, 1.1)
+V1_RATE_CALLS = 3  # timed 250-step denoise calls a mode (the host's spread)
 
 
 def say(*args):
@@ -426,19 +465,23 @@ def _adaln_case(K, x, shift, scale, time_plain=True):
     return dict(shape=[b, n, d], **case)
 
 
-def _qk_rope_case(K, q, k, cos, sin, time_plain=True):
-    """K2 at q, k (B, N, H, Dh) with (B, N, Dh) fp32 tables; see
+def _qk_rope_case(K, q, k, cos, sin, time_plain=True, norm=True):
+    """K2 at q, k (B, N, H, Dh) with (B, N, Dh) fp32 tables, with the q/k
+    LayerNorm or (norm False, FiTv1's mode) the rotation alone; see
     _norm_case."""
     b, n, h, dh = q.shape
+    label = 'qk_rope' if norm else 'qk_rope RoPE-only'
     case = _norm_case(
-        f'qk_rope ({b},{n},{h},{dh})', q.dtype,
-        lambda: K.fused_qk_rope(q, k, cos, sin),
-        lambda: K.qk_norm_rope_reference(q, k, cos, sin),
+        f'{label} ({b},{n},{h},{dh})', q.dtype,
+        lambda: K.fused_qk_rope(q, k, cos, sin, norm_q=norm, norm_k=norm),
+        lambda: K.qk_norm_rope_reference(q, k, cos, sin, norm_q=norm,
+                                         norm_k=norm),
         # q and k in and out, the fp32 cos/sin tables; ~10 fp32
-        # operations an element (LayerNorm, then the rotation)
+        # operations an element with the LayerNorm, 3 for the rotation
         4 * q.numel() * q.element_size() + 2 * cos.numel() * 4,
-        20 * q.numel(), time_plain)
-    return dict(shape=[b, n, h, dh], **case)
+        (20 if norm else 6) * q.numel(), time_plain)
+    return dict(shape=[b, n, h, dh], mode='ln_rope' if norm else 'rope_only',
+                **case)
 
 
 def _attention_case(K, dtype, q, k, v, mask, bounded, time_plain=True):
@@ -1400,12 +1443,13 @@ def phase_train_parity():
     return rels[worst]
 
 
-def _train_run(cli, cfg, args, resume, log_every=1, write=True):
-    """One Trainer run of phase 11 (c) from cli/train.py's build_trainer,
-    reading the metrics every `log_every` steps: every step's loss, the
-    wall time at each logged step (after a sync), the checkpoint saves
-    (none are written unless `write`), the peak device memory and the
-    launch counts of the run."""
+def _train_run(cli, cfg, args, resume, log_every=1, write=True, mses=None):
+    """One Trainer run of phase 11 (c) or 12 (d) from cli/train.py's
+    build_trainer, reading the metrics every `log_every` steps: every
+    step's loss (and its mse into `mses` when given), the wall time at each
+    logged step (after a sync), the checkpoint saves (none are written
+    unless `write`), the peak device memory and the launch counts of the
+    run."""
     import torch
     from fitv2_tpu_torch import kernels as K
     torch.manual_seed(SEED)  # the initial weights
@@ -1423,6 +1467,8 @@ def _train_run(cli, cfg, args, resume, log_every=1, write=True):
     def step(state, batch, generator):
         state, metrics = step_fn(state, batch, generator)
         losses.append(metrics['loss'])
+        if mses is not None:
+            mses.append(metrics['mse'])
         return state, metrics
 
     def save(step, state_dict):
@@ -1446,33 +1492,57 @@ def _train_run(cli, cfg, args, resume, log_every=1, write=True):
         K.flash_masked_attention.bounded_launches))
     peak = torch.cuda.max_memory_allocated()
     losses = [v.item() for v in losses]
+    if mses is not None:
+        mses[:] = [v.item() for v in mses]
     return trainer, state, losses, stamps, saves, counts, peak
 
 
-def phase_train(card, out_dir):
-    """Phase 11 (c): cli/train.py's build_trainer on configs/fitv2_xl.yaml
-    (depth 36, the per-host batch 32, bf16 compute over fp32 masters, a
-    bf16 first moment, fp32 EMA, the native loader) on TRAIN_SHARDS
-    synthetic shards with non-square grids padded to 256: TRAIN_STEPS
+def _snapshot(state):
+    """A train state's parameters, EMA and optimizer moments on the host."""
+    snap = {key: {n: t.detach().cpu() for n, t in getattr(state, key).items()}
+            for key in ('params', 'ema_params')}
+    snap['moments'] = [{k: v.cpu() for k, v in st.items()} for st in
+                       state.optimizer.state_dict()['state'].values()]
+    return snap
+
+
+def _differ(state, snap):
+    """(name, max abs difference) of every tensor of `state` that is not
+    bit-identical to `snap`'s."""
+    import torch
+    differ = []
+    for key in ('params', 'ema_params'):
+        for n, t in getattr(state, key).items():
+            if not torch.equal(t.detach().cpu(), snap[key][n]):
+                differ.append((f'{key}.{n}', (t.detach().cpu() - snap[key][n]
+                                              ).abs().max().item()))
+    for i, st in enumerate(state.optimizer.state_dict()['state'].values()):
+        for k, v in st.items():
+            want = snap['moments'][i][k]
+            if not torch.equal(v.cpu(), want):
+                differ.append((f'{k}[{i}]', (v.cpu().float() - want.float()
+                                             ).abs().max().item()))
+    return differ
+
+
+def phase_train_deterministic(card, out_dir):
+    """Phase 11 (c), in a child process with DETERMINISTIC_ENV: cli/train.
+    py's build_trainer on configs/fitv2_xl.yaml (depth 36, the per-host
+    batch 32, bf16 compute over fp32 masters, a bf16 first moment, fp32
+    EMA, the native loader) on TRAIN_SHARDS synthetic shards (written to
+    out_dir/latents) with non-square grids padded to 256: TRAIN_STEPS
     steps with a checkpoint at TRAIN_RESUME, then a new trainer resumed
     from TRAIN_RESUME to TRAIN_STEPS, deterministic algorithms on (and the
-    metrics read every step). Then the rate: a third run, deterministic
-    algorithms off, reading the metrics every TRAIN_TIMED steps as a
-    trainer's log cadence does and writing no checkpoint; the window is
-    steps TRAIN_TIMED + 1 to 2 TRAIN_TIMED, loader included, from a sync
-    to a sync. Returns the launch counts of the first two runs and the
-    rate."""
+    metrics read every step). Returns the launch counts of both runs and
+    the step times."""
     import shutil
     import torch
     from fitv2_tpu_torch.cli import train as cli
     from fitv2_tpu_torch.data import make_synthetic_latent_shards
-    from fitv2_tpu_torch.utils import load_config
     shards = os.path.join(out_dir, 'latents')
     make_synthetic_latent_shards(shards, n=TRAIN_SHARDS, target_len=N,
                                  seed=SEED)
-    cfg = load_config(['configs/fitv2_xl.yaml'])
-    cfg['data']['params']['train']['data_path'] = shards
-    cfg['accelerate']['checkpointing_steps'] = TRAIN_RESUME
+    cfg = _train_config('configs/fitv2_xl.yaml', out_dir, TRAIN_RESUME)
     run_dir = os.path.join(out_dir, 'train')
     args = cli.parse_args(['--cfgdir', 'configs/fitv2_xl.yaml',
                            '--output-dir', run_dir, '--max-steps',
@@ -1487,10 +1557,7 @@ def phase_train(card, out_dir):
             cli, cfg, args, False)
         batch = trainer.cfg.global_batch_size
         depth = trainer.model.depth
-        final = {key: {n: t.detach().cpu() for n, t in getattr(
-            state, key).items()} for key in ('params', 'ema_params')}
-        moments = [{k: v.cpu() for k, v in st.items()}
-                   for st in state.optimizer.state_dict()['state'].values()]
+        final = _snapshot(state)
         del trainer, state
         torch.cuda.empty_cache()
         ckpts = sorted(os.listdir(os.path.join(run_dir, 'checkpoints')))
@@ -1545,17 +1612,7 @@ def phase_train(card, out_dir):
     if losses_b != losses[TRAIN_RESUME:]:
         raise AssertionError(f'train: resumed losses {losses_b} != '
                              f'{losses[TRAIN_RESUME:]}')
-    differ = []
-    for key in ('params', 'ema_params'):
-        for n, t in getattr(state, key).items():
-            if not torch.equal(t.detach().cpu(), final[key][n]):
-                differ.append((f'{key}.{n}', (t.detach().cpu() - final[key][n]
-                                              ).abs().max().item()))
-    for i, st in enumerate(state.optimizer.state_dict()['state'].values()):
-        for k, v in st.items():
-            if not torch.equal(v.cpu(), moments[i][k]):
-                differ.append((f'{k}[{i}]', (v.cpu().float() - moments[i][k]
-                                             .float()).abs().max().item()))
+    differ = _differ(state, final)
     if differ:
         say(f'[train] resumed vs uninterrupted: {len(differ)} tensors '
             f'differ, e.g. {differ[:5]}')
@@ -1564,10 +1621,36 @@ def phase_train(card, out_dir):
         f'equal, and parameters, EMA, mu and nu bit-identical to the '
         f'uninterrupted run (deterministic algorithms on; saves '
         f'{saves_b})')
+    return dict(counts=counts, counts_resumed=counts_b, batch=batch,
+                depth=depth, deterministic_ms_per_step=det_ms,
+                peak_bytes=peak, first_loss=losses[0], losses=losses)
 
-    del trainer, state
-    torch.cuda.empty_cache()
+
+def _train_config(path, out_dir, checkpointing_steps):
+    """The YAML at `path` with phase 11's shards and a checkpoint cadence."""
+    from fitv2_tpu_torch.utils import load_config
+    cfg = load_config([path])
+    cfg['data']['params']['train']['data_path'] = os.path.join(out_dir,
+                                                               'latents')
+    cfg['accelerate']['checkpointing_steps'] = checkpointing_steps
+    return cfg
+
+
+def phase_train(card, out_dir):
+    """Phase 11 (c): the deterministic runs and the resume check in a child
+    process (phase_train_deterministic); then, here, the rate: a third
+    run, deterministic algorithms off, reading the metrics every
+    TRAIN_TIMED steps as a trainer's log cadence does and writing no
+    checkpoint; the window is steps TRAIN_TIMED + 1 to 2 TRAIN_TIMED,
+    loader included, from a sync to a sync. Returns the launch counts of
+    the first two runs and the rate."""
+    import torch
+    from fitv2_tpu_torch.cli import train as cli
+    torch.cuda.empty_cache()  # the child's trainer gets the card's memory
+    det = _run_child_phase('train', out_dir)
+    batch, depth = det['batch'], det['depth']
     timed = 2 * TRAIN_TIMED
+    cfg = _train_config('configs/fitv2_xl.yaml', out_dir, TRAIN_RESUME)
     args = cli.parse_args(['--cfgdir', 'configs/fitv2_xl.yaml',
                            '--output-dir', os.path.join(out_dir, 'timed'),
                            '--max-steps', str(timed), '--device', 'cuda'])
@@ -1585,16 +1668,324 @@ def phase_train(card, out_dir):
         f'included, from a sync to a sync) {ms:.2f} ms a step = '
         f'{batch / ms * 1e3:.2f} images/s; launches {counts_t} == expected '
         f'[{card}]')
-    return counts, counts_b, dict(
-        ms_per_step=ms, images_per_s=batch / ms * 1e3,
-        deterministic_ms_per_step=det_ms, peak_bytes=peak,
-        first_loss=losses[0], losses=losses)
+    return det['counts'], det['counts_resumed'], dict(
+        det, ms_per_step=ms, images_per_s=batch / ms * 1e3)
+
+
+def _v1_model_fp32():
+    """FiTv1-XL/2 (configs/fit_xl.yaml's network: depth 28, SwiGLU-large,
+    adaLN 'normal', learn_sigma, no q/k norm) on the CPU in fp32, seeded
+    init, zero-init leaves perturbed (an untrained FiT outputs exactly 0:
+    eps 0 and the mid-range variance, which would make parity vacuous)."""
+    import torch
+    from fitv2_tpu_torch.utils import config_to_model, load_config
+    torch.manual_seed(SEED + 8)
+    model = config_to_model(load_config([V1_CONFIG])['diffusion'][
+        'network_config'])
+    gen = torch.Generator().manual_seed(SEED + 9)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if 'adaLN_modulation.fc_out' in name or 'final_layer.linear' in name:
+                p.add_(0.02 * torch.randn(p.shape, generator=gen))
+    return model.eval()
+
+
+def _v1_diffusion_config():
+    from fitv2_tpu_torch.cli.sample import _diffusion_config
+    from fitv2_tpu_torch.utils import load_config
+    return _diffusion_config(load_config([V1_CONFIG])['diffusion'])
+
+
+def phase_fitv1_kernels(attention_cases):
+    """Phase 12 (a): K2 in FiTv1's RoPE-only mode at the sampler's shape,
+    bf16 and fp32, against its plain version at phase 3's gates, with its
+    times and bound; then its Function (QKNormRope, norm_q=norm_k=False:
+    the kernel forward, qk_norm_rope_backward) at the training shape
+    (TRAIN_BATCH, N, H, DH) against autograd of the plain version
+    (_grad_case). K3 without a mask at the sampler's shape is phase 3's
+    attention[online, no mask] case, cited. Returns the kernel cases and
+    the Function cases."""
+    import torch
+    from fitv2_tpu_torch import kernels as K
+    dev = torch.device('cuda')
+    gen = torch.Generator(device=dev).manual_seed(SEED + 10)
+    b2 = 2 * BATCH
+    cases, grad_cases = [], []
+    for dtype in (torch.bfloat16, torch.float32):
+        qkv = torch.randn(b2, N, 3, H, DH, device=dev, generator=gen
+                          ).to(dtype)
+        q, k, _ = qkv.unbind(2)  # token stride 3C, as in a block
+        ang = torch.rand(b2, N, DH, device=dev, generator=gen) * 6.3
+        cases.append(dict(_qk_rope_case(K, q, k, torch.cos(ang),
+                                        torch.sin(ang), norm=False),
+                          path='fitv1'))
+        qkv = torch.randn(TRAIN_BATCH, N, 3, H, DH, device=dev,
+                          generator=gen).to(dtype)
+        ang = torch.rand(TRAIN_BATCH, N, DH, device=dev, generator=gen) * 6.3
+        cos, sin = torch.cos(ang), torch.sin(ang)
+
+        def qk(fn, cos=cos, sin=sin):
+            return lambda a: fn(*a.unbind(2)[:2], cos, sin, norm_q=False,
+                                norm_k=False)
+        grad_cases.append(dict(_grad_case(
+            f'qk_rope RoPE-only ({TRAIN_BATCH},{N},{H},{DH})', dtype,
+            qk(K.qk_norm_rope), qk(K.qk_norm_rope_reference), [qkv], 5,
+            'norm'), mode='rope_only', path='fitv1'))
+    for c in attention_cases:
+        if (c['variant'], c['mask'], c['shape']) == ('online', False,
+                                                     [b2, N, H, DH]):
+            say(f'[fitv1] K3 (online softmax, no mask) at ({b2},{N},{H},'
+                f'{DH}) {c["dtype"]}: phase 3\'s case, kernel '
+                f'{c["us"]:.1f} us, plain {c["plain_us"]:.1f} us, bound '
+                f'{c["bound_us"]:.1f} us, max abs err {c["max_abs_err"]:.3e}')
+    torch.cuda.synchronize()
+    return cases, grad_cases
+
+
+def phase_fitv1_parity(model_cpu):
+    """Phase 12 (b): one DDPM p_mean_variance of FiTv1-XL/2 in fp32 at the
+    respaced ladder's mid index, batch 1, conditional: CUDA (kernels)
+    against the CPU (plain versions) on the same weights and input; the
+    mean's and the log-variance's relative L2."""
+    import torch
+    from fitv2_tpu_torch.models.grid_utils import make_grid_mask_size
+    from fitv2_tpu_torch.sched import create_diffusion
+    diffusion = create_diffusion(timestep_respacing=str(STEPS),
+                                 **_v1_diffusion_config())
+    g = torch.Generator().manual_seed(SEED + 11)
+    x = torch.randn(1, N, 16, generator=g)
+    t = torch.tensor([V1_PARITY_INDEX])
+    outs = []
+    for device in ('cpu', 'cuda'):
+        model = model_cpu if device == 'cpu' else copy.deepcopy(
+            model_cpu).to(device)
+        grid, _, size = make_grid_mask_size(1, 16, 16, N, device)
+        y = torch.tensor([207], device=device)
+
+        def model_fn(xt, t_int, model=model, grid=grid, size=size, y=y):
+            return model(xt, t_int.float(), y, grid, None, size)
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            out = diffusion.p_mean_variance(model_fn, x.to(device),
+                                            t.to(device), clip_denoised=False)
+        outs.append({k: v.cpu() for k, v in out.items()})
+        secs = time.perf_counter() - t0
+        if device == 'cpu':
+            t_cpu = secs
+        else:
+            del model
+    rels = {}
+    for key in ('mean', 'log_variance'):
+        want, got = outs[0][key], outs[1][key]
+        if not torch.isfinite(got).all() or want.norm() == 0:
+            raise AssertionError(f'fitv1 parity: {key} non-finite or zero')
+        rels[key] = ((got - want).norm() / want.norm()).item()
+    ok = all(r <= TOL_SLICE_REL_L2 for r in rels.values())
+    say(f'[fitv1] FiTv1-XL fp32 depth {model_cpu.depth}, batch 1, '
+        f'p_mean_variance at respaced index {V1_PARITY_INDEX} of {STEPS} '
+        f'(model t {int(diffusion.timestep_map[V1_PARITY_INDEX])}): '
+        f'relative L2 CUDA vs CPU mean {rels["mean"]:.3e}, log-variance '
+        f'{rels["log_variance"]:.3e} <= {TOL_SLICE_REL_L2}: '
+        f'{"ok" if ok else "FAIL"} (CPU {t_cpu:.1f} s)')
+    if not ok:
+        raise AssertionError(f'fitv1 parity: relative L2 {rels}')
+    return rels
+
+
+def phase_fitv1_sampling(model_bf16, vae, card, out_dir):
+    """Phase 12 (c): FiTv1-XL/2 bf16, batch 8, 256x256, CFG 1.5, STEPS
+    respaced steps, DDPM then DDIM: the denoise rate (no VAE; the median
+    of V1_RATE_CALLS calls), then the
+    user's call counted (VAE, uint8, npz): 57 K1, 28 K2 (RoPE only) and 28
+    K3 launches a forward, no K4-K7."""
+    import numpy as np
+    import torch
+    from fitv2_tpu_torch import kernels as K
+    from fitv2_tpu_torch.sample import SamplingConfig, build_sampler
+    labels = torch.arange(BATCH) * 111 % 1000
+    z = torch.randn(BATCH, N, 16, generator=torch.Generator().manual_seed(
+        SEED + 12))
+    depth = model_bf16.depth
+    want = _expected_counts(STEPS, depth, fused_qk_rope=1,
+                            flash_masked_attention=1)
+    counts, rates = {}, {}
+    for mode in ('ddpm', 'ddim'):
+        scfg = SamplingConfig(num_sampling_steps=STEPS, cfg_scale=CFG_SCALE,
+                              per_device_batch=BATCH, dtype=torch.bfloat16,
+                              sampler_mode=mode,
+                              diffusion_config=_v1_diffusion_config())
+        build_sampler(model_bf16, dataclasses.replace(
+            scfg, num_sampling_steps=2))(labels, z=z)  # warm-up
+        torch.cuda.synchronize()
+        denoise = build_sampler(model_bf16, scfg)
+        walls = []
+        for _ in range(V1_RATE_CALLS):
+            t0 = time.perf_counter()
+            latents = denoise(labels, z=z,
+                              generator=torch.Generator().manual_seed(1))
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        t_denoise = statistics.median(walls)
+        z_img = model_bf16.unpatchify(z.cuda(), (32, 32)).float()
+        moved = ((latents - z_img).norm() / z_img.norm()).item()
+        if not torch.isfinite(latents).all() or not moved > 1e-3:
+            raise AssertionError(f'fitv1 {mode}: latents not finite or not '
+                                 f'moved ({moved})')
+        tag = f'fitv1_{mode}'
+        t_full = _counted_pipeline(
+            tag, model_bf16, scfg, vae, labels, z, want, out_dir=out_dir,
+            build=lambda cfg: (lambda lab, z: build_sampler(
+                model_bf16, cfg, vae)(lab, z=z, generator=torch.Generator(
+                ).manual_seed(1))))
+        counts[tag] = dict(_read_counts(), flash_masked_attention_bounded=(
+            K.flash_masked_attention.bounded_launches))
+        if counts[tag]['flash_masked_attention_bounded']:
+            raise AssertionError(f'{tag}: K4 launched on a FiTv1 path')
+        rates[mode] = dict(denoise=BATCH / t_denoise, full=BATCH / t_full,
+                           denoise_range=[BATCH / max(walls),
+                                          BATCH / min(walls)])
+        say(f'[fitv1] FiTv1-XL/2 bf16 256x256 batch {BATCH}, {mode} {STEPS} '
+            f'respaced steps, CFG {CFG_SCALE}: latents moved {moved:.3f}; '
+            f'launches a forward K1 {2 * depth + 1}, K2 (RoPE only) {depth}, '
+            f'K3 {depth}, K4-K7 0; denoise, the median of {len(walls)} '
+            f'calls, {t_denoise:.3f} s = {BATCH / t_denoise:.4f} images/s '
+            f'(calls {BATCH / max(walls):.4f}-{BATCH / min(walls):.4f}); '
+            f'full pipeline, one counted call, {t_full:.3f} s = '
+            f'{BATCH / t_full:.4f} images/s [{card}]')
+    return counts, rates
+
+
+def phase_fitv1_train(card, out_dir):
+    """Phase 12 (d), in a child process with DETERMINISTIC_ENV:
+    cli/train.py's build_trainer on configs/fit_xl.yaml as
+    it stands (depth 28, batch 32, learn_sigma -> the ddpm objective over
+    1000 steps, bf16 compute over fp32 masters) on phase 11's shards:
+    V1_TRAIN_STEPS steps with a checkpoint at V1_TRAIN_RESUME, then a new
+    trainer resumed from there, deterministic algorithms on; finite
+    losses, the first mse in V1_FIRST_MSE, exact launch counts a step, ms
+    a step (synced every step), peak memory, and the resumed run
+    bit-identical to the uninterrupted one."""
+    import shutil
+    import torch
+    from fitv2_tpu_torch.cli import train as cli
+    cfg = _train_config(V1_CONFIG, out_dir, V1_TRAIN_RESUME)
+    run_dir = os.path.join(out_dir, 'train_fitv1')
+    args = cli.parse_args(['--cfgdir', V1_CONFIG, '--output-dir', run_dir,
+                           '--max-steps', str(V1_TRAIN_STEPS), '--device',
+                           'cuda'])
+    torch.use_deterministic_algorithms(True)
+    fill = torch.utils.deterministic.fill_uninitialized_memory
+    torch.utils.deterministic.fill_uninitialized_memory = False
+    mses = []
+    try:
+        trainer, state, losses, stamps, saves, counts, peak = _train_run(
+            cli, cfg, args, False, mses=mses)
+        if trainer.cfg.objective != 'ddpm':
+            raise AssertionError(f'fitv1 train: objective '
+                                 f'{trainer.cfg.objective}')
+        batch, depth = trainer.cfg.global_batch_size, trainer.model.depth
+        final = _snapshot(state)
+        del trainer, state
+        torch.cuda.empty_cache()
+        shutil.rmtree(os.path.join(run_dir, 'checkpoints',
+                                   f'checkpoint-{V1_TRAIN_STEPS}'))
+        trainer, state, losses_b, _, _, counts_b, _ = _train_run(
+            cli, cfg, args, True)
+    finally:
+        torch.use_deterministic_algorithms(False)
+        torch.utils.deterministic.fill_uninitialized_memory = fill
+    if (len(losses) != V1_TRAIN_STEPS
+            or not all(map(math.isfinite, losses + mses))):
+        raise AssertionError(f'fitv1 train: losses {losses}, mse {mses}')
+    first_ok = V1_FIRST_MSE[0] <= mses[0] <= V1_FIRST_MSE[1]
+    say(f'[fitv1] FiTv1-XL/2 train (ddpm), depth {depth}, batch {batch}, '
+        f'{V1_TRAIN_STEPS} steps: losses '
+        f'{", ".join(f"{v:.4f}" for v in losses)}; mse '
+        f'{", ".join(f"{v:.4f}" for v in mses)}')
+    say(f'[fitv1] first mse {mses[0]:.4f} in {V1_FIRST_MSE} (an untrained '
+        f'FiT outputs 0: E[eps^2] = 1): {"ok" if first_ok else "FAIL"}')
+    if not first_ok:
+        raise AssertionError(f'fitv1 train: first mse {mses[0]}')
+    for label, got, steps in (('uninterrupted', counts, V1_TRAIN_STEPS),
+                              ('resumed', counts_b,
+                               V1_TRAIN_STEPS - V1_TRAIN_RESUME)):
+        want = dict(_expected_counts(steps, depth, fused_qk_rope=1,
+                                     flash_masked_attention=1),
+                    flash_masked_attention_bounded=0)
+        if got != want:
+            raise AssertionError(f'fitv1 train {label}: launches {got} != '
+                                 f'{want}')
+        say(f'[fitv1] train {label} run, {steps} steps: launches {got} == '
+            f'expected (a step: K1 {2 * depth + 1}, K2 {depth}, K3 {depth}; '
+            'K4-K7 0)')
+    if losses_b != losses[V1_TRAIN_RESUME:]:
+        raise AssertionError(f'fitv1 train: resumed losses {losses_b} != '
+                             f'{losses[V1_TRAIN_RESUME:]}')
+    differ = _differ(state, final)
+    if differ:
+        say(f'[fitv1] resumed vs uninterrupted: {len(differ)} tensors '
+            f'differ, e.g. {differ[:5]}')
+        raise AssertionError('fitv1 train: the resumed run is not '
+                             'bit-identical')
+    saved = {st for st, _ in saves}
+    step_ms = [(stamps[st] - stamps[st - 1]) * 1e3 for st in sorted(stamps)
+               if st > 2 and st - 1 in stamps and st - 1 not in saved]
+    ms = statistics.median(step_ms)
+    say(f'[fitv1] resumed from step {V1_TRAIN_RESUME} to {V1_TRAIN_STEPS}: '
+        'losses equal, parameters, EMA, mu and nu bit-identical')
+    say(f'[fitv1] train step wall (deterministic algorithms on, a sync every '
+        f'step) median of {len(step_ms)} steps after step 2 {ms:.2f} ms = '
+        f'{batch / ms * 1e3:.2f} images/s; range {min(step_ms):.2f}-'
+        f'{max(step_ms):.2f} ms; peak device memory {peak / 2 ** 30:.2f} GiB;'
+        f' checkpoint saves '
+        f'{", ".join(f"step {st}: {t:.2f} s" for st, t in saves)} [{card}]')
+    return dict(counts=counts, counts_resumed=counts_b, ms_per_step=ms,
+                peak_bytes=peak, first_mse=mses[0], losses=losses)
+
+
+# cuBLAS's fixed workspace, which deterministic algorithms require of a
+# cuBLAS call: cuBLAS reads it once, when it starts, and it makes every
+# sampler step's host side 2.0-2.4x slower (PERF.md §5, PR 9), so only the
+# child processes of the deterministic trainer runs (CHILD_PHASES) set it
+DETERMINISTIC_ENV = {'CUBLAS_WORKSPACE_CONFIG': ':4096:8'}
+CHILD_PHASES = {'train': phase_train_deterministic,
+                'fitv1_train': phase_fitv1_train}
+
+
+def _run_child(argv, env):
+    """`python3 argv...` in a child process with `env` added to this
+    process's environment: its output is echoed, its result is the JSON
+    object on its last line; a child that fails raises."""
+    proc = subprocess.run([sys.executable, *argv],
+                          env=dict(os.environ, **env),
+                          stdout=subprocess.PIPE, text=True, timeout=1200)
+    lines = proc.stdout.splitlines()
+    for line in lines[:-1]:
+        say(line)
+    if proc.returncode != 0 or not lines:
+        raise AssertionError(f'{argv}: the child process exited '
+                             f'{proc.returncode}; its last line: {lines[-1:]}')
+    return json.loads(lines[-1])
+
+
+def _run_child_phase(name, out_dir):
+    """CHILD_PHASES[name](card, out_dir) in a child process of this script
+    with DETERMINISTIC_ENV (_run_child)."""
+    return _run_child([os.path.abspath(__file__), '--child', name, out_dir],
+                      DETERMINISTIC_ENV)
+
+
+def child_main(name, out_dir):
+    """The child process of _run_child_phase: one phase of CHILD_PHASES, its
+    result printed as the last line."""
+    if os.environ.get('CUBLAS_WORKSPACE_CONFIG') != \
+            DETERMINISTIC_ENV['CUBLAS_WORKSPACE_CONFIG']:
+        raise SystemExit('chip_smoke --child: needs DETERMINISTIC_ENV')
+    card = phase_device()
+    print(json.dumps(CHILD_PHASES[name](card, out_dir)), flush=True)
 
 
 def main():
-    # cuBLAS picks deterministic kernels with a fixed workspace (phase 11's
-    # resume check); set before the library starts
-    os.environ.setdefault('CUBLAS_WORKSPACE_CONFIG', ':4096:8')
     card = phase_device()
     import torch
     from fitv2_tpu_torch.vae import AutoencoderKL
@@ -1624,6 +2015,20 @@ def main():
         train_cases = phase_train_kernels()
         phase_train_parity()
         train_counts, resumed_counts, _ = phase_train(card, out_dir)
+        # phase 12: FiTv1-XL/2 (configs/fit_xl.yaml)
+        v1_k2_cases, v1_k2_grad_cases = phase_fitv1_kernels(
+            results['attention']['cases'])
+        v1_model = _v1_model_fp32()
+        phase_fitv1_parity(v1_model)
+        v1_model = v1_model.to('cuda', torch.bfloat16)
+        torch.manual_seed(SEED + 2)
+        vae = AutoencoderKL().to(device='cuda', dtype=torch.bfloat16).eval()
+        v1_counts, _ = phase_fitv1_sampling(v1_model, vae, card, out_dir)
+        del v1_model, vae
+        torch.cuda.empty_cache()
+        v1_train = _run_child_phase('fitv1_train', out_dir)
+        v1_train_counts = v1_train['counts']
+        v1_resumed_counts = v1_train['counts_resumed']
     for name, cases in hr_cases.items():
         results[name]['cases'] += [dict(c, path='hr') for c in cases]
     # each Function's forward + backward on the training shapes: the
@@ -1645,10 +2050,37 @@ def main():
                              backward_ms=None, backward_plain_ms=None,
                              grad_max_abs_err=None,
                              train_fwd_max_abs_err=None)
+    # K2 in FiTv1's RoPE-only mode (phase 12), bf16 the top-level numbers:
+    # the kernel at the sampler's shape, its Function at the training shape
+    rope_only, rope_only_train = v1_k2_cases[0], v1_k2_grad_cases[0]
+    results['qk_rope']['cases'] += v1_k2_cases
+    results['qk_rope']['train_cases'] += v1_k2_grad_cases
+    results['qk_rope'].update(
+        rope_only_ms=rope_only['us'] / 1e3,
+        rope_only_cold_ms=rope_only['cold_us'] / 1e3,
+        rope_only_plain_ms=rope_only['plain_us'] / 1e3,
+        rope_only_bound_ms=rope_only['bound_us'] / 1e3,
+        rope_only_max_abs_err=max(c['max_abs_err'] for c in v1_k2_cases),
+        rope_only_train_ms=rope_only_train['us'] / 1e3,
+        rope_only_train_plain_ms=rope_only_train['plain_us'] / 1e3,
+        rope_only_backward_ms=rope_only_train['bwd_us'] / 1e3,
+        rope_only_backward_plain_ms=rope_only_train['plain_bwd_us'] / 1e3,
+        rope_only_train_fwd_max_abs_err=max(
+            c['fwd_max_abs_err'] for c in v1_k2_grad_cases),
+        rope_only_grad_max_abs_err=max(
+            c['max_abs_err'] for c in v1_k2_grad_cases))
     by_path = {'main': counts, 'int8': int8_counts,
                'serving_max': serving_counts, 'fused': fused_counts,
                **hr_counts, 'train': train_counts,
-               'train_resumed': resumed_counts}
+               'train_resumed': resumed_counts, **v1_counts,
+               'fitv1_train': v1_train_counts,
+               'fitv1_train_resumed': v1_resumed_counts}
+    # the attention wrapper launches K4 (bounded) or K3 (online softmax):
+    # K3's share on each path that counted K4 apart
+    results['attention']['k3_launches_by_path'] = {
+        path: c['flash_masked_attention'] - c['flash_masked_attention_bounded']
+        for path, c in by_path.items()
+        if 'flash_masked_attention_bounded' in c}
     src = 'fitv2_tpu_torch/kernels/csrc/'
     meta = [
         ('adaln', 'fused_adaln_norm', counts, src + 'adaln.cu',
@@ -1681,4 +2113,6 @@ def main():
 
 
 if __name__ == '__main__':
+    if len(sys.argv) == 4 and sys.argv[1] == '--child':
+        sys.exit(child_main(sys.argv[2], sys.argv[3]))
     sys.exit(main())

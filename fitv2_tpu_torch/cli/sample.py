@@ -1,4 +1,4 @@
-"""CLI: FiTv2 FID sampling with the PyTorch port.
+"""CLI: FiTv2 / FiTv1 FID sampling with the PyTorch port.
 
 Usage:
     python -m fitv2_tpu_torch.cli.sample --cfgdir configs/fitv2_xl.yaml \
@@ -8,6 +8,12 @@ Usage:
         [--interpolation dynntk --ori-max-pe-len 16 --decouple] \
         [--vae path/to/sd-vae.safetensors] [--device cuda] --out samples.npz
 
+FiTv1 (a ``learn_sigma`` network such as configs/fit_xl.yaml) samples with
+``--sampler-mode ddpm`` or ``ddim``: improved-diffusion loops over the
+training ladder respaced to ``--num-sampling-steps``, with the diffusion
+keys of the config's ``diffusion`` section (``noise_schedule``,
+``diffusion_steps``, ... or an ``improved_diffusion:`` subsection).
+
 The flags are those of ``fitv2_tpu.cli.sample`` plus ``--device``. The
 serving speed modes compose: ``--gemm-precision int8`` (W8A8 GEMMs,
 calibrated when the sampler is built), ``--guidance-low/--guidance-high``
@@ -15,9 +21,9 @@ calibrated when the sampler is built), ``--guidance-low/--guidance-high``
 [--velocity-extrap-order 2]`` (the model on every N-th step only).
 ``--interpolation`` samples a bucket beyond the training grid with that
 RoPE frequency mode; ``no`` (the default) samples with normal frequencies,
-online RoPE off, as the JAX CLI does, also for the HR configs. Flags of
-modes that are not ported yet are accepted by the parser and refused with
-an error that names the missing slice.
+online RoPE off, as the JAX CLI does, also for the HR configs.
+``--data-parallel`` (multi-device) is accepted by the parser and refused
+with an error that names its slice.
 """
 
 from __future__ import annotations
@@ -26,7 +32,7 @@ import argparse
 
 
 def parse_args(argv=None):
-    p = argparse.ArgumentParser(description='FiTv2 FID sampling (PyTorch)')
+    p = argparse.ArgumentParser(description='FiT FID sampling (PyTorch)')
     p.add_argument('--cfgdir', nargs='+', required=True)
     p.add_argument('--ckpt', required=True,
                    help='reference-layout FiT .safetensors/.bin')
@@ -67,7 +73,10 @@ def parse_args(argv=None):
                         'forward')
     p.add_argument('--guidance-high', type=float, default=1.0)
     p.add_argument('--sampler-mode', default='ode',
-                   choices=['ode', 'ddpm', 'ddim'])
+                   choices=['ode', 'ddpm', 'ddim'],
+                   help="'ode': flow-matching Euler (FiTv2); 'ddpm' / "
+                        "'ddim': FiTv1 improved-diffusion loops, "
+                        '--num-sampling-steps the respacing')
     p.add_argument('--device', default='cuda',
                    help="torch device to sample on ('cuda' needs a card; "
                         "'cpu' runs the kernels' plain versions)")
@@ -76,16 +85,27 @@ def parse_args(argv=None):
 
 def _refuse_unported(args) -> None:
     """Raise for flags whose mode belongs to a slice not ported yet."""
-    unported = [
-        (args.sampler_mode != 'ode', f'--sampler-mode {args.sampler_mode}',
-         'FiTv1 DDPM/DDIM sampling (slice 6)'),
-        (args.data_parallel, '--data-parallel', 'multi-device (slice 9)'),
-    ]
-    for hit, flag, slice_name in unported:
-        if hit:
-            raise NotImplementedError(
-                f'{flag}: {slice_name} is not ported to fitv2_tpu_torch yet; '
-                'use fitv2_tpu.cli.sample for it')
+    if args.data_parallel:
+        raise NotImplementedError(
+            '--data-parallel: multi-device (slice 9) is not ported to '
+            'fitv2_tpu_torch yet; use fitv2_tpu.cli.sample for it')
+
+
+_DIFFUSION_KEYS = ('noise_schedule', 'diffusion_steps', 'learn_sigma',
+                   'sigma_small', 'predict_xstart', 'use_kl',
+                   'rescale_learned_sigmas')
+
+
+def _diffusion_config(diff_cfg: dict) -> dict:
+    """create_diffusion's kwargs from a config's ``diffusion`` section: an
+    ``improved_diffusion:`` subsection, else flat keys (configs/
+    fit_xl.yaml); the subsection wins."""
+    out = {k: v for k, v in diff_cfg.get('improved_diffusion', {}).items()
+           if k != 'timestep_respacing'}
+    for k in _DIFFUSION_KEYS:
+        if k in diff_cfg and k not in out:
+            out[k] = diff_cfg[k]
+    return out
 
 
 def main(argv=None):
@@ -125,7 +145,10 @@ def main(argv=None):
         ori_max_pe_len=args.ori_max_pe_len,
         velocity_eval_every=args.velocity_eval_every,
         velocity_extrap_order=args.velocity_extrap_order,
-        guidance_low=args.guidance_low, guidance_high=args.guidance_high)
+        guidance_low=args.guidance_low, guidance_high=args.guidance_high,
+        sampler_mode=args.sampler_mode,
+        diffusion_config=(_diffusion_config(cfg['diffusion'])
+                          if args.sampler_mode != 'ode' else None))
     fn = build_sampler(model, scfg, vae)
     images = generate_fid_samples(
         fn, args.num_fid_samples, fn.batch_size, args.num_classes,

@@ -1,4 +1,4 @@
-"""CLI: FiTv2 flow-matching training with the PyTorch port, on one device.
+"""CLI: FiT training with the PyTorch port, on one device.
 
 Usage:
     python -m fitv2_tpu_torch.cli.train --cfgdir configs/fitv2_xl.yaml \
@@ -7,10 +7,12 @@ Usage:
 
 The flags are those of ``fitv2_tpu.cli.train`` plus ``--device`` (default
 ``cuda``). The YAML sections are the same: ``diffusion`` (the network and
-its transport), ``data.params.train`` (shards, target length, per-host
-batch) and ``accelerate`` (optimizer, schedule, checkpoints). ``--came``
-and a CAME optimizer target raise until CAME is ported; a ``learn_sigma``
-network (the ddpm objective) raises until slice 6.
+its transport, or FiTv1's ``diffusion_steps``), ``data.params.train``
+(shards, target length, per-host batch) and ``accelerate`` (optimizer,
+schedule, checkpoints). A ``learn_sigma`` network (FiTv1,
+configs/fit_xl.yaml) trains the improved-diffusion ``ddpm`` objective,
+any other the flow objective. ``--came`` and a CAME optimizer target
+raise until CAME is ported.
 """
 
 from __future__ import annotations
@@ -20,7 +22,7 @@ import logging
 
 
 def parse_args(argv=None):
-    p = argparse.ArgumentParser(description='FiTv2 training (PyTorch)')
+    p = argparse.ArgumentParser(description='FiT training (PyTorch)')
     p.add_argument('--cfgdir', nargs='+', required=True,
                    help='YAML config(s), merged left to right')
     p.add_argument('--output-dir', default=None)
@@ -85,6 +87,7 @@ def build_trainer(cfg, args):
         mesh_fsdp=int(acc.get('mesh_fsdp', 1)),
         mesh_tensor=int(acc.get('mesh_tensor', 1)),
         objective=objective,
+        diffusion_steps=int(diff.get('diffusion_steps', 1000)),
         device=args.device,
     )
     return Trainer(model, tc, transport=transport)

@@ -1,10 +1,10 @@
-"""Flow-matching transport: the training loss.
+"""Flow-matching transport: the training loss and the samplers' drift.
 
-Counterpart of fitv2_tpu/flow/transport.py's training side (its drift and
-score wrappers come with the ODE/SDE samplers, ROADMAP.md §1 item 19).
-``Transport`` is a frozen dataclass of static config;
-``training_losses(model_fn, x1, mask)`` takes the model as a
-``model_fn(xt, t) -> prediction`` closure. The draws of t and x0 come from
+Counterpart of fitv2_tpu/flow/transport.py. ``Transport`` is a frozen
+dataclass of static config; ``training_losses(model_fn, x1, mask)`` takes
+the model as a ``model_fn(xt, t) -> prediction`` closure, and
+``get_drift`` / ``get_score`` wrap such a closure for the ODE/SDE
+samplers (flow/samplers.py). The draws of t and x0 come from
 an explicit CPU ``torch.Generator`` (so they do not depend on the device),
 or are passed in: ``jax.random`` and torch streams never match, and the
 parity tests give both packages the same t and x0. The masked loss with
@@ -15,8 +15,10 @@ from __future__ import annotations
 
 import dataclasses
 import enum
+import math
 from typing import Callable, Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
 from fitv2_tpu_torch.flow import path as path_lib
@@ -165,6 +167,43 @@ class Transport:
                 err = (p32 * sigma_t + x0.float()) * mask_b
             loss = mean_flat(weight * err ** 2) * ratio
         return {'loss': loss, 'pred': pred, 't': t}
+
+    def get_drift(self) -> Callable:
+        """Probability-flow-ODE drift: (x, t, model_fn) -> dx/dt."""
+        plan = self.path_sampler
+
+        def score_ode(x, t, model_fn):
+            drift_mean, drift_var = plan.compute_drift(x, t)
+            return -drift_mean + drift_var * model_fn(x, t)
+
+        def noise_ode(x, t, model_fn):
+            drift_mean, drift_var = plan.compute_drift(x, t)
+            sigma_t, _ = plan.compute_sigma_t(expand_t_like_x(t, x))
+            return -drift_mean + drift_var * (model_fn(x, t) / -sigma_t)
+
+        def velocity_ode(x, t, model_fn):
+            return model_fn(x, t)
+
+        return {ModelType.NOISE: noise_ode, ModelType.SCORE: score_ode,
+                ModelType.VELOCITY: velocity_ode}[self.model_type]
+
+    def get_score(self) -> Callable:
+        """Score of x_t: (x, t, model_fn) -> grad log p_t(x)."""
+        plan = self.path_sampler
+        if self.model_type == ModelType.NOISE:
+            return lambda x, t, m: m(x, t) / -plan.compute_sigma_t(
+                expand_t_like_x(t, x))[0]
+        if self.model_type == ModelType.SCORE:
+            return lambda x, t, m: m(x, t)
+        return lambda x, t, m: plan.get_score_from_velocity(m(x, t), x, t)
+
+    def prior_logp(self, z: Tensor) -> Tensor:
+        """log N(z; 0, I) per sample, float32."""
+        n = math.prod(z.shape[1:])
+        # float32 arithmetic, as JAX's -n / 2 * jnp.log(2 pi)
+        const = np.float32(-n / 2.0) * np.log(np.float32(2 * math.pi))
+        z32 = z.float().reshape(z.shape[0], -1)
+        return float(const) - (z32 ** 2).sum(-1) / 2.0
 
 
 def create_transport(path_type: str = 'Linear', prediction: str = 'velocity',

@@ -261,13 +261,16 @@ def forward_with_cfg(model: FiT, x: Tensor, t: Tensor, y: Tensor,
                      grid: Tensor, mask: Optional[Tensor],
                      size: Optional[Tensor], cfg_scale: float,
                      scale_pow: float = 0.0,
-                     cfg_channels: Optional[int] = None) -> Tensor:
+                     cfg_channels: Optional[int] = None,
+                     rope: Optional[RopeTables] = None) -> Tensor:
     """Classifier-free-guidance forward on the doubled (2B) batch whose
     second half carries the null class; x's second half is replaced by the
     first. CFG mixes the first ``cfg_channels`` output channels only
-    (default 3 * p**2)."""
+    (default 3 * p**2); the others keep each half's own output. ``rope``
+    passes precomputed tables, as to ``FiT.forward``."""
     half = x[: x.shape[0] // 2]
-    out = model(torch.cat([half, half], dim=0), t, y, grid, mask, size)
+    out = model(torch.cat([half, half], dim=0), t, y, grid, mask, size,
+                rope=rope)
     c_cfg = cfg_channels if cfg_channels is not None \
         else 3 * model.patch_size * model.patch_size
     eps, rest = out[..., :c_cfg], out[..., c_cfg:]

@@ -1,26 +1,36 @@
-"""FiTv2 sampling pipeline: noise -> CFG Euler denoise -> VAE -> uint8.
+"""Sampling pipeline: noise -> denoise loop -> VAE -> uint8.
 
-Counterpart of the flow-matching path of fitv2_tpu/sample/pipeline.py: the
-CFG double-batch Euler loop over ``euler_ladder(steps)`` (one FiT
-forward on 2B per step, null class ``num_classes``, ``v = uncond +
-cfg_scale * (cond - uncond)`` over all channels), unpatchify, SD-VAE
-decode and the uint8 conversion. It runs eagerly on the model's device.
+Counterpart of fitv2_tpu/sample/pipeline.py. Two families of loops, each
+one eager Python loop on the model's device:
+  - FiTv2 ('ode'): the CFG double-batch Euler loop over
+    ``euler_ladder(steps)`` (one FiT forward on 2B per step, null class
+    ``num_classes``, ``v = uncond + cfg_scale * (cond - uncond)`` over all
+    channels);
+  - FiTv1 ('ddpm', 'ddim'): improved-diffusion ancestral or DDIM sampling
+    over the ladder respaced to ``num_sampling_steps``, the model called
+    with the respaced ladder's original integer timesteps through
+    ``forward_with_cfg`` on the whole 2B batch (CFG on the first 3 p^2
+    channels, the learned-variance channels from each half's own output),
+    or on the conditional batch alone when ``cfg_scale <= 1``; x0 is not
+    clipped, and the variance channels are dropped before decoding;
+then unpatchify, SD-VAE decode and the uint8 conversion.
 
-Training-free speed modes, composable with each other and with int8:
+Training-free speed modes of the Euler loop, composable with each other
+and with int8:
   - guidance interval: CFG only on steps whose t lies in [guidance_low,
     guidance_high]; the other steps run one conditional forward at batch B;
   - velocity extrapolation: the model runs on every ``velocity_eval_every``
     -th step only (flow/samplers.euler_sample_extrapolated); composed with
     an interval, extrapolation restarts at each phase boundary;
   - int8 W8A8 (``FiT(gemm_precision='int8')``): the sampler calibrates the
-    static activation scales and prequantizes the weights once.
+    static activation scales and prequantizes the weights once (any mode).
 
 RoPE resolution extrapolation: ``SamplingConfig.interpolation`` picks the
 frequency mode the bucket samples with (``apply_rope_interpolation``);
 the model's parameters are shared, only its RoPE config is replaced.
 
-Not ported yet: DDPM/DDIM (FiTv1 slice), data-parallel sampling
-(multi-device).
+Not ported yet: data-parallel sampling (multi-device) and the per-step
+trajectory dump.
 """
 
 from __future__ import annotations
@@ -29,7 +39,7 @@ import dataclasses
 import hashlib
 import json
 import os
-from typing import Callable, Dict, Optional
+from typing import Any, Callable, Dict, Optional
 
 import numpy as np
 import torch
@@ -38,9 +48,11 @@ from fitv2_tpu_torch.flow.samplers import (
     cfg_model_fn, euler_ladder, euler_sample, euler_sample_extrapolated)
 from fitv2_tpu_torch.kernels.quant import (
     calibrate_quant_scales, load_quant_state, prequantize_weights)
+from fitv2_tpu_torch.models.fit import forward_with_cfg
 from fitv2_tpu_torch.models.grid_utils import (
     make_grid_mask_size, pixels_to_tokens)
 from fitv2_tpu_torch.models.rope import RopeConfig
+from fitv2_tpu_torch.sched.gaussian_diffusion import create_diffusion
 from fitv2_tpu_torch.vae.autoencoder_kl import images_to_uint8
 
 Tensor = torch.Tensor
@@ -86,6 +98,13 @@ class SamplingConfig:
     # steps run one conditional forward at batch B. (0, 1) = CFG throughout
     guidance_low: float = 0.0
     guidance_high: float = 1.0
+    # 'ode' (FiTv2 flow-matching Euler) or 'ddpm' / 'ddim' (FiTv1
+    # improved diffusion, num_sampling_steps the respacing)
+    sampler_mode: str = 'ode'
+    # create_diffusion's kwargs for 'ddpm' / 'ddim' (noise_schedule,
+    # diffusion_steps, learn_sigma, ...); timestep_respacing is always
+    # str(num_sampling_steps)
+    diffusion_config: Optional[Dict[str, Any]] = None
 
 
 def _float64_ladder(steps: int) -> np.ndarray:
@@ -136,13 +155,18 @@ def build_sampler(model, cfg: SamplingConfig, vae=None,
                   quant_collections: Optional[Dict[str, Tensor]] = None,
                   context_size: Optional[int] = None
                   ) -> Callable[..., Tensor]:
-    """Returns ``sample_fn(labels, generator=None, z=None)``.
+    """Returns ``sample_fn(labels, generator=None, z=None,
+    step_noise=None)``.
 
     labels: (B,) integer class ids. The noise is ``z`` (B, n_ctx, p**2*C)
     float32 when given, else drawn with ``torch.randn`` from ``generator``
     (a CPU ``torch.Generator``, so a seed gives the same noise on any
-    device). Returns uint8 (B, H, W, 3) images with a VAE, else latents
-    (B, C, H/8, W/8) float32, on the model's device.
+    device). The 'ddpm' loop (and 'ddim' at eta > 0) also takes a fresh
+    normal draw a step: ``step_noise`` (steps, B', n_ctx, p**2*C), with B'
+    = 2B under CFG, whose loop state is the doubled batch, else one draw
+    of that shape from ``generator`` after z. Returns uint8 (B, H, W, 3)
+    images with a VAE, else latents (B, C, H/8, W/8) float32, on the
+    model's device.
 
     An int8 model (``gemm_precision='int8'``) is quantized in place here:
     with ``quant_collections`` (``Int8Linear`` buffers by name, e.g. from
@@ -157,9 +181,25 @@ def build_sampler(model, cfg: SamplingConfig, vae=None,
     own (a bucket larger than the training context; the weights are
     shared, as JAX's ``model.clone(context_size=...)`` shares its params).
     """
-    if model.learn_sigma:
-        raise ValueError('flow-matching Euler sampling needs a velocity '
-                         'model (learn_sigma=False)')
+    use_interval = (cfg.guidance_low, cfg.guidance_high) != (0.0, 1.0)
+    diffusion = None
+    if cfg.sampler_mode in ('ddpm', 'ddim'):
+        if cfg.velocity_eval_every > 1 or use_interval:
+            raise ValueError('sampler_mode ddpm/ddim composes with neither '
+                             'velocity_eval_every nor guidance_low/high '
+                             '(flow-ladder features)')
+        dc = dict(cfg.diffusion_config or {})
+        dc.pop('timestep_respacing', None)
+        diffusion = create_diffusion(
+            timestep_respacing=str(cfg.num_sampling_steps), **dc)
+    elif cfg.sampler_mode != 'ode':
+        raise ValueError(f"sampler_mode must be 'ode', 'ddpm' or 'ddim', "
+                         f'got {cfg.sampler_mode!r}')
+    elif model.learn_sigma:
+        raise ValueError("sampler_mode='ode' (flow-matching Euler) needs a "
+                         'velocity model (learn_sigma=False); a '
+                         "learned-sigma FiTv1 model samples with 'ddpm' or "
+                         "'ddim'")
     if cfg.velocity_extrap_order not in (1, 2):
         raise ValueError(f'velocity_extrap_order must be 1 or 2, got '
                          f'{cfg.velocity_extrap_order}')
@@ -191,7 +231,6 @@ def build_sampler(model, cfg: SamplingConfig, vae=None,
     y_null = torch.full((B,), cfg.num_classes, dtype=torch.int64,
                         device=device)
     steps = cfg.num_sampling_steps
-    use_interval = (cfg.guidance_low, cfg.guidance_high) != (0.0, 1.0)
     # JAX's ladders: jnp.linspace, except for the guidance interval's
     # every-step scan, which runs on the float64 ladder rounded to float32
     if use_interval and cfg.velocity_eval_every == 1:
@@ -199,7 +238,7 @@ def build_sampler(model, cfg: SamplingConfig, vae=None,
     else:
         sigmas = euler_ladder(steps)
     i0, i1 = guidance_phases(cfg) if use_interval else (0, steps)
-    if use_interval:
+    if use_interval or (diffusion is not None and cfg.cfg_scale <= 1.0):
         grid_c, mask_c, size_c, rope_c = bucket_inputs(B)
 
     if quant_collections is not None:
@@ -223,9 +262,33 @@ def build_sampler(model, cfg: SamplingConfig, vae=None,
         images = vae.decode(latents.to(cfg.dtype) / cfg.vae_scale)
         return images_to_uint8(images)
 
+    def diffusion_loop(z: Tensor, labels: Tensor, y: Tensor,
+                       generator: Optional[torch.Generator],
+                       step_noise: Optional[Tensor]) -> Tensor:
+        """FiTv1: the ddpm or ddim loop over the respaced ladder from z;
+        returns the conditional half of the final state."""
+        if cfg.cfg_scale > 1.0:
+            def model_fn(x: Tensor, t: Tensor) -> Tensor:
+                return forward_with_cfg(
+                    model, x.to(cfg.dtype), t.float(), y, grid, mask, size,
+                    cfg.cfg_scale, rope=rope).float()
+            noise = torch.cat([z, z], dim=0)
+        else:
+            def model_fn(x: Tensor, t: Tensor) -> Tensor:
+                return model(x.to(cfg.dtype), t.float(), labels, grid_c,
+                             mask_c, size_c, rope=rope_c).float()
+            noise = z
+        loop = (diffusion.p_sample_loop if cfg.sampler_mode == 'ddpm'
+                else diffusion.ddim_sample_loop)
+        out = loop(model_fn, tuple(noise.shape), noise=noise,
+                   clip_denoised=False, step_noise=step_noise,
+                   generator=generator)
+        return out[:B]
+
     @torch.no_grad()
     def sample_fn(labels: Tensor, generator: Optional[torch.Generator] = None,
-                  z: Optional[Tensor] = None) -> Tensor:
+                  z: Optional[Tensor] = None,
+                  step_noise: Optional[Tensor] = None) -> Tensor:
         if labels.shape != (B,):
             raise ValueError(f'labels must be ({B},), got {tuple(labels.shape)}')
         if z is None:
@@ -237,6 +300,10 @@ def build_sampler(model, cfg: SamplingConfig, vae=None,
         z = z.to(device=device, dtype=torch.float32)
         labels = labels.to(device=device, dtype=torch.int64)
         y = torch.cat([labels, y_null])
+        if diffusion is not None:
+            return decode(diffusion_loop(z, labels, y, generator, step_noise))
+        if step_noise is not None:
+            raise ValueError("step_noise is for sampler_mode 'ddpm' / 'ddim'")
 
         drift = cfg_model_fn(
             lambda x2, t2: model(x2.to(cfg.dtype), t2, y, grid, mask, size,

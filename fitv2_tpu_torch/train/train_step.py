@@ -1,4 +1,4 @@
-"""FiTv2 train step: flow loss, gradients, clipping, AdamW, EMA.
+"""The train step: loss, gradients, clipping, AdamW, EMA.
 
 Counterpart of fitv2_tpu/train/train_step.py, whose optimizer is optax's
 ``chain(clip_by_global_norm, adamw)``, wrapped in ``MultiSteps`` when
@@ -14,6 +14,10 @@ gradients accumulate. The port's pieces follow optax's arithmetic:
   micro-gradients, clipped and applied on the k-th; the optimizer's count
   advances only then;
 - ``update_ema`` runs after every micro-step, as in JAX.
+
+``make_step`` takes the loss as a function: the flow loss here
+(``make_train_step``), the improved-diffusion loss in
+train/ddpm_train_step.py.
 
 Mixed precision: the trainer keeps fp32 master parameters (``TrainState``)
 and runs a compute-dtype copy of the model, whose gradients are copied
@@ -34,6 +38,8 @@ from fitv2_tpu_torch.flow.transport import Transport
 
 Tensor = torch.Tensor
 Schedule = Callable[[int], float]
+# (model, batch, generator, draws) -> (mean loss, extra metrics)
+LossFn = Callable[..., Tuple[Tensor, Dict[str, Tensor]]]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -305,17 +311,18 @@ def flow_loss(model: nn.Module, transport: Transport,
     return out['loss'].mean(), out
 
 
-def make_train_step(model: nn.Module, transport: Transport,
-                    max_grad_norm: float = 1.0, ema_decay: float = 0.9999
-                    ) -> Callable[..., Tuple[TrainState, Dict[str, Tensor]]]:
-    """The train step of ``model`` (the compute-dtype FiT):
+def make_step(model: nn.Module, loss_fn: LossFn, max_grad_norm: float = 1.0,
+              ema_decay: float = 0.9999
+              ) -> Callable[..., Tuple[TrainState, Dict[str, Tensor]]]:
+    """The train step of ``model`` (the compute-dtype FiT) under
+    ``loss_fn(model, batch, generator, draws) -> (loss, metrics)``:
     ``train_step(state, batch, generator=None, draws=None) -> (state,
     metrics)``. It updates ``state`` in place: masters -> model, loss and
     backward, gradients -> fp32 masters, accumulation, clipping, AdamW,
-    EMA. metrics: ``loss`` and ``grad_norm`` (of this micro-step's
-    gradient), 0-d tensors on the device. A parameter that the backward
-    leaves without a gradient raises: every parameter of the FiT is used,
-    so a missing one means a detached output upstream of it."""
+    EMA. metrics: the loss function's, ``loss`` and ``grad_norm`` (of this
+    micro-step's gradient), tensors on the device. A parameter that the
+    backward leaves without a gradient raises: every parameter of the FiT
+    is used, so a missing one means a detached output upstream of it."""
     names, model_params = zip(*model.named_parameters())
 
     def train_step(state: TrainState, batch: Dict[str, Tensor],
@@ -329,7 +336,7 @@ def make_train_step(model: nn.Module, transport: Transport,
                     copies, [m for p, m in zip(model_params, masters)
                              if p is not m])
         model.zero_grad(set_to_none=True)
-        loss, _ = flow_loss(model, transport, batch, generator, draws)
+        loss, metrics = loss_fn(model, batch, generator, draws)
         loss.backward()
         missing = [n for n, p in zip(names, model_params) if p.grad is None]
         if missing:
@@ -352,6 +359,17 @@ def make_train_step(model: nn.Module, transport: Transport,
                 m.grad = None
         update_ema(state.ema_params, state.params, ema_decay)
         state.step += 1
-        return state, {'loss': loss.detach(), 'grad_norm': norm}
+        return state, dict(metrics, loss=loss.detach(), grad_norm=norm)
 
     return train_step
+
+
+def make_train_step(model: nn.Module, transport: Transport,
+                    max_grad_norm: float = 1.0, ema_decay: float = 0.9999
+                    ) -> Callable[..., Tuple[TrainState, Dict[str, Tensor]]]:
+    """The flow-matching train step (``make_step`` over ``flow_loss``);
+    metrics: ``loss`` and ``grad_norm``."""
+    def loss_fn(model, batch, generator, draws):
+        loss, _ = flow_loss(model, transport, batch, generator, draws)
+        return loss, {}
+    return make_step(model, loss_fn, max_grad_norm, ema_decay)

@@ -1,19 +1,20 @@
-"""Config-driven FiTv2 training loop on one device.
+"""Config-driven FiT training loop on one device.
 
 Counterpart of fitv2_tpu/train/trainer.py: the resumable data stream, the
-train step (bf16 compute over fp32 master parameters, AdamW, EMA),
-rotating checkpoints, metric logging and the preemption guard, in one
-loop. Where the JAX trainer builds a mesh, the port runs on one device,
-``cuda`` unless the config asks for the CPU; the mesh, pipeline and FSDP
-options and the ddpm objective raise.
+train step (bf16 compute over fp32 master parameters, AdamW, EMA) of the
+FiTv2 flow objective or the FiTv1 ``ddpm`` objective (improved diffusion
+over ``diffusion_steps``), rotating checkpoints, metric logging and the
+preemption guard, in one loop. Where the JAX trainer builds a mesh, the
+port runs on one device, ``cuda`` unless the config asks for the CPU; the
+mesh, pipeline and FSDP options raise.
 
 Differences from the JAX trainer, by design:
 - the initial parameters are the given model's own (the port initialises
   a FiT when it is built), and that model, in fp32, holds the master
   parameters; with ``mixed_precision='bf16'`` a bf16 copy computes;
-- each micro-step's draws (t, x0, label drops) come from a CPU generator
-  seeded from (seed, step), so a resumed run replays the uninterrupted
-  run's draws;
+- each micro-step's draws (t, x0 or the noise, label drops) come from a
+  CPU generator seeded from (seed, step), so a resumed run replays the
+  uninterrupted run's draws;
 - a checkpoint that cannot be read raises; JAX starts afresh silently.
 """
 
@@ -34,6 +35,8 @@ from fitv2_tpu_torch.ckpt.checkpoint import (
     CheckpointManager, latest_checkpoint_step)
 from fitv2_tpu_torch.data.latent_dataset import INLatentLoader
 from fitv2_tpu_torch.flow.transport import Transport, create_transport
+from fitv2_tpu_torch.sched.gaussian_diffusion import create_diffusion
+from fitv2_tpu_torch.train.ddpm_train_step import make_ddpm_train_step
 from fitv2_tpu_torch.train.lr_scheduler import get_scheduler
 from fitv2_tpu_torch.train.preemption import PreemptionGuard
 from fitv2_tpu_torch.train.train_step import (
@@ -68,7 +71,10 @@ class TrainerConfig:
     mu_dtype: Optional[str] = 'bfloat16'
     ema_decay: float = 0.9999
     seed: int = 42
-    objective: str = 'flow'  # the ddpm objective is not ported
+    # 'flow' (FiTv2) or 'ddpm' (FiTv1: improved diffusion, learned-range
+    # variance for a learn_sigma model)
+    objective: str = 'flow'
+    diffusion_steps: int = 1000
     # transport
     path_type: str = 'Linear'
     prediction: str = 'velocity'
@@ -97,10 +103,8 @@ def _refuse_unported(cfg: TrainerConfig) -> None:
         raise NotImplementedError(
             'the port trains on one device: mesh, pipeline and FSDP '
             'options are not ported (ROADMAP.md §1, slice 9)')
-    if cfg.objective != 'flow':
-        raise NotImplementedError(
-            f'objective {cfg.objective!r} is not ported (ROADMAP.md §1, '
-            'slice 6); the port trains the flow objective')
+    if cfg.objective not in ('flow', 'ddpm'):
+        raise ValueError(f"objective={cfg.objective!r}: 'flow' or 'ddpm'")
     if cfg.mixed_precision not in _DTYPES:
         raise ValueError(f'mixed_precision={cfg.mixed_precision!r}: one of '
                          f'{sorted(_DTYPES)}')
@@ -154,9 +158,17 @@ class Trainer:
                 config.lr_schedule, lr,
                 num_warmup_steps=config.lr_warmup_steps,
                 num_training_steps=config.max_steps))
-        self._train_step = make_train_step(
-            self.model, self.transport, config.max_grad_norm,
-            config.ema_decay)
+        if config.objective == 'ddpm':
+            self.diffusion = create_diffusion(
+                timestep_respacing='', diffusion_steps=config.diffusion_steps,
+                learn_sigma=model.learn_sigma)
+            self._train_step = make_ddpm_train_step(
+                self.model, self.diffusion, config.max_grad_norm,
+                config.ema_decay)
+        else:
+            self._train_step = make_train_step(
+                self.model, self.transport, config.max_grad_norm,
+                config.ema_decay)
 
     def init_state(self) -> TrainState:
         """A fresh state from the master model's current parameters."""
@@ -207,7 +219,9 @@ class Trainer:
                 _, metrics = run_one(batch_np)
                 step += 1
                 if step % cfg.log_every == 0:
-                    m = {k: float(v) for k, v in metrics.items()}
+                    # vector metrics (ddpm's per_t_loss and t) stay out
+                    m = {k: float(v) for k, v in metrics.items()
+                         if v.dim() == 0}
                     m['steps_per_sec'] = cfg.log_every / max(
                         time.time() - t0, 1e-9)
                     t0 = time.time()

@@ -847,3 +847,133 @@ def test_xl_width_fit_gives_every_parameter_a_gradient(dev):
         assert ref.norm() > 0, name
         rel = ((g.cpu() - ref).norm() / ref.norm()).item()
         assert rel <= 1e-4, (name, rel)
+
+
+# -- FiTv1 (slice 6): K2 RoPE-only and K3 on a model path ---------------------
+
+V1 = dict(context_size=16, patch_size=2, in_channels=4, hidden_size=144,
+          depth=2, num_heads=2, learn_sigma=True, use_swiglu=True,
+          use_swiglu_large=True, adaln_type='normal', num_classes=10,
+          max_cached_len=16)
+
+
+def _small_fitv1():
+    """configs/fit_xl.yaml's structure (learn_sigma, no q/k norm, adaLN
+    'normal', SwiGLU-large) at V1's size, zero-init leaves perturbed."""
+    from fitv2_tpu_torch.models import FiT
+    torch.manual_seed(0)
+    model = FiT(**V1)
+    g = torch.Generator().manual_seed(1)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if 'adaLN_modulation.fc_out' in name or 'final_layer.linear' in name:
+                p.add_(0.05 * torch.randn(p.shape, generator=g))
+    return model.eval()
+
+
+def _launched(before):
+    return [w.launches - c for w, c in zip(K.KERNEL_WRAPPERS, before)]
+
+
+@pytest.mark.parametrize('n_h,n_w', [(4, 4), (3, 4)], ids=['full', 'padded'])
+def test_fitv1_forward_cuda_matches_cpu(dev, n_h, n_w):
+    """fp32, FiTv1: K2 in its RoPE-only mode and K3 (online softmax) in
+    every block, K4 never; relative L2 within 1e-5 of the CPU."""
+    from fitv2_tpu_torch.models.grid_utils import make_grid_mask_size
+    model = _small_fitv1()
+    b = 2
+    g = torch.Generator().manual_seed(2)
+    x = torch.randn(b, 16, 16, generator=g)
+    t = torch.tensor([0.0, 1.0])  # FiTv1's clamped timesteps
+    y = torch.tensor([3, 10])
+    grid, mask, size = make_grid_mask_size(b, n_h, n_w, 16)
+    mask = None if n_h * n_w == 16 else mask
+    args = (x, t, y, grid, mask, size)
+    with torch.no_grad():
+        want = model(*args)
+        counts = [w.launches for w in K.KERNEL_WRAPPERS]
+        bounded = K.flash_masked_attention.bounded_launches
+        got = model.to(dev)(*(None if a is None else a.to(dev)
+                              for a in args)).cpu()
+    depth = V1['depth']
+    assert _launched(counts) == [2 * depth + 1, depth, depth, 0, 0, 0]
+    assert K.flash_masked_attention.bounded_launches == bounded
+    assert got.shape == (b, 16, 32) and want.abs().max() > 0
+    rel = ((got - want).norm() / want.norm()).item()
+    assert rel <= 1e-5, rel
+
+
+@pytest.mark.parametrize('mode', ['ddpm', 'ddim'])
+def test_fitv1_diffusion_loop_cuda_matches_cpu(dev, mode):
+    """10 respaced steps, CFG 1.5, fp32, the same seeded CPU generator on
+    both devices (so the same z and per-step noise): relative L2 within
+    1e-4 of the CPU, and every forward launches K1-K3."""
+    from fitv2_tpu_torch.sample import SamplingConfig, build_sampler
+    steps, b = 10, 2
+    cfg = SamplingConfig(image_height=64, image_width=64,
+                         num_sampling_steps=steps, num_classes=10,
+                         per_device_batch=b, dtype=torch.float32,
+                         sampler_mode=mode,
+                         diffusion_config=dict(learn_sigma=True))
+    model = _small_fitv1()
+    labels = torch.tensor([1, 7])
+    want = build_sampler(model, cfg)(
+        labels, generator=torch.Generator().manual_seed(4))
+    fn = build_sampler(model.to(dev), cfg)
+    counts = [w.launches for w in K.KERNEL_WRAPPERS]
+    got = fn(labels, generator=torch.Generator().manual_seed(4)).cpu()
+    depth = V1['depth']
+    assert _launched(counts) == [steps * (2 * depth + 1), steps * depth,
+                                 steps * depth, 0, 0, 0]
+    assert torch.isfinite(got).all() and got.shape == (b, 4, 8, 8)
+    rel = ((got - want).norm() / want.norm()).item()
+    assert rel <= 1e-4, rel
+
+
+@pytest.mark.parametrize('dtype', DTYPES, ids=['fp32', 'bf16'])
+def test_k3_function_gradients_in_a_fitv1_block(dev, dtype):
+    """One FiTv1 block at XL width (1152, 16 heads of 72; K2 RoPE-only, K3
+    with 200 of 256 keys valid) forward and backward on CUDA against the
+    same block on the CPU: the input's and every parameter's gradient
+    within 1e-4 relative L2 in fp32, 3e-2 in bf16 (the plain versions'
+    autograd rounds its bf16 intermediates)."""
+    import copy
+    from fitv2_tpu_torch.models import FiT
+    from fitv2_tpu_torch.models.grid_utils import make_grid_mask_size
+    torch.manual_seed(0)
+    model = FiT(context_size=256, hidden_size=1152, depth=1, num_heads=16,
+                learn_sigma=True, use_swiglu=True, use_swiglu_large=True,
+                adaln_type='normal')
+    g = torch.Generator().manual_seed(1)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if 'adaLN_modulation.fc_out' in name:
+                p.add_(0.02 * torch.randn(p.shape, generator=g))
+    grid, mask, size = make_grid_mask_size(2, 10, 20, 256)
+    cos, sin = model.rope(grid, size)
+    x = torch.randn(2, 256, 1152, generator=g)
+    c = torch.randn(2, 1152, generator=g)
+    cot = torch.randn(2, 256, 1152, generator=g)
+    results = []
+    for device in ('cpu', dev):
+        block = copy.deepcopy(model.blocks[0]).to(device=device, dtype=dtype)
+        xi = x.to(device=device, dtype=dtype, copy=True).requires_grad_(True)
+        counts = [w.launches for w in K.KERNEL_WRAPPERS]
+        bounded = K.flash_masked_attention.bounded_launches
+        out = block(xi, c.to(device, dtype), mask.to(device),
+                    cos.to(device), sin.to(device), 0.0)
+        out.backward(cot.to(device, dtype))
+        if device == dev:
+            assert _launched(counts) == [2, 1, 1, 0, 0, 0]
+            assert K.flash_masked_attention.bounded_launches == bounded
+        results.append([xi.grad] + [p.grad for p in block.parameters()])
+    tol = 1e-4 if dtype == torch.float32 else TOL_GRAD_BF16
+    worst = 0.0
+    for ref, ours in zip(*results):
+        assert ours is not None and torch.isfinite(ours).all()
+        rel = ((ours.cpu().float() - ref.float()).norm()
+               / ref.float().norm()).item()
+        assert rel <= tol, rel
+        worst = max(worst, rel)
+    print(f'FiTv1 block gradients {dtype}: worst relative L2 {worst:.3e} '
+          f'<= {tol}')

@@ -328,8 +328,8 @@ def test_cli_samples_to_npz_on_cpu(models, tmp_path):
 
 
 @pytest.mark.parametrize('flags,slice_name', [
-    (['--sampler-mode', 'ddim'], 'slice 6'),
     (['--data-parallel'], 'slice 9'),
+    (['--sampler-mode', 'ddim', '--data-parallel'], 'slice 9'),
 ])
 def test_cli_refuses_flags_of_later_slices(flags, slice_name):
     with pytest.raises(NotImplementedError, match=slice_name):

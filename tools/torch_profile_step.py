@@ -4,8 +4,8 @@ port goes, on one H100.
 
 Run from the repository root on a machine with the card:
 
-    python3 tools/torch_profile_step.py [--path bf16|int8|fused|hr|train]
-        [--tree DIR]
+    python3 tools/torch_profile_step.py
+        [--path bf16|int8|fused|hr|fitv1|train] [--steps N] [--tree DIR]
 
 Builds chip_smoke.py's FiTv2-XL/2 (random weights from its seed, the
 zero-init leaves perturbed) in bf16 on the card (``--path int8``: the int8
@@ -13,12 +13,15 @@ W8A8 model on the same weights, calibrated by the sampler; ``--path
 fused``: ``attn_impl='fused'`` on chip_smoke.py's padded 160x320 bucket,
 200 of 256 tokens valid; ``--path hr``: the same weights as FiTv2-HR-XL/2,
 online decoupled NTK RoPE, at 512x512 (1024 tokens) and chip_smoke.py's HR
-batch), at chip_smoke.py's batch and CFG scale (256x256 unless fused or
-hr), warms the sampler up, then measures:
+batch; ``--path fitv1``: chip_smoke.py's FiTv1-XL/2 of configs/fit_xl.yaml
+(depth 28, learn_sigma, no q/k norm: K2 RoPE-only, K3) sampling with the
+DDPM loop over ``--steps`` respaced steps), at chip_smoke.py's batch and CFG
+scale (256x256 unless fused or hr), warms the sampler up, then measures:
 
-- wall ms per step: three unprofiled STEPS-step sampler calls, each ended
-  by ``torch.cuda.synchronize()`` (the rate, images/s, comes from these);
-- from ``torch.profiler`` over one more STEPS-step call, recording the
+- wall ms per step: three unprofiled sampler calls of ``--steps`` steps
+  (default STEPS), each ended by ``torch.cuda.synchronize()`` (the rate,
+  images/s, comes from these);
+- from ``torch.profiler`` over one more such call, recording the
   device's activity only: the device busy ms per step (the union of the
   kernels' and copies' intervals), the wall ms per step of that profiled
   window itself and the idle share, 1 - busy / that wall (both from one
@@ -127,7 +130,7 @@ def wall_ms(fn, steps):
     return walls
 
 
-def train_profile(chip_smoke):
+def train_profile(chip_smoke, steps):
     """The --path train measurements (see the module docstring)."""
     import copy
     import tempfile
@@ -170,12 +173,12 @@ def train_profile(chip_smoke):
     for _ in range(2):
         step()  # warm-up: cuBLAS plans, the kernel library, the allocator
     torch.cuda.synchronize()
-    walls = wall_ms(step, STEPS)
-    busy, window, launches, groups = profile(step, STEPS)
-    fwd_busy, _, fwd_launches, fwd_groups = profile(forward, STEPS)
+    walls = wall_ms(step, steps)
+    busy, window, launches, groups = profile(step, steps)
+    fwd_busy, _, fwd_launches, fwd_groups = profile(forward, steps)
     for p in state.params.values():  # grads of the right shape for update()
         p.grad = torch.zeros_like(p)
-    upd_busy, _, upd_launches, _ = profile(update, STEPS)
+    upd_busy, _, upd_launches, _ = profile(update, steps)
     return {
         'batch': batch_size, 'tokens': n,
         'valid_tokens': float(batch_np['mask'].sum()),
@@ -194,7 +197,10 @@ def train_profile(chip_smoke):
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     ap.add_argument('--path', choices=('bf16', 'int8', 'fused', 'hr',
-                                       'train'), default='bf16')
+                                       'fitv1', 'train'), default='bf16')
+    ap.add_argument('--steps', type=int, default=STEPS,
+                    help='sampler steps a call (the train path: steps '
+                         'timed)')
     ap.add_argument('--tree', default=ROOT)
     args = ap.parse_args()
     sys.path.insert(0, ROOT)
@@ -209,12 +215,20 @@ def main() -> None:
         print(json.dumps({
             'path': args.path, 'tree': os.path.abspath(args.tree),
             'package': os.path.dirname(fitv2_tpu_torch.__file__),
-            'card': card, 'steps': STEPS, **train_profile(chip_smoke)}),
+            'card': card, 'steps': args.steps,
+            **train_profile(chip_smoke, args.steps)}),
             flush=True)
         return
+    extra = {}
     if args.path == 'hr':
         model = chip_smoke.hr_model_bf16()
         hw, batch, n_ctx = (512, 512), chip_smoke.HR_BATCH, chip_smoke.HR_N
+        extra = {'interpolation': 'keep'}
+    elif args.path == 'fitv1':
+        model = chip_smoke._v1_model_fp32().to('cuda', torch.bfloat16)
+        hw, batch, n_ctx = (256, 256), chip_smoke.BATCH, 256
+        extra = {'sampler_mode': 'ddpm',
+                 'diffusion_config': chip_smoke._v1_diffusion_config()}
     else:
         options = {'bf16': {}, 'int8': dict(gemm_precision='int8'),
                    'fused': dict(attn_impl='fused')}[args.path]
@@ -225,27 +239,30 @@ def main() -> None:
     z = torch.randn(batch, n_ctx, 16, generator=torch.Generator().manual_seed(
         chip_smoke.SEED + 3))
     scfg = SamplingConfig(image_height=hw[0], image_width=hw[1],
-                          num_sampling_steps=STEPS,
+                          num_sampling_steps=args.steps,
                           cfg_scale=chip_smoke.CFG_SCALE,
                           per_device_batch=batch, dtype=torch.bfloat16,
-                          **({'interpolation': 'keep'} if args.path == 'hr'
-                             else {}))
+                          **extra)
     sample = build_sampler(model, scfg)  # int8: calibrates here
-    sample(labels, z=z)  # warm-up
+
+    def call():  # fitv1's DDPM draws its per-step noise from the generator
+        sample(labels, z=z, generator=torch.Generator().manual_seed(1))
+    call()  # warm-up
     torch.cuda.synchronize()
-    walls = [w / STEPS for w in wall_ms(lambda: sample(labels, z=z), 1)]
-    busy, window, launches, groups = profile(lambda: sample(labels, z=z), 1)
-    busy, window, launches = busy / STEPS, window / STEPS, launches / STEPS
+    steps = args.steps
+    walls = [w / steps for w in wall_ms(call, 1)]
+    busy, window, launches, groups = profile(call, 1)
+    busy, window, launches = busy / steps, window / steps, launches / steps
     print(json.dumps({
         'path': args.path, 'tree': os.path.abspath(args.tree),
         'package': os.path.dirname(fitv2_tpu_torch.__file__),
-        'card': card, 'steps': STEPS,
+        'card': card, 'steps': steps,
         'wall_ms_per_step': walls,
         'device_busy_ms_per_step': busy,
         'profiled_wall_ms_per_step': window,
         'idle_share': 1 - busy / window,
         'launches_per_step': launches,
-        'groups_ms_per_step': {g: [ms / STEPS, k / STEPS]
+        'groups_ms_per_step': {g: [ms / steps, k / steps]
                                for g, (ms, k) in groups.items()},
     }), flush=True)
 
