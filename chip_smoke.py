@@ -111,6 +111,34 @@ Phases (any failure raises and exits non-zero; nothing is caught):
                 finite losses, the first mse near 1 (an untrained FiT
                 outputs 0), exact launch counts a step, ms a step, peak
                 memory, and the resumed run bit-identical.
+ 13. lwd      - the LwD family, seeded weights with every adaLN output
+                layer and final projection perturbed: (a) one segment's
+                forward_run_layer in fp32 (batch 2, the middle segment),
+                CUDA vs CPU, the velocity and the REPA projection within
+                1e-4 relative L2, for configs/fitv2_xl_lwd.yaml (FiTLwD-XL:
+                K 12 segments of 3 blocks, 12 REPA blocks) and
+                configs/bfm_xl.yaml (BFM-XL: a 20-block shared encoder, K 6
+                decoders of 5 blocks, RMSNorm q/k, 1.24 B parameters); each
+                model's weights then written as a port checkpoint
+                (checkpoint-0/train_state.pt, ema_params) and sampled in
+                bf16 at batch 8 (a merged YAML sets dtype: bfloat16) through
+                cli/sample_lwd.main with phase 5's random VAE decoder, to a
+                256x256 uint8 npz, with exact launch counts: (b) FiTLwD-XL
+                sample_cfg, CFG 1.4, 21 sub-steps a segment (a CFG eval: K1
+                7, K2 3, K4 3); (c) BFM-XL sample_maruyama_cfg with
+                --self-guidance, CFG 1.4 for t in GUIDANCE, 42 sub-steps a
+                segment (an eval: K1 40 in the encoder, the decoders' and
+                final layer's conditioning per token; K3 25; K2 and K4 0);
+                (d) FiTLwD-XL's sample_multiscale (N 16 -> 64 -> 256, no
+                CFG, 21 sub-steps), then K1, K2 and K4 at each of its grids,
+                N 16, 64 and 256 (batch 8), BFM's K1 (D 384) and K2 + K4
+                (Dh 64) and BFM-XL's K3 on RMSNorm'd q/k against their
+                plain versions at phase 3's gates, bf16 and fp32, with
+                times and bounds. Each path's denoise rate is the library
+                sampler's (the median of V1_RATE_CALLS calls); the CLI
+                samples V1_RATE_CALLS batches, and the full-pipeline rate
+                is the median of its batches (denoise, VAE, uint8, the copy
+                to the host), beside the call's total with the npz.
 The deterministic trainer runs of 11 (c) and 12 (d) run in child processes
 of this script (`--child NAME DIR`) with CUBLAS_WORKSPACE_CONFIG=:4096:8,
 which deterministic algorithms require and which cuBLAS reads once when it
@@ -119,8 +147,9 @@ starts: set for the whole process, it made every sampler step's host side
 Each path's counts are set to 0 just before it runs and read just after.
 The line before the last is the JSON list of kernels (K1-K5 with their
 Functions' forward and backward times and gradient errors; K2's RoPE-only
-case; each path's launches, K3's apart where K4 was counted); the last line
-is {"ok": true, "device": {...}}.
+case; each path's launches, K3's apart where K4 was counted; phase 13's
+cases with their `path`); each phase group prints its seconds ([time]);
+the last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -133,6 +162,7 @@ import json
 import math
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -215,10 +245,26 @@ V1_PARITY_INDEX = STEPS // 2
 V1_TRAIN_STEPS, V1_TRAIN_RESUME = 10, 6
 V1_FIRST_MSE = (0.9, 1.1)
 V1_RATE_CALLS = 3  # timed 250-step denoise calls a mode (the host's spread)
+# phase 13 (the LwD family): FiTLwD-XL (K 12 segments of 3 blocks) and
+# BFM-XL (a 20-block shared encoder, K 6 decoders of 5 blocks); sub-steps a
+# segment such that each path makes 252 velocity evals, the main path's 250
+# steps rounded up to a multiple of K; cli/sample_lwd's default CFG scale
+LWD_CONFIG = 'configs/fitv2_xl_lwd.yaml'
+BFM_XL_CONFIG = 'configs/bfm_xl.yaml'
+LWD_STEPS_PER_FLOW, BFM_STEPS_PER_FLOW = 21, 42
+LWD_CFG_SCALE = 1.4
 
 
 def say(*args):
     print(*args, flush=True)
+
+
+@contextlib.contextmanager
+def _clock(label):
+    """Prints the seconds the block took."""
+    t0 = time.perf_counter()
+    yield
+    say(f'[time] {label}: {time.perf_counter() - t0:.1f} s')
 
 
 def phase_device():
@@ -1943,6 +1989,323 @@ def phase_fitv1_train(card, out_dir):
                 peak_bytes=peak, first_mse=mses[0], losses=losses)
 
 
+def _lwd_model_fp32(config):
+    """`config`'s network (the LwD family) on the CPU in fp32, seeded init,
+    every adaLN output layer and final projection perturbed (untrained, its
+    velocity is exactly 0 and parity would be vacuous)."""
+    import torch
+    from fitv2_tpu_torch.utils import config_to_model, load_config
+    torch.manual_seed(SEED + 13)
+    model = config_to_model(load_config([config])['diffusion'][
+        'network_config'])
+    gen = torch.Generator().manual_seed(SEED + 14)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if 'adaLN_modulation.fc_out' in name or (
+                    name.startswith('final_layers.') and '.linear.' in name):
+                p.add_(0.02 * torch.randn(p.shape, generator=gen))
+    return model.eval()
+
+
+def _lwd_parity(tag, model_cpu):
+    """Phase 13 (a): one segment's forward_run_layer (the middle one, t in
+    it), fp32, batch 2 (a class and the null class), full 16 x 16 grid: the
+    port on CUDA (kernels) against the CPU (plain versions), the velocity
+    and the REPA projection each within TOL_SLICE_REL_L2 relative L2.
+    Returns the card's fp32 copy of the model."""
+    import torch
+    from fitv2_tpu_torch.models.grid_utils import make_grid_mask_size
+    seg = model_cpu.number_of_perflow // 2
+    sig = model_cpu.sigmas
+    gen = torch.Generator().manual_seed(SEED + 15)
+    x = torch.randn(2, N, 16, generator=gen)
+    t = torch.tensor([0.25, 0.75]) * float(sig[seg + 1] - sig[seg]) \
+        + float(sig[seg])
+    y = torch.tensor([207, model_cpu.num_classes])
+    grid, _, size = make_grid_mask_size(2, 16, 16, N)
+    model_gpu = copy.deepcopy(model_cpu).to('cuda')
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        ref = model_cpu.forward_run_layer(x, t, y, seg, grid, None, size)
+        t_cpu = time.perf_counter() - t0
+        out = model_gpu.forward_run_layer(x.cuda(), t.cuda(), y.cuda(), seg,
+                                          grid.cuda(), None, size.cuda())
+    for what, o, r in zip(('velocity', 'REPA projection'), out, ref):
+        if not torch.isfinite(o).all():
+            raise AssertionError(f'{tag} parity: non-finite {what} on CUDA')
+        norm = r.norm().item()
+        if norm == 0.0:
+            raise AssertionError(f'{tag} parity: zero {what} (vacuous)')
+        rel = (o.cpu() - r).norm().item() / norm
+        say(f'[lwd] {tag} fp32 forward_run_layer, segment {seg} of '
+            f'{model_cpu.number_of_perflow}, batch 2: {what} |.| '
+            f'{norm:.4e}, relative L2 CUDA vs CPU {rel:.3e} <= '
+            f'{TOL_SLICE_REL_L2}: '
+            f'{"ok" if rel <= TOL_SLICE_REL_L2 else "FAIL"} (CPU '
+            f'{t_cpu:.1f} s)')
+        if not rel <= TOL_SLICE_REL_L2:
+            raise AssertionError(f'{tag} parity: {what} relative L2 {rel}')
+    return model_gpu
+
+
+def _lwd_counts(evals, per_eval):
+    """Launch counts of `evals` velocity evals with `per_eval` launches of
+    each named wrapper (the others 0); 'flash_masked_attention_bounded' is
+    K4's share of the attention wrapper's."""
+    from fitv2_tpu_torch import kernels as K
+    want = {w.__name__: 0 for w in K.KERNEL_WRAPPERS}
+    want['flash_masked_attention_bounded'] = 0
+    want.update({name: evals * n for name, n in per_eval.items()})
+    return want
+
+
+def _lwd_read_counts():
+    from fitv2_tpu_torch import kernels as K
+    return dict(_read_counts(), flash_masked_attention_bounded=(
+        K.flash_masked_attention.bounded_launches))
+
+
+def _lwd_inputs(path):
+    """Phase 13's starting tokens (on the CPU, seeded) and labels for
+    `path` (the multi-scale sampler starts on the 4 x 4 grid)."""
+    import torch
+    n = N // 16 if path == 'lwd_multiscale' else N
+    z = torch.randn(BATCH, n, 16,
+                    generator=torch.Generator().manual_seed(SEED + 17))
+    return z, torch.arange(BATCH) * 111 % 1000
+
+
+def _lwd_sub_steps(path):
+    return BFM_STEPS_PER_FLOW if path == 'bfm_xl' else LWD_STEPS_PER_FLOW
+
+
+def _lwd_call(path, model, z, y, sub=None):
+    """One sampler call of phase 13's `path`, `sub` sub-steps a segment
+    (default the path's own); the same call as _lwd_cli_flags(path) asks
+    of cli/sample_lwd. Returns the final tokens."""
+    import torch
+    sub = sub or _lwd_sub_steps(path)
+    if path == 'lwd_xl':
+        return model.sample_cfg(z, y, LWD_CFG_SCALE, sub)
+    if path == 'lwd_multiscale':
+        return model.sample_multiscale(
+            z, y, sub, generator=torch.Generator().manual_seed(1))
+    return model.sample_maruyama_cfg(
+        z, y, LWD_CFG_SCALE, sub, *GUIDANCE, True,
+        generator=torch.Generator().manual_seed(1))
+
+
+def _lwd_cli_flags(path):
+    """cli/sample_lwd's sampler flags for phase 13's `path` (_lwd_call's
+    call)."""
+    return ['--steps-per-flow', str(_lwd_sub_steps(path)), *{
+        'lwd_xl': ['--sampler', 'cfg', '--cfg-scale', str(LWD_CFG_SCALE)],
+        'lwd_multiscale': ['--sampler', 'multiscale'],
+        'bfm_xl': ['--sampler', 'maruyama', '--self-guidance',
+                   '--cfg-scale', str(LWD_CFG_SCALE), '--guidance-low',
+                   str(GUIDANCE[0]), '--guidance-high', str(GUIDANCE[1])],
+    }[path]]
+
+
+def _lwd_denoise(path, model, z, y, calls=V1_RATE_CALLS):
+    """A warm-up call of one sub-step a segment, then the median wall of
+    `calls` timed _lwd_call(path, ...)s (each ended by a sync); checks the
+    tokens are finite and moved. Returns (seconds, walls)."""
+    import torch
+    _lwd_call(path, model, z, y, 1)
+    torch.cuda.synchronize()
+    walls = []
+    for _ in range(calls):
+        t0 = time.perf_counter()
+        out = _lwd_call(path, model, z, y)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    # the multi-scale sampler ends on a grid 16 times finer than z's
+    moved = (((out - z).norm() / z.norm()).item() if out.shape == z.shape
+             else float(out.shape == (len(z), N, z.shape[-1])))
+    if not torch.isfinite(out).all() or not moved > 1e-3:
+        raise AssertionError(f'{path}: tokens not finite, not moved or of '
+                             f'the wrong shape ({moved}, {out.shape})')
+    return statistics.median(walls), walls
+
+
+def _lwd_cli(tag, argv, want, out_dir, batches=V1_RATE_CALLS):
+    """Phase 13's user call: cli/sample_lwd.main(argv) on `batches`
+    batches of BATCH, with every count set to 0 just before and read just
+    after; checks the counts (`want` a batch) and the npz (uint8 256x256
+    images). Returns (counts, the CLI's batch seconds: median, min, max,
+    its whole sampling seconds with the npz, the call's wall)."""
+    import numpy as np
+    from fitv2_tpu_torch.cli import sample_lwd
+    path = os.path.join(out_dir, f'{tag}.npz')
+    n = batches * BATCH
+    want = {name: batches * c for name, c in want.items()}
+    buf = io.StringIO()
+    _reset_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        sample_lwd.main([*argv, '--num-fid-samples', str(n),
+                         '--per-device-batch', str(BATCH), '--out', path])
+    wall = time.perf_counter() - t0
+    counts = _lwd_read_counts()
+    for line in buf.getvalue().splitlines():
+        say(f'[lwd] {tag} cli: {line}')
+    m = re.search(r'sampled \d+ in ([0-9.]+) s .*median ([0-9.]+) s, '
+                  r'([0-9.]+)-([0-9.]+) s', buf.getvalue())
+    secs, med, lo, hi = (float(v) for v in m.groups())
+    arr = np.load(path)['arr_0']
+    if arr.shape != (n, 256, 256, 3) or arr.dtype != np.uint8:
+        raise AssertionError(f'{tag}: npz holds {arr.shape} {arr.dtype}')
+    if counts != want:
+        raise AssertionError(f'{tag}: launch counts {counts} != {want}')
+    say(f'[lwd] {tag}: npz {arr.shape} {arr.dtype}, pixel mean '
+        f'{arr.mean():.2f}; launches {counts} == expected')
+    return counts, (med, lo, hi), secs, wall
+
+
+def _lwd_kernel_cases(K):
+    """Phase 13 (d): the kernels at the LwD paths' new shapes against their
+    plain versions, bf16 and fp32, with times and bounds: K1, K2 and K4 at
+    each grid of the multi-scale sampler (batch 8, no CFG, N 16, 64 and
+    256, XL widths, every token valid); BFM's K1 (D 384) and K2 + K4 (6
+    heads of Dh 64) at the CFG batch 16, N 256; BFM-XL's K3 on RMSNorm'd
+    q/k (XL heads, CFG batch 16, N 256, unmasked)."""
+    import torch
+    dev = torch.device('cuda')
+    gen = torch.Generator(device=dev).manual_seed(SEED + 16)
+    cases = {'adaln': [], 'qk_rope': [], 'attention': []}
+
+    def norm_and_attention(path, dtype, b, n, d, h, dh):
+        x = (torch.randn(b, n, d, device=dev, generator=gen) * 2 + 3
+             ).to(dtype)
+        mod = (0.5 * torch.randn(b, 6 * d, device=dev, generator=gen)
+               ).to(dtype)
+        shift, scale = mod.chunk(6, dim=-1)[:2]
+        cases['adaln'].append(dict(_adaln_case(K, x, shift, scale),
+                                   path=path))
+        qkv = torch.randn(b, n, 3, h, dh, device=dev, generator=gen
+                          ).to(dtype)
+        q, k, v = qkv.unbind(2)
+        ang = torch.rand(b, n, dh, device=dev, generator=gen) * 6.3
+        cos, sin = torch.cos(ang), torch.sin(ang)
+        cases['qk_rope'].append(dict(_qk_rope_case(K, q, k, cos, sin),
+                                     path=path))
+        qn, kn = K.qk_norm_rope_reference(q, k, cos, sin)
+        cases['attention'].append(dict(
+            _attention_case(K, dtype, qn, kn, v, None, True),
+            shape=[b, n, h, dh], path=path))
+        return q, k, v
+
+    for dtype in (torch.bfloat16, torch.float32):
+        for n in (16, 64, N):
+            norm_and_attention('lwd_multiscale', dtype, BATCH, n, D, H, DH)
+        norm_and_attention('bfm', dtype, 2 * BATCH, N, 384, 6, 64)
+        q, k, v = (torch.randn(2 * BATCH, N, H, DH, device=dev,
+                               generator=gen).to(dtype) for _ in range(3))
+
+        def rms(a):  # BFM-XL's q/k norm (RMSNorm, its weight at 1)
+            a32 = a.float()
+            return (a32 * torch.rsqrt((a32 * a32).mean(-1, keepdim=True)
+                                      + 1e-6)).to(dtype)
+        cases['attention'].append(dict(
+            _attention_case(K, dtype, rms(q), rms(k), v, None, False),
+            shape=[2 * BATCH, N, H, DH], path='bfm_xl', qk_norm='rmsnorm'))
+    torch.cuda.synchronize()
+    return cases
+
+
+def phase_lwd(card, out_dir, vae_path):
+    """Phase 13: the LwD family on the card (see the module docstring).
+    Returns the kernel cases and each path's counts."""
+    import torch
+    from fitv2_tpu_torch import kernels as K
+    from fitv2_tpu_torch.ckpt import CheckpointManager
+    bf16_yaml = os.path.join(out_dir, 'lwd_bf16.yaml')
+    with open(bf16_yaml, 'w') as f:
+        f.write('diffusion:\n  network_config:\n    params:\n'
+                '      dtype: bfloat16\n')
+    counts = {}
+
+    def write_ckpt(tag, model_cpu):
+        ckpt_dir = os.path.join(out_dir, f'{tag}_run')
+        t0 = time.perf_counter()
+        path = CheckpointManager(ckpt_dir).save(0, {
+            'step': 0, 'ema_params': model_cpu.state_dict()})
+        n = sum(p.numel() for p in model_cpu.parameters())
+        say(f'[lwd] {tag}: a checkpoint of {n / 1e9:.3f} B fp32 parameters '
+            f'written in {time.perf_counter() - t0:.1f} s')
+        return path
+
+    def run(path, config, model, ckpt, what, per_eval):
+        """`path`'s denoise rate on `model`, then its CLI call on `ckpt`
+        with exact counts (`per_eval` a velocity eval)."""
+        z, y = (a.cuda() for a in _lwd_inputs(path))
+        evals = model.number_of_perflow * _lwd_sub_steps(path)
+        t_den, walls = _lwd_denoise(path, model, z, y)
+        counts[path], (med, lo, hi), secs, wall = _lwd_cli(path, [
+            '--cfgdir', config, bf16_yaml, '--ckpt', ckpt, '--global-seed',
+            str(SEED), '--vae', vae_path, '--device', 'cuda',
+            *_lwd_cli_flags(path)], _lwd_counts(evals, per_eval), out_dir)
+        n = V1_RATE_CALLS * BATCH
+        say(f'[lwd] {path} bf16 256x256 batch {BATCH}, {what}: {evals} '
+            f'velocity evals; denoise, the median of {len(walls)} calls, '
+            f'{t_den:.3f} s = {BATCH / t_den:.4f} images/s (calls '
+            f'{BATCH / max(walls):.4f}-{BATCH / min(walls):.4f}), '
+            f'{t_den / evals * 1e3:.2f} ms an eval; full pipeline '
+            f'(cli/sample_lwd: denoise + VAE + uint8 + the copy to the '
+            f'host), the median of {V1_RATE_CALLS} batches, {med:.3f} s = '
+            f'{BATCH / med:.4f} images/s (batches {BATCH / hi:.4f}-'
+            f'{BATCH / lo:.4f}); the CLI\'s {n} images with the npz '
+            f'{secs:.3f} s = {n / secs:.4f} images/s; the CLI call with the '
+            f'model build and checkpoint load {wall:.1f} s [{card}]')
+
+    # (a) + (b): FiTLwD-XL (configs/fitv2_xl_lwd.yaml), sample_cfg
+    model_cpu = _lwd_model_fp32(LWD_CONFIG)
+    model = _lwd_parity('lwd_xl', model_cpu)
+    ckpt = write_ckpt('lwd_xl', model_cpu)
+    del model_cpu
+    model = model.to(torch.bfloat16)
+    K_seg = model.number_of_perflow
+    per_eval = dict(fused_adaln_norm=7, fused_qk_rope=3,
+                    flash_masked_attention=3, flash_masked_attention_bounded=3)
+    run('lwd_xl', LWD_CONFIG, model, ckpt,
+        f'sample_cfg, CFG {LWD_CFG_SCALE}, {K_seg} segments x '
+        f'{LWD_STEPS_PER_FLOW} sub-steps; a CFG eval (batch {2 * BATCH}): '
+        'K1 7, K2 3, K4 3', per_eval)
+    # (d) the multi-scale sampler on the same model: 4x4 -> 8x8 -> 16x16
+    run('lwd_multiscale', LWD_CONFIG, model, ckpt,
+        f'sample_multiscale, no CFG, N 16 -> 64 -> 256 over {K_seg} '
+        f'segments x {LWD_STEPS_PER_FLOW} sub-steps; an eval (batch '
+        f'{BATCH}): K1 7, K2 3, K4 3', per_eval)
+    del model
+    shutil.rmtree(os.path.dirname(ckpt))
+    torch.cuda.empty_cache()
+
+    # (a) + (c): BFM-XL (configs/bfm_xl.yaml), sample_maruyama_cfg with
+    # representation self-guidance in the guidance window
+    model_cpu = _lwd_model_fp32(BFM_XL_CONFIG)
+    model = _lwd_parity('bfm_xl', model_cpu)
+    ckpt = write_ckpt('bfm_xl', model_cpu)
+    del model_cpu
+    model = model.to(torch.bfloat16)
+    depth_enc = model.number_of_representation_blocks
+    depth_dec = model.layers_per_flow
+    run('bfm_xl', BFM_XL_CONFIG, model, ckpt,
+        f'sample_maruyama_cfg, CFG {LWD_CFG_SCALE} and self-guidance for t '
+        f'in {list(GUIDANCE)}, {model.number_of_perflow} segments x '
+        f'{BFM_STEPS_PER_FLOW} sub-steps; an eval (batch {2 * BATCH}): K1 '
+        f'{2 * depth_enc} (the encoder; the decoders and final layer take '
+        f'per-token conditioning), K3 {depth_enc + depth_dec}, K2 and K4 0 '
+        '(RMSNorm q/k)', dict(fused_adaln_norm=2 * depth_enc,
+                              flash_masked_attention=depth_enc + depth_dec))
+    del model
+    shutil.rmtree(os.path.dirname(ckpt))
+    torch.cuda.empty_cache()
+
+    cases = _lwd_kernel_cases(K)
+    return cases, counts
+
+
 # cuBLAS's fixed workspace, which deterministic algorithms require of a
 # cuBLAS call: cuBLAS reads it once, when it starts, and it makes every
 # sampler step's host side 2.0-2.4x slower (PERF.md §5, PR 9), so only the
@@ -1986,49 +2349,67 @@ def child_main(name, out_dir):
 
 
 def main():
+    t_start = time.perf_counter()
     card = phase_device()
     import torch
     from fitv2_tpu_torch.vae import AutoencoderKL
-    _, ptxas = phase_build()
-    results = phase_kernels()
+    with _clock('phases 2-3 (build, kernels)'):
+        _, ptxas = phase_build()
+        results = phase_kernels()
     results['fused_attention']['ptxas'] = ptxas[
         'K5 fused_attention_mma_kernel (bf16)']
     results['int8_gemm_swiglu_quant']['ptxas'] = ptxas[
         'K7 int8_gemm_swiglu_kernel']
-    model_cpu = _xl_model_fp32()
-    model_gpu, _ = phase_parity(model_cpu)
+    with _clock('phase 4 (parity)'):
+        model_cpu = _xl_model_fp32()
+        model_gpu, _ = phase_parity(model_cpu)
     torch.manual_seed(SEED + 2)
     vae = AutoencoderKL().to(device='cuda', dtype=torch.bfloat16).eval()
     with tempfile.TemporaryDirectory() as out_dir:
         # model_gpu is bf16 from here on
-        counts = phase_main(model_gpu, vae, card, out_dir)
-        model_int8, int8_counts, _ = phase_int8(model_gpu, vae, card)
-        serving_counts = phase_serving_max(model_int8, vae, card)
-        del model_int8
-        fused_counts = phase_fused(model_gpu, vae, card)
-        hr_cases, hr_counts = phase_hr(model_cpu, model_gpu, vae, card,
-                                       out_dir)
+        with _clock('phases 5-8 (main, int8, serving-max, fused)'):
+            counts = phase_main(model_gpu, vae, card, out_dir)
+            model_int8, int8_counts, _ = phase_int8(model_gpu, vae, card)
+            serving_counts = phase_serving_max(model_int8, vae, card)
+            del model_int8
+            fused_counts = phase_fused(model_gpu, vae, card)
+        with _clock('phase 9 (hr)'):
+            hr_cases, hr_counts = phase_hr(model_cpu, model_gpu, vae, card,
+                                           out_dir)
         del model_cpu
-        phase_eval(card, out_dir)
+        with _clock('phase 10 (eval)'):
+            phase_eval(card, out_dir)
         del model_gpu, vae
         torch.cuda.empty_cache()
-        train_cases = phase_train_kernels()
-        phase_train_parity()
-        train_counts, resumed_counts, _ = phase_train(card, out_dir)
+        with _clock('phase 11 (train)'):
+            train_cases = phase_train_kernels()
+            phase_train_parity()
+            train_counts, resumed_counts, _ = phase_train(card, out_dir)
         # phase 12: FiTv1-XL/2 (configs/fit_xl.yaml)
-        v1_k2_cases, v1_k2_grad_cases = phase_fitv1_kernels(
-            results['attention']['cases'])
-        v1_model = _v1_model_fp32()
-        phase_fitv1_parity(v1_model)
-        v1_model = v1_model.to('cuda', torch.bfloat16)
-        torch.manual_seed(SEED + 2)
-        vae = AutoencoderKL().to(device='cuda', dtype=torch.bfloat16).eval()
-        v1_counts, _ = phase_fitv1_sampling(v1_model, vae, card, out_dir)
-        del v1_model, vae
-        torch.cuda.empty_cache()
-        v1_train = _run_child_phase('fitv1_train', out_dir)
+        with _clock('phase 12 (fitv1)'):
+            v1_k2_cases, v1_k2_grad_cases = phase_fitv1_kernels(
+                results['attention']['cases'])
+            v1_model = _v1_model_fp32()
+            phase_fitv1_parity(v1_model)
+            v1_model = v1_model.to('cuda', torch.bfloat16)
+            torch.manual_seed(SEED + 2)
+            vae = AutoencoderKL().to(device='cuda', dtype=torch.bfloat16
+                                     ).eval()
+            v1_counts, _ = phase_fitv1_sampling(v1_model, vae, card, out_dir)
+            del v1_model, vae
+            torch.cuda.empty_cache()
+            v1_train = _run_child_phase('fitv1_train', out_dir)
         v1_train_counts = v1_train['counts']
         v1_resumed_counts = v1_train['counts_resumed']
+        # phase 13: the LwD family, sampled through cli/sample_lwd with
+        # phase 5's random VAE decoder written where --vae reads it
+        with _clock('phase 13 (lwd)'):
+            vae_path = os.path.join(out_dir, 'vae.pt')
+            torch.manual_seed(SEED + 2)
+            torch.save(AutoencoderKL().state_dict(), vae_path)
+            lwd_cases, lwd_counts = phase_lwd(card, out_dir, vae_path)
+    for name, cases in lwd_cases.items():
+        results[name]['cases'] += cases
     for name, cases in hr_cases.items():
         results[name]['cases'] += [dict(c, path='hr') for c in cases]
     # each Function's forward + backward on the training shapes: the
@@ -2074,7 +2455,7 @@ def main():
                **hr_counts, 'train': train_counts,
                'train_resumed': resumed_counts, **v1_counts,
                'fitv1_train': v1_train_counts,
-               'fitv1_train_resumed': v1_resumed_counts}
+               'fitv1_train_resumed': v1_resumed_counts, **lwd_counts}
     # the attention wrapper launches K4 (bounded) or K3 (online softmax):
     # K3's share on each path that counted K4 apart
     results['attention']['k3_launches_by_path'] = {
@@ -2105,6 +2486,7 @@ def main():
                                       for p, c in by_path.items()},
                     **results[name])
                for name, wrapper, path_counts, source, rep in meta]
+    say(f'[time] the smoke: {time.perf_counter() - t_start:.1f} s')
     say(card)  # nvidia-smi's name, power.limit line
     print(json.dumps({'kernels': kernels}))
     print(json.dumps({'ok': True, 'device': {

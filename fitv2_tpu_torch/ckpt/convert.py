@@ -8,6 +8,14 @@ the flax names joined with '.', so the map is: unstack the blocks, rename
 ``kernel`` -> ``weight`` and transpose it (flax Dense kernels are (in, out),
 ``nn.Linear`` weights (out, in)).
 
+``lwd_state_from_jax`` does the same for the LwD family (FiTLwD and the
+shared-encoder FiTLwD / BFM): each block stack (``segments_{i}``,
+``rep_segments_{i}``, ``start_shared_blocks``, ``shared_rep_blocks``,
+``mid_blocks``: ``.../stack/block/...`` leaves stacked along its own
+length) is unstacked, and each per-segment list (``x_embedders_{i}``,
+``t_embedders_{i}``, ``y_embedders_{i}``, ``final_layers_{i}``) becomes the
+port's ``nn.ModuleList`` entry ``{name}.{i}``.
+
 ``inception_state_from_jax`` maps the JAX package's InceptionV3 parameters
 (BatchNorm already folded; conv kernels (kh, kw, I, O)) onto
 ``fitv2_tpu_torch.eval.inception.InceptionV3.state_dict()`` (weights
@@ -72,6 +80,22 @@ def _unstack_blocks(flat: Mapping[str, np.ndarray], depth: int
     return out
 
 
+def _check_qkv(sd: Mapping[str, torch.Tensor], key: str, num_heads: int,
+               rope_layout: str) -> None:
+    """The qkv projection splits into the heads; split RoPE needs an even
+    per-axis dim. The q/k basis carries over unpermuted, so the port's
+    model must use the JAX model's RoPE layout."""
+    qkv = sd.get(key)
+    if qkv is None:
+        return
+    c = qkv.shape[1]
+    if qkv.shape[0] != 3 * c or c % num_heads:
+        raise ValueError(f'qkv {tuple(qkv.shape)} does not split into '
+                         f'{num_heads} heads')
+    if rope_layout == 'split' and (c // num_heads // 2) % 2:
+        raise ValueError('split RoPE needs an even per-axis rope dim')
+
+
 def state_dict_from_jax(params_np: Mapping[str, Any], *, depth: int,
                         num_heads: int, adaln_type: str,
                         rope_layout: str = 'split') -> Dict[str, torch.Tensor]:
@@ -85,19 +109,49 @@ def state_dict_from_jax(params_np: Mapping[str, Any], *, depth: int,
     flat = _unstack_blocks(_flatten(params_np.get('params', params_np)),
                            depth)
     sd = dict(_leaf(path, value) for path, value in flat.items())
-
-    qkv = sd.get('blocks.0.attn.qkv.weight')
-    if qkv is not None:
-        c = qkv.shape[1]
-        if qkv.shape[0] != 3 * c or c % num_heads:
-            raise ValueError(f'qkv {tuple(qkv.shape)} does not split into '
-                             f'{num_heads} heads')
-        if rope_layout == 'split' and (c // num_heads // 2) % 2:
-            raise ValueError('split RoPE needs an even per-axis rope dim')
+    _check_qkv(sd, 'blocks.0.attn.qkv.weight', num_heads, rope_layout)
     lora = 'blocks.0.adaLN_modulation.fc1.weight' in sd
     if depth and lora != (adaln_type == 'lora'):
         raise ValueError(f'adaln_type={adaln_type!r} does not match the '
                          'adaLN parameters in the tree')
+    return sd
+
+
+_LWD_LIST = re.compile(r'(x_embedders|t_embedders|y_embedders|final_layers|'
+                       r'rep_segments|segments)_(\d+)/(.*)')
+_STACK = '/stack/block/'
+
+
+def lwd_state_from_jax(params_np: Mapping[str, Any], model: torch.nn.Module
+                       ) -> Dict[str, torch.Tensor]:
+    """JAX FiTLwD / FiTLwDSharedEncSepDec params (numpy leaves) -> the
+    port's ``model.state_dict()`` (float32 tensors). The names and shapes
+    are held against ``model``'s (a block stack of another length, a
+    missing head or a leaf of another shape raises); ``model`` must use the
+    JAX model's RoPE layout."""
+    sd: Dict[str, torch.Tensor] = {}
+    for path, value in _flatten(params_np.get('params', params_np)).items():
+        m = _LWD_LIST.fullmatch(path)
+        if m:
+            path = f'{m[1]}/{m[2]}/{m[3]}'
+        if _STACK in path:
+            head, rest = path.split(_STACK, 1)
+            for i in range(value.shape[0]):
+                sd.update([_leaf(f'{head}/{i}/{rest}', value[i])])
+        else:
+            sd.update([_leaf(path, value)])
+    _check_qkv(sd, 'segments.0.0.attn.qkv.weight', model.num_heads,
+               model.rope_layout)
+    want = model.state_dict()
+    missing = sorted(set(want) - set(sd))
+    unexpected = sorted(set(sd) - set(want))
+    if missing or unexpected:
+        raise ValueError(f'the JAX tree does not match the model: missing '
+                         f'{missing[:5]}, unexpected {unexpected[:5]}')
+    for name, t in sd.items():
+        if t.shape != want[name].shape:
+            raise ValueError(f'{name}: shape {tuple(t.shape)} != '
+                             f'{tuple(want[name].shape)}')
     return sd
 
 
@@ -165,12 +219,20 @@ def train_state_from_jax(state_np: Any, model: torch.nn.Module, cfg,
     ``OptimizerConfig`` ``cfg``.
 
     params, ema_params, adam's mu (cast to ``cfg.mu_dtype``) and nu go
-    through ``state_dict_from_jax``; the adam count becomes the optimizer's
+    through ``state_dict_from_jax`` (``lwd_state_from_jax`` for an LwD
+    model); the adam count becomes the optimizer's
     count, ``state.step`` the step; under ``optax.MultiSteps`` its
     mini-step, gradient step and accumulated gradients carry over too."""
+    from fitv2_tpu_torch.models.fit_lwd import FiTLwD
     from fitv2_tpu_torch.train.train_step import create_train_state
-    kw = dict(depth=model.depth, num_heads=model.num_heads,
-              adaln_type=model.adaln_type, rope_layout=rope_layout)
+    if isinstance(model, FiTLwD):
+        def convert(tree):
+            return lwd_state_from_jax(tree, model)
+    else:
+        def convert(tree):
+            return state_dict_from_jax(
+                tree, depth=model.depth, num_heads=model.num_heads,
+                adaln_type=model.adaln_type, rope_layout=rope_layout)
     state = create_train_state(model, cfg)
     adam = _find_state(state_np.opt_state, 'mu', 'nu', 'count')
     if adam is None:
@@ -179,11 +241,10 @@ def train_state_from_jax(state_np: Any, model: torch.nn.Module, cfg,
     with torch.no_grad():
         for key, tree in (('params', state_np.params),
                           ('ema_params', state_np.ema_params)):
-            sd = state_dict_from_jax(tree, **kw)
+            sd = convert(tree)
             for name, t in getattr(state, key).items():
                 t.copy_(sd[name])
-        mu = state_dict_from_jax(adam.mu, **kw)
-        nu = state_dict_from_jax(adam.nu, **kw)
+        mu, nu = convert(adam.mu), convert(adam.nu)
         for name, p in state.params.items():
             state.optimizer.state[p] = {
                 'mu': mu[name].to(p.device, cfg.mu_dtype or p.dtype),
@@ -192,7 +253,7 @@ def train_state_from_jax(state_np: Any, model: torch.nn.Module, cfg,
             if state.accumulator is None:
                 raise ValueError('the JAX state accumulates gradients; set '
                                  'grad_accum_steps')
-            acc = state_dict_from_jax(multi.acc_grads, **kw)
+            acc = convert(multi.acc_grads)
             torch._foreach_copy_(state.accumulator.acc,
                                  [acc[n] for n in state.params])
             state.accumulator.mini_step = int(multi.mini_step)

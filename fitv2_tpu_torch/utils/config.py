@@ -2,21 +2,47 @@
 
 Counterpart of fitv2_tpu/utils/config.py for the port: the same YAML files
 load with pyyaml (deep merge, right wins; ``${tuple:a, b}`` values resolve
-to tuples), and ``config_to_model`` builds the port's FiT from a
-``network_config`` whose target names the JAX FiT or the reference FiT.
+to tuples), and ``config_to_model`` builds the port's model from a
+``network_config`` whose target names a model of the reference, of the JAX
+package or of the port: the FiT, FiTLwD, the shared-encoder FiTLwD and BFM.
 """
 
 from __future__ import annotations
 
+import importlib
 import inspect
 import warnings
 from typing import Any, Mapping, Sequence
 
 import yaml
 
-# network targets that map onto the port's FiT
-FIT_TARGETS = ('fitv2_tpu.models.fit.FiT', 'fit.model.fit_model.FiT',
-               'fitv2_tpu_torch.models.fit.FiT')
+# every network target a config may name -- the reference's (the
+# published YAMLs, as in the JAX package's REFERENCE_TARGET_MAP,
+# fitv2_tpu/utils/config.py), the JAX package's and the port's -- and the
+# port's (module, builder, class whose keyword arguments a config may set)
+_FIT = ('fit', 'FiT', 'FiT')
+_LWD = ('fit_lwd', 'FiTLwD', 'FiTLwD')
+_SHARED = ('fit_lwd_sharedenc', 'FiTLwDSharedEncSepDec',
+           'FiTLwDSharedEncSepDec')
+_BFM = ('bfm', 'BFM', 'FiTLwDSharedEncSepDec')
+MODEL_TARGETS = {
+    'fit.model.fit_model.FiT': _FIT,
+    'fitv2_tpu.models.fit.FiT': _FIT,
+    'fitv2_tpu_torch.models.fit.FiT': _FIT,
+    'fit.model.fit_model_lwd.FiTLwD': _LWD,
+    'fitv2_tpu.models.fit_lwd.FiTLwD': _LWD,
+    'fitv2_tpu_torch.models.fit_lwd.FiTLwD': _LWD,
+    'fit.model.fit_model_lwd.FiTLwD_sharedenc_sepdec': _SHARED,
+    'fit.model.fit_model_lwd_bk.FiTLwD_sharedenc_sepdec': _SHARED,
+    'fitv2_tpu.models.fit_lwd_sharedenc.FiTLwDSharedEncSepDec': _SHARED,
+    'fitv2_tpu_torch.models.fit_lwd_sharedenc.FiTLwDSharedEncSepDec':
+        _SHARED,
+    'fit.model.bfm.FiT': _BFM,
+    'fitv2_tpu.models.bfm.BFM': _BFM,
+    'fitv2_tpu_torch.models.bfm.BFM': _BFM,
+}
+# the targets that build the port's FiT
+FIT_TARGETS = tuple(t for t, m in MODEL_TARGETS.items() if m is _FIT)
 
 # reference FiT kwargs with no model-side meaning here (checkpoint loading
 # lives in fitv2_tpu_torch.ckpt); dropped silently as by the JAX package
@@ -67,22 +93,36 @@ def load_config(paths: Sequence[str] | str) -> dict:
     return _resolve_tuples(merged)
 
 
+def _init_params(cls) -> set:
+    """The keyword arguments ``cls(...)`` takes, along its class chain."""
+    names = set()
+    for klass in cls.__mro__:
+        if '__init__' in vars(klass) and klass.__module__.startswith(
+                'fitv2_tpu_torch.'):
+            names |= set(inspect.signature(klass.__init__).parameters)
+    return names - {'self', 'kwargs'}
+
+
 def config_to_model(network_config: Mapping[str, Any], **overrides):
-    """The port's FiT from a reference-style ``network_config``; params the
-    FiT does not take are dropped with a warning."""
-    from fitv2_tpu_torch.models.fit import FiT
+    """The port's model from a reference-style ``network_config``; params
+    the model does not take are dropped with a warning."""
     target = network_config.get('target')
-    if target not in FIT_TARGETS:
+    if target not in MODEL_TARGETS:
         raise NotImplementedError(
             f'network target {target!r} is not ported yet (the PyTorch port '
-            f'has the FiT family only: {FIT_TARGETS})')
+            f'builds {sorted(MODEL_TARGETS)})')
+    module, builder, cls_name = MODEL_TARGETS[target]
+    module = importlib.import_module(f'fitv2_tpu_torch.models.{module}')
+    build = getattr(module, builder)
+    cls = getattr(importlib.import_module(
+        'fitv2_tpu_torch.models'), cls_name)
     params = {k: v for k, v in dict(network_config.get('params') or {}).items()
               if k not in _DROPPED_KEYS}
-    accepted = set(inspect.signature(FiT.__init__).parameters) - {'self'}
+    accepted = _init_params(cls)
     unknown = set(params) - accepted
     if unknown:
         warnings.warn(f'config_to_model: dropping unknown params '
                       f'{sorted(unknown)} for {target}')
     params = {k: v for k, v in params.items() if k in accepted}
     params.update(overrides)
-    return FiT(**params)
+    return build(**params)

@@ -25,6 +25,7 @@ as the TPU kernels do, while the plain versions keep it in fp32: 2e-2
 absolute in bf16.
 """
 
+import copy
 import math
 
 import pytest
@@ -977,3 +978,138 @@ def test_k3_function_gradients_in_a_fitv1_block(dev, dtype):
         worst = max(worst, rel)
     print(f'FiTv1 block gradients {dtype}: worst relative L2 {worst:.3e} '
           f'<= {tol}')
+
+
+# -- the LwD family (slice 7a) -------------------------------------------------
+
+LWD = dict(context_size=16, patch_size=2, in_channels=4, hidden_size=144,
+           depth=4, num_heads=2, num_classes=10, number_of_perflow=2,
+           n_patch_h=4, n_patch_w=4, adaln_type='lora', adaln_lora_dim=36,
+           max_cached_len=16)
+LWD_VARIANTS = {
+    # REPA blocks, per-segment embedders and the shared trunk: K1, K2, K4
+    'lwd': ('FiTLwD', dict(number_of_representation_blocks=2, repa_dim=24,
+                           perlayer_embedder=True,
+                           number_of_shared_blocks=1)),
+    # the shared encoder (K1 with its (B, D) rows) and per-token decoders
+    'shared': ('FiTLwDSharedEncSepDec', dict(
+        number_of_representation_blocks=2, repa_dim=24)),
+    # BFM-XL's blocks: 'normal' adaLN, RMSNorm q/k (K3), GELU MLPs
+    'shared_rmsnorm': ('FiTLwDSharedEncSepDec', dict(
+        number_of_representation_blocks=2, repa_dim=24, adaln_type='normal',
+        q_norm='rmsnorm', k_norm='rmsnorm', use_swiglu=False)),
+}
+
+
+def _lwd_model(variant, **kw):
+    """A small LwD-family model on the CPU in fp32, every parameter
+    N(0, 0.05) from a seeded generator (adaLN-zero would make every output
+    exactly 0)."""
+    from fitv2_tpu_torch import models
+    cls, extra = LWD_VARIANTS[variant]
+    model = getattr(models, cls)(**{**LWD, **extra, **kw})
+    g = torch.Generator().manual_seed(11)
+    with torch.no_grad():
+        for p in model.parameters():
+            p.copy_(0.05 * torch.randn(p.shape, generator=g))
+    return model.eval()
+
+
+@pytest.mark.parametrize('n_h,n_w', [(4, 4), (3, 4)], ids=['full', 'padded'])
+@pytest.mark.parametrize('variant', list(LWD_VARIANTS))
+def test_lwd_forward_run_layer_cuda_matches_cpu(dev, variant, n_h, n_w):
+    """fp32, each segment: the velocity and the REPA projection within 1e-5
+    relative L2 of the CPU; RMSNorm q/k launch K3 and never K2 or K4."""
+    from fitv2_tpu_torch.models.grid_utils import make_grid_mask_size
+    model = _lwd_model(variant)
+    g = torch.Generator().manual_seed(2)
+    x = torch.randn(2, 16, 16, generator=g)
+    t = torch.tensor([0.2, 0.7])
+    y = torch.tensor([3, 10])
+    grid, mask, size = make_grid_mask_size(2, n_h, n_w, 16)
+    mask = None if n_h * n_w == 16 else mask
+    gpu = copy.deepcopy(model).to(dev)
+    for seg in range(2):
+        args = (x, t, y, seg, grid, mask, size)
+        with torch.no_grad():
+            want = model.forward_run_layer(*args)
+            counts = [w.launches for w in K.KERNEL_WRAPPERS]
+            bounded = K.flash_masked_attention.bounded_launches
+            got = gpu.forward_run_layer(*(
+                a.to(dev) if isinstance(a, torch.Tensor) else a
+                for a in args))
+        launched = _launched(counts)
+        assert launched[0] > 0 and launched[2] > 0
+        if variant == 'shared_rmsnorm':
+            assert launched[1] == 0
+            assert K.flash_masked_attention.bounded_launches == bounded
+        for o, w in zip(got, want):
+            rel = ((o.cpu() - w).norm() / w.norm()).item()
+            assert w.abs().max() > 0 and rel <= 1e-5, rel
+
+
+@pytest.mark.parametrize('sampler', ['cfg', 'maruyama_sg', 'global_sg',
+                                     'multiscale'])
+def test_lwd_samplers_cuda_match_cpu(dev, sampler):
+    """fp32 samplers on CUDA against the CPU on the same weights, noise and
+    draws (a seeded CPU generator on both devices): relative L2 within
+    1e-4."""
+    from fitv2_tpu_torch.models import FiTLwD
+    g = torch.Generator().manual_seed(5)
+    y = torch.tensor([1, 7])
+    if sampler == 'multiscale':
+        model = _lwd_model('lwd', depth=4, number_of_perflow=4,
+                           number_of_representation_blocks=0,
+                           context_size=64, n_patch_h=8, n_patch_w=8)
+        x = torch.randn(2, 4, 16, generator=g)
+
+        def run(m, x, y):
+            return m.sample_multiscale(
+                x, y, 2, (1, 2), (1, 1, 2),
+                generator=torch.Generator().manual_seed(3))
+    else:
+        model = _lwd_model('lwd' if sampler == 'cfg' else 'shared')
+        x = torch.randn(2, 16, 16, generator=g)
+        run = {
+            'cfg': lambda m, x, y: m.sample_cfg(x, y, 1.5, 3),
+            'maruyama_sg': lambda m, x, y: m.sample_maruyama_cfg(
+                x, y, 1.4, 3, 0.1, 0.8, True,
+                generator=torch.Generator().manual_seed(3)),
+            'global_sg': lambda m, x, y: m.sample_maruyama_global_cfg(
+                x, y, 1.5, 8, 0.2, 0.7, True,
+                generator=torch.Generator().manual_seed(3)),
+        }[sampler]
+    assert isinstance(model, FiTLwD)
+    want = run(model, x, y)
+    got = run(copy.deepcopy(model).to(dev), x.to(dev), y.to(dev)).cpu()
+    assert torch.isfinite(got).all() and got.shape == want.shape
+    rel = ((got - want).norm() / want.norm()).item()
+    assert rel <= 1e-4, rel
+
+
+@pytest.mark.parametrize('dtype', DTYPES, ids=['fp32', 'bf16'])
+@pytest.mark.parametrize('n', [16, 64])
+def test_kernels_at_the_multiscale_grids(dev, dtype, n):
+    """K1, K2 and K4 at the multi-scale sampler's coarse grids (batch 8,
+    XL widths, every token valid) against their plain versions."""
+    g = _gen(dev, 7)
+    x = (torch.randn(8, n, 1152, device=dev, generator=g) * 2 + 3).to(dtype)
+    mod = (0.5 * torch.randn(8, 6 * 1152, device=dev, generator=g)
+           ).to(dtype)
+    shift, scale = mod.chunk(6, dim=-1)[:2]
+    _assert_close(K.fused_adaln_norm(x, shift, scale),
+                  K.adaln_norm_reference(x, shift, scale))
+    q, k, v = torch.randn(8, n, 3, 16, 72, device=dev, generator=g
+                          ).to(dtype).unbind(2)
+    ang = torch.rand(8, n, 72, device=dev, generator=g) * 6.3
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    for o, r in zip(K.fused_qk_rope(q, k, cos, sin),
+                    K.qk_norm_rope_reference(q, k, cos, sin)):
+        _assert_close(o, r)
+    qn, kn = K.qk_norm_rope_reference(q, k, cos, sin)
+    out = K.flash_masked_attention(qn, kn, v, None, True)
+    ref = K.attention_bounded_reference(qn, kn, v)
+    err = (out.float() - ref.float()).abs().max().item()
+    tol = TOL_FP32_REL * ref.float().abs().max().item() \
+        if dtype == torch.float32 else TOL_BF16_ATTN
+    assert err <= tol, err

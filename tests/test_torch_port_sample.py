@@ -291,7 +291,7 @@ def test_config_to_model_builds_the_xl_config():
     assert model.y_embedder.embedding_table.shape == (1001, 1152)
     assert cfg['accelerate']['optimizer']['params']['betas'] == (0.9, 0.999)
     with pytest.raises(NotImplementedError, match='not ported'):
-        config_to_model({'target': 'fitv2_tpu.models.fit_lwd.FiTLwD'})
+        config_to_model({'target': 'fitv2_tpu.encoders.dinov2.DinoV2ViT'})
 
 
 def _write_cli_inputs(tmp_path, pnp):

@@ -5,7 +5,8 @@ port goes, on one H100.
 Run from the repository root on a machine with the card:
 
     python3 tools/torch_profile_step.py
-        [--path bf16|int8|fused|hr|fitv1|train] [--steps N] [--tree DIR]
+        [--path bf16|int8|fused|hr|fitv1|train|lwd_xl|lwd_multiscale|bfm_xl]
+        [--steps N] [--tree DIR]
 
 Builds chip_smoke.py's FiTv2-XL/2 (random weights from its seed, the
 zero-init leaves perturbed) in bf16 on the card (``--path int8``: the int8
@@ -37,6 +38,16 @@ as above; the full step's device busy ms, launches and groups; the
 training forward alone (the flow loss with autograd recording) and the
 update alone (AdamW and the EMA over the masters); the backward is what is
 left of the step.
+
+``--path lwd_xl``, ``lwd_multiscale`` and ``bfm_xl`` profile chip_smoke.py's
+phase-13 LwD paths (the seeded models of configs/fitv2_xl_lwd.yaml and
+configs/bfm_xl.yaml, perturbed, in bf16, at its batch): FiTLwD-XL's
+``sample_cfg`` (CFG 1.4), its ``sample_multiscale`` and BFM-XL's
+``sample_maruyama_cfg`` with self-guidance in chip_smoke.py's guidance
+window; ``--steps`` is then the sub-steps a segment (default
+chip_smoke.py's), and every number is per velocity eval (the whole call
+divided by its K x steps evals): wall ms from three unprofiled calls,
+device busy ms, the profiled wall, the idle share, launches and groups.
 
 ``--tree`` imports ``fitv2_tpu_torch`` from another checkout (for example
 the parent commit unpacked by ``git archive``), so that two versions can be
@@ -194,13 +205,49 @@ def train_profile(chip_smoke, steps):
     }
 
 
+LWD_PATHS = ('lwd_xl', 'lwd_multiscale', 'bfm_xl')
+
+
+def lwd_profile(chip_smoke, path, steps):
+    """The --path lwd_xl / lwd_multiscale / bfm_xl measurements (see the
+    module docstring), per velocity eval."""
+    import torch
+    model = chip_smoke._lwd_model_fp32(
+        chip_smoke.BFM_XL_CONFIG if path == 'bfm_xl'
+        else chip_smoke.LWD_CONFIG).to('cuda', torch.bfloat16)
+    sub = steps or chip_smoke._lwd_sub_steps(path)
+    batch = chip_smoke.BATCH
+    z, y = (a.cuda() for a in chip_smoke._lwd_inputs(path))
+
+    def call():
+        chip_smoke._lwd_call(path, model, z, y, sub)
+    evals = model.number_of_perflow * sub
+    call()  # warm-up
+    torch.cuda.synchronize()
+    walls = wall_ms(call, 1)
+    busy, window, launches, groups = profile(call, 1)
+    return {
+        'batch': batch, 'sub_steps_per_flow': sub, 'velocity_evals': evals,
+        'images_per_s': [batch / w * 1e3 for w in walls],
+        'wall_ms_per_eval': [w / evals for w in walls],
+        'device_busy_ms_per_eval': busy / evals,
+        'profiled_wall_ms_per_eval': window / evals,
+        'idle_share': 1 - busy / window,
+        'launches_per_eval': launches / evals,
+        'groups_ms_per_eval': {g: [ms / evals, k / evals]
+                               for g, (ms, k) in groups.items()},
+    }
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     ap.add_argument('--path', choices=('bf16', 'int8', 'fused', 'hr',
-                                       'fitv1', 'train'), default='bf16')
-    ap.add_argument('--steps', type=int, default=STEPS,
-                    help='sampler steps a call (the train path: steps '
-                         'timed)')
+                                       'fitv1', 'train') + LWD_PATHS,
+                    default='bf16')
+    ap.add_argument('--steps', type=int, default=None,
+                    help=f'sampler steps a call (default {STEPS}; the train '
+                         'path: steps timed; the LwD paths: sub-steps a '
+                         'segment)')
     ap.add_argument('--tree', default=ROOT)
     args = ap.parse_args()
     sys.path.insert(0, ROOT)
@@ -211,13 +258,18 @@ def main() -> None:
     import fitv2_tpu_torch
     from fitv2_tpu_torch.sample import SamplingConfig, build_sampler
 
-    if args.path == 'train':
-        print(json.dumps({
-            'path': args.path, 'tree': os.path.abspath(args.tree),
+    head = {'path': args.path, 'tree': os.path.abspath(args.tree),
             'package': os.path.dirname(fitv2_tpu_torch.__file__),
-            'card': card, 'steps': args.steps,
-            **train_profile(chip_smoke, args.steps)}),
-            flush=True)
+            'card': card}
+    if args.path in LWD_PATHS:
+        print(json.dumps({**head, **lwd_profile(chip_smoke, args.path,
+                                                args.steps)}), flush=True)
+        return
+    args.steps = args.steps or STEPS
+    if args.path == 'train':
+        print(json.dumps({**head, 'steps': args.steps,
+                          **train_profile(chip_smoke, args.steps)}),
+              flush=True)
         return
     extra = {}
     if args.path == 'hr':
@@ -254,9 +306,7 @@ def main() -> None:
     busy, window, launches, groups = profile(call, 1)
     busy, window, launches = busy / steps, window / steps, launches / steps
     print(json.dumps({
-        'path': args.path, 'tree': os.path.abspath(args.tree),
-        'package': os.path.dirname(fitv2_tpu_torch.__file__),
-        'card': card, 'steps': steps,
+        **head, 'steps': steps,
         'wall_ms_per_step': walls,
         'device_busy_ms_per_step': busy,
         'profiled_wall_ms_per_step': window,
