@@ -76,18 +76,19 @@ Phases (any failure raises and exits non-zero; nothing is caught):
                 (b) XL width, depth 4, fp32, batch 2: one flow loss and
                 backward on CUDA against the CPU, every parameter's
                 gradient within 1e-4 relative L2 (none missing); (c)
-                cli/train.py's build_trainer on configs/fitv2_xl.yaml (depth
-                36, batch 32, bf16 compute over fp32 masters, bf16 mu, fp32
-                EMA, the native loader) on 512 synthetic shards padded to
-                256 tokens: 30 steps with a checkpoint at 20, then a new
-                trainer resumed from 20 to 30, deterministic algorithms on;
-                every loss (the first near 2.0), ms a step (synced every
-                step), peak memory, exact launch counts a step (K1 73, K2
-                36, K4 36, the rest 0) and the resumed run's parameters,
-                EMA and moments bit-identical to the uninterrupted run's;
-                then the rate, ms a step and images/s, from a third run
-                with deterministic algorithms off and the metrics read
-                every 8 steps: steps 9-16, from a sync to a sync.
+                cli/train.py's build_trainer on configs/fitv2_xl.yaml (batch
+                32, bf16 compute over fp32 masters, bf16 mu, fp32 EMA, the
+                native loader) on 512 synthetic shards padded to 256
+                tokens, its depth cut to 12: 30 steps with a checkpoint at
+                20, then a new trainer resumed from 20 to 30, deterministic
+                algorithms on; every loss (the first near 2.0), ms a step
+                (synced every step), peak memory, exact launch counts a
+                step (K1 25, K2 12, K4 12, the rest 0) and the resumed
+                run's parameters, EMA and moments bit-identical to the
+                uninterrupted run's; then the rate, ms a step and images/s,
+                at the config's depth 36, from a third run with
+                deterministic algorithms off and the metrics read every 8
+                steps: steps 9-16, from a sync to a sync.
  12. fitv1    - FiTv1-XL/2 (configs/fit_xl.yaml: depth 28, SwiGLU-large,
                 adaLN 'normal', learn_sigma, no q/k norm): (a) K2 in its
                 RoPE-only mode at (16, 256, 16, 72), bf16 and fp32, against
@@ -104,8 +105,8 @@ Phases (any failure raises and exits non-zero; nothing is caught):
                 each: the denoise rate (the median of V1_RATE_CALLS calls,
                 with their range), then VAE, uint8, npz with exact
                 launch counts (a forward: K1 57, K2 28, K3 28; K4-K7 0);
-                (d) cli/train.py's build_trainer on the config as it
-                stands (depth 28, batch 32, the ddpm objective) on phase
+                (d) cli/train.py's build_trainer on the config with its
+                depth cut to 8 (batch 32, the ddpm objective) on phase
                 11's shards: 10 steps with a checkpoint at 6, a new
                 trainer resumed from 6, deterministic algorithms on;
                 finite losses, the first mse near 1 (an untrained FiT
@@ -117,8 +118,9 @@ Phases (any failure raises and exits non-zero; nothing is caught):
                 CUDA vs CPU, the velocity and the REPA projection within
                 1e-4 relative L2, for configs/fitv2_xl_lwd.yaml (FiTLwD-XL:
                 K 12 segments of 3 blocks, 12 REPA blocks) and
-                configs/bfm_xl.yaml (BFM-XL: a 20-block shared encoder, K 6
-                decoders of 5 blocks, RMSNorm q/k, 1.24 B parameters); each
+                configs/bfm_xl.yaml (BFM-XL's widths, RMSNorm q/k, its depth
+                cut to an 8-block shared encoder and K 6 decoders of 2
+                blocks; the config: 20 and 6 of 5); each
                 model's weights then written as a port checkpoint
                 (checkpoint-0/train_state.pt, ema_params) and sampled in
                 bf16 at batch 8 (a merged YAML sets dtype: bfloat16) through
@@ -127,8 +129,8 @@ Phases (any failure raises and exits non-zero; nothing is caught):
                 sample_cfg, CFG 1.4, 21 sub-steps a segment (a CFG eval: K1
                 7, K2 3, K4 3); (c) BFM-XL sample_maruyama_cfg with
                 --self-guidance, CFG 1.4 for t in GUIDANCE, 42 sub-steps a
-                segment (an eval: K1 40 in the encoder, the decoders' and
-                final layer's conditioning per token; K3 25; K2 and K4 0);
+                segment (an eval: K1 16 in the encoder, the decoders' and
+                final layer's conditioning per token; K3 10; K2 and K4 0);
                 (d) FiTLwD-XL's sample_multiscale (N 16 -> 64 -> 256, no
                 CFG, 21 sub-steps), then K1, K2 and K4 at each of its grids,
                 N 16, 64 and 256 (batch 8), BFM's K1 (D 384) and K2 + K4
@@ -139,16 +141,52 @@ Phases (any failure raises and exits non-zero; nothing is caught):
                 samples V1_RATE_CALLS batches, and the full-pipeline rate
                 is the median of its batches (denoise, VAE, uint8, the copy
                 to the host), beside the call's total with the npz.
-The deterministic trainer runs of 11 (c) and 12 (d) run in child processes
-of this script (`--child NAME DIR`) with CUBLAS_WORKSPACE_CONFIG=:4096:8,
-which deterministic algorithms require and which cuBLAS reads once when it
-starts: set for the whole process, it made every sampler step's host side
-2.0-2.4x slower. Everything else runs here without it.
+ 14. lwd train - LwD / BFM training: (a) K1, K2 and K4 inside their
+                autograd Functions at the multi-scale training tiers'
+                grids (N 16 and 64, batch 32, XL widths) and K3's at
+                BFM-XL's shape (RMSNorm'd q/k, batch 32, N 256), bf16 and
+                fp32, at phase 11's gates; (b) one fp32 FiTLwD-XL reflow
+                segment update (configs/fitv2_xl_lwd.yaml as it stands,
+                batch 4, label drops) on CUDA against the CPU on the same
+                weights and draws: the loss, the gradient norm, every
+                updated master and first moment within 1e-4 relative L2;
+                (c) the main path, cli/train_lwd.py's build_trainer on
+                configs/fitv2_xl_lwd.yaml with a merged bf16 YAML (0.899 B
+                parameters, bf16 compute over fp32 masters, mu and EMA, a
+                constant lr, batch 32, the native loader over 128 square
+                synthetic shards; the model built on the CPU): 3 batches
+                of 3 segment updates with a checkpoint at 2 (the one 14.4
+                GB checkpoint the two runs write), then a new trainer
+                resumed from it, in a child process with deterministic
+                algorithms on: exact launch counts (an update: K1 9, K2 4,
+                K4 4), the resumed run's segments, losses, parameters, EMA
+                and moments bit-identical; then the rate from a third run
+                (determinism off, a sync after each batch: the median of 3
+                batches after 2), images/s, segment updates/s and peak
+                memory; then cli/sample_lwd on that checkpoint; (d) one
+                multi-scale update per tier (segments 0, 2, 7: N 16, 64,
+                256); (f) a torch.profiler window over one segment update,
+                its busy time split into forward, backward, the update
+                over every parameter and the rest; (e) configs/bfm.yaml as
+                it stands (fp32, batch 32): a reflow update, one finetune
+                update per mode (the shared encoder bit-equal after it),
+                a distillation update from a seeded FiT teacher of depth 2
+                (XL widths, 8 Euler sub-steps), and a reflow update at
+                BFM-XL's widths cut to 2 encoder blocks and 6 decoders of
+                1 (K3's Function backward on a model path), each with
+                exact launch counts.
+The deterministic trainer runs of 11 (c), 12 (d) and 14 (c) run in child
+processes of this script (`--child NAME DIR`) with
+CUBLAS_WORKSPACE_CONFIG=:4096:8, which deterministic algorithms require
+and which cuBLAS reads once when it starts: set for the whole process, it
+made every sampler step's host side 2.0-2.4x slower. Everything else runs
+here without it.
 Each path's counts are set to 0 just before it runs and read just after.
 The line before the last is the JSON list of kernels (K1-K5 with their
 Functions' forward and backward times and gradient errors; K2's RoPE-only
 case; each path's launches, K3's apart where K4 was counted; phase 13's
-cases with their `path`); each phase group prints its seconds ([time]);
+cases with their `path`, phase 14's Function cases in `train_cases` with
+theirs); each phase group prints its seconds ([time]);
 the last line is {"ok": true, "device": {...}}.
 """
 
@@ -227,6 +265,8 @@ EVAL_IMAGES, EVAL_BATCH = 512, 64
 # loss is E|x1 - x0|^2 = 2 per valid element, within sampling noise
 TRAIN_BATCH = 32
 TRAIN_STEPS, TRAIN_RESUME = 30, 20
+TRAIN_RESUME_DEPTH = 12  # the deterministic resume runs' depth (the rate's
+                         # run keeps the config's 36)
 TRAIN_TIMED = 8  # the rate's window: steps TRAIN_TIMED + 1 to 2 TRAIN_TIMED
 TRAIN_SHARDS = 512
 TRAIN_PARITY_DEPTH = 4
@@ -243,6 +283,7 @@ TOL_GRAD_BF16 = 3e-2  # a Function's bf16 gradients vs autograd of the plain
 V1_CONFIG = 'configs/fit_xl.yaml'
 V1_PARITY_INDEX = STEPS // 2
 V1_TRAIN_STEPS, V1_TRAIN_RESUME = 10, 6
+V1_TRAIN_DEPTH = 8  # the ddpm trainer's depth in the smoke (the config: 28)
 V1_FIRST_MSE = (0.9, 1.1)
 V1_RATE_CALLS = 3  # timed 250-step denoise calls a mode (the host's spread)
 # phase 13 (the LwD family): FiTLwD-XL (K 12 segments of 3 blocks) and
@@ -253,6 +294,24 @@ LWD_CONFIG = 'configs/fitv2_xl_lwd.yaml'
 BFM_XL_CONFIG = 'configs/bfm_xl.yaml'
 LWD_STEPS_PER_FLOW, BFM_STEPS_PER_FLOW = 21, 42
 LWD_CFG_SCALE = 1.4
+# BFM-XL's depth in the smoke: 8 encoder blocks and 6 decoders of 2 (the
+# config: 20 and 6 of 5), at its widths
+BFM_XL_CUT = dict(depth=12, number_of_representation_blocks=8)
+# phase 14 (LwD training): the multi-scale tiers' grids (N) whose Functions
+# are checked; the CUDA-vs-CPU update's batch; the main path's square
+# shards, batches (3 segment updates each), the checkpoint the resumed run
+# starts from, the timed run's warm-up and timed batches; the multi-scale
+# tiers' boundaries and a segment of each; the distillation teacher's
+# depth (XL widths) and Euler sub-steps
+LWD_TRAIN_GRIDS = (16, 64)
+LWD_PARITY_BATCH = 4
+LWD_SHARDS = 128
+LWD_TRAIN_BATCHES, LWD_TRAIN_RESUME = 3, 2
+LWD_TRAIN_WARM, LWD_TRAIN_TIMED = 2, 3
+LWD_MS_INDICES, LWD_MS_SEGMENTS = (2, 7), (0, 2, 7)
+LWD_TEACHER_DEPTH, LWD_SOLVER_STEPS = 2, 8
+LWD_TRAIN_REPS = 5  # timed calls a side of each (a) case (each behind a
+                    # 25 ms device sleep)
 
 
 def say(*args):
@@ -1300,14 +1359,16 @@ def phase_eval(card, out_dir):
         'comparable across this pipeline only)')
 
 
-def _grad_case(label, dtype, function, plain, arrays, seed, gate):
+def _grad_case(label, dtype, function, plain, arrays, seed, gate,
+               reps=REPS):
     """A kernel's autograd Function (its kernel forward, then its
     ``*_backward``) against autograd of its plain version on the same card
     inputs: first the Function's forward output, recorded by autograd as
     the trainer records it, against the plain output at phase 3's gates
     (_compare with `gate`, 'norm' or 'attention'); then the gradients
     (fp32: within TOL_FP32_REL of the largest |grad|; bf16:
-    TOL_GRAD_BF16); then the median times of each side's forward
+    TOL_GRAD_BF16); then the median times (of `reps` calls) of each side's
+    forward
     (autograd recording) and of its backward alone (the graph kept between
     calls). `function` and `plain` take `arrays` (leaf tensors)."""
     import torch
@@ -1350,9 +1411,9 @@ def _grad_case(label, dtype, function, plain, arrays, seed, gate):
         leaves = [a.detach().requires_grad_(True) for a in arrays]
         out = fn(*leaves)
         outs = out if isinstance(out, tuple) else (out,)
-        times[side + 'fwd_us'] = _time_ms(lambda: fn(*leaves)) * 1e3
+        times[side + 'fwd_us'] = _time_ms(lambda: fn(*leaves), reps) * 1e3
         times[side + 'bwd_us'] = _time_ms(lambda: torch.autograd.grad(
-            outs, leaves, cots, retain_graph=True)) * 1e3
+            outs, leaves, cots, retain_graph=True), reps) * 1e3
         del out, outs
     say(f'[train] {label} {kind}: Function forward {times["fwd_us"]:.1f} us '
         f'(the kernel) + backward {times["bwd_us"]:.1f} us; plain autograd '
@@ -1573,9 +1634,10 @@ def _differ(state, snap):
 
 def phase_train_deterministic(card, out_dir):
     """Phase 11 (c), in a child process with DETERMINISTIC_ENV: cli/train.
-    py's build_trainer on configs/fitv2_xl.yaml (depth 36, the per-host
-    batch 32, bf16 compute over fp32 masters, a bf16 first moment, fp32
-    EMA, the native loader) on TRAIN_SHARDS synthetic shards (written to
+    py's build_trainer on configs/fitv2_xl.yaml (its depth cut to
+    TRAIN_RESUME_DEPTH, the per-host batch 32, bf16 compute over fp32
+    masters, a bf16 first moment, fp32 EMA, the native loader) on
+    TRAIN_SHARDS synthetic shards (written to
     out_dir/latents) with non-square grids padded to 256: TRAIN_STEPS
     steps with a checkpoint at TRAIN_RESUME, then a new trainer resumed
     from TRAIN_RESUME to TRAIN_STEPS, deterministic algorithms on (and the
@@ -1588,7 +1650,8 @@ def phase_train_deterministic(card, out_dir):
     shards = os.path.join(out_dir, 'latents')
     make_synthetic_latent_shards(shards, n=TRAIN_SHARDS, target_len=N,
                                  seed=SEED)
-    cfg = _train_config('configs/fitv2_xl.yaml', out_dir, TRAIN_RESUME)
+    cfg = _train_config('configs/fitv2_xl.yaml', out_dir, TRAIN_RESUME,
+                        TRAIN_RESUME_DEPTH)
     run_dir = os.path.join(out_dir, 'train')
     args = cli.parse_args(['--cfgdir', 'configs/fitv2_xl.yaml',
                            '--output-dir', run_dir, '--max-steps',
@@ -1672,13 +1735,16 @@ def phase_train_deterministic(card, out_dir):
                 peak_bytes=peak, first_loss=losses[0], losses=losses)
 
 
-def _train_config(path, out_dir, checkpointing_steps):
-    """The YAML at `path` with phase 11's shards and a checkpoint cadence."""
+def _train_config(path, out_dir, checkpointing_steps, depth=None):
+    """The YAML at `path` with phase 11's shards and a checkpoint cadence,
+    its network's depth cut to `depth` when given."""
     from fitv2_tpu_torch.utils import load_config
     cfg = load_config([path])
     cfg['data']['params']['train']['data_path'] = os.path.join(out_dir,
                                                                'latents')
     cfg['accelerate']['checkpointing_steps'] = checkpointing_steps
+    if depth is not None:
+        cfg['diffusion']['network_config']['params']['depth'] = depth
     return cfg
 
 
@@ -1694,14 +1760,16 @@ def phase_train(card, out_dir):
     from fitv2_tpu_torch.cli import train as cli
     torch.cuda.empty_cache()  # the child's trainer gets the card's memory
     det = _run_child_phase('train', out_dir)
-    batch, depth = det['batch'], det['depth']
+    batch = det['batch']
     timed = 2 * TRAIN_TIMED
     cfg = _train_config('configs/fitv2_xl.yaml', out_dir, TRAIN_RESUME)
     args = cli.parse_args(['--cfgdir', 'configs/fitv2_xl.yaml',
                            '--output-dir', os.path.join(out_dir, 'timed'),
                            '--max-steps', str(timed), '--device', 'cuda'])
-    _, _, losses_t, stamps, _, counts_t, _ = _train_run(
+    trainer, _, losses_t, stamps, _, counts_t, _ = _train_run(
         cli, cfg, args, False, log_every=TRAIN_TIMED, write=False)
+    depth = trainer.model.depth
+    del trainer
     want = dict(_expected_counts(timed, depth, fused_qk_rope=1,
                                  flash_masked_attention=1),
                 flash_masked_attention_bounded=timed * depth)
@@ -1709,11 +1777,11 @@ def phase_train(card, out_dir):
         raise AssertionError(f'train timed run: launches {counts_t}, losses '
                              f'{losses_t}')
     ms = (stamps[timed] - stamps[TRAIN_TIMED]) * 1e3 / TRAIN_TIMED
-    say(f'[train] rate, deterministic algorithms off, metrics read every '
-        f'{TRAIN_TIMED} steps: steps {TRAIN_TIMED + 1}-{timed} (loader '
-        f'included, from a sync to a sync) {ms:.2f} ms a step = '
-        f'{batch / ms * 1e3:.2f} images/s; launches {counts_t} == expected '
-        f'[{card}]')
+    say(f'[train] rate, XL/2 depth {depth}, deterministic algorithms off, '
+        f'metrics read every {TRAIN_TIMED} steps: steps {TRAIN_TIMED + 1}-'
+        f'{timed} (loader included, from a sync to a sync) {ms:.2f} ms a '
+        f'step = {batch / ms * 1e3:.2f} images/s; launches {counts_t} == '
+        f'expected [{card}]')
     return det['counts'], det['counts_resumed'], dict(
         det, ms_per_step=ms, images_per_s=batch / ms * 1e3)
 
@@ -1903,8 +1971,8 @@ def phase_fitv1_sampling(model_bf16, vae, card, out_dir):
 
 def phase_fitv1_train(card, out_dir):
     """Phase 12 (d), in a child process with DETERMINISTIC_ENV:
-    cli/train.py's build_trainer on configs/fit_xl.yaml as
-    it stands (depth 28, batch 32, learn_sigma -> the ddpm objective over
+    cli/train.py's build_trainer on configs/fit_xl.yaml with its depth cut
+    to V1_TRAIN_DEPTH (batch 32, learn_sigma -> the ddpm objective over
     1000 steps, bf16 compute over fp32 masters) on phase 11's shards:
     V1_TRAIN_STEPS steps with a checkpoint at V1_TRAIN_RESUME, then a new
     trainer resumed from there, deterministic algorithms on; finite
@@ -1914,7 +1982,7 @@ def phase_fitv1_train(card, out_dir):
     import shutil
     import torch
     from fitv2_tpu_torch.cli import train as cli
-    cfg = _train_config(V1_CONFIG, out_dir, V1_TRAIN_RESUME)
+    cfg = _train_config(V1_CONFIG, out_dir, V1_TRAIN_RESUME, V1_TRAIN_DEPTH)
     run_dir = os.path.join(out_dir, 'train_fitv1')
     args = cli.parse_args(['--cfgdir', V1_CONFIG, '--output-dir', run_dir,
                            '--max-steps', str(V1_TRAIN_STEPS), '--device',
@@ -1989,22 +2057,25 @@ def phase_fitv1_train(card, out_dir):
                 peak_bytes=peak, first_mse=mses[0], losses=losses)
 
 
-def _lwd_model_fp32(config):
-    """`config`'s network (the LwD family) on the CPU in fp32, seeded init,
-    every adaLN output layer and final projection perturbed (untrained, its
-    velocity is exactly 0 and parity would be vacuous)."""
+def _lwd_model_fp32(config, **overrides):
+    """`config`'s network (the LwD family; `overrides` replace its params)
+    built on the card in fp32 from the seeded CUDA generator (the host's
+    init takes ~10 s at 0.9 B parameters), every adaLN output layer and
+    final projection perturbed (untrained, its velocity is exactly 0 and
+    parity would be vacuous)."""
     import torch
     from fitv2_tpu_torch.utils import config_to_model, load_config
     torch.manual_seed(SEED + 13)
-    model = config_to_model(load_config([config])['diffusion'][
-        'network_config'])
+    with torch.device('cuda'):
+        model = config_to_model(load_config([config])['diffusion'][
+            'network_config'], **overrides)
     gen = torch.Generator().manual_seed(SEED + 14)
     with torch.no_grad():
         for name, p in model.named_parameters():
             if 'adaLN_modulation.fc_out' in name or (
                     name.startswith('final_layers.') and '.linear.' in name):
-                p.add_(0.02 * torch.randn(p.shape, generator=gen))
-    return model.eval()
+                p.add_(0.02 * torch.randn(p.shape, generator=gen).cuda())
+    return model.cpu().eval()
 
 
 def _lwd_parity(tag, model_cpu):
@@ -2224,6 +2295,11 @@ def phase_lwd(card, out_dir, vae_path):
     with open(bf16_yaml, 'w') as f:
         f.write('diffusion:\n  network_config:\n    params:\n'
                 '      dtype: bfloat16\n')
+    bfm_yaml = os.path.join(out_dir, 'bfm_xl_cut.yaml')
+    with open(bfm_yaml, 'w') as f:
+        f.write('diffusion:\n  network_config:\n    params:\n'
+                '      dtype: bfloat16\n' + ''.join(
+                    f'      {k}: {v}\n' for k, v in BFM_XL_CUT.items()))
     counts = {}
 
     def write_ckpt(tag, model_cpu):
@@ -2236,14 +2312,14 @@ def phase_lwd(card, out_dir, vae_path):
             f'written in {time.perf_counter() - t0:.1f} s')
         return path
 
-    def run(path, config, model, ckpt, what, per_eval):
+    def run(path, cfgdir, model, ckpt, what, per_eval):
         """`path`'s denoise rate on `model`, then its CLI call on `ckpt`
         with exact counts (`per_eval` a velocity eval)."""
         z, y = (a.cuda() for a in _lwd_inputs(path))
         evals = model.number_of_perflow * _lwd_sub_steps(path)
         t_den, walls = _lwd_denoise(path, model, z, y)
         counts[path], (med, lo, hi), secs, wall = _lwd_cli(path, [
-            '--cfgdir', config, bf16_yaml, '--ckpt', ckpt, '--global-seed',
+            '--cfgdir', *cfgdir, '--ckpt', ckpt, '--global-seed',
             str(SEED), '--vae', vae_path, '--device', 'cuda',
             *_lwd_cli_flags(path)], _lwd_counts(evals, per_eval), out_dir)
         n = V1_RATE_CALLS * BATCH
@@ -2268,12 +2344,12 @@ def phase_lwd(card, out_dir, vae_path):
     K_seg = model.number_of_perflow
     per_eval = dict(fused_adaln_norm=7, fused_qk_rope=3,
                     flash_masked_attention=3, flash_masked_attention_bounded=3)
-    run('lwd_xl', LWD_CONFIG, model, ckpt,
+    run('lwd_xl', [LWD_CONFIG, bf16_yaml], model, ckpt,
         f'sample_cfg, CFG {LWD_CFG_SCALE}, {K_seg} segments x '
         f'{LWD_STEPS_PER_FLOW} sub-steps; a CFG eval (batch {2 * BATCH}): '
         'K1 7, K2 3, K4 3', per_eval)
     # (d) the multi-scale sampler on the same model: 4x4 -> 8x8 -> 16x16
-    run('lwd_multiscale', LWD_CONFIG, model, ckpt,
+    run('lwd_multiscale', [LWD_CONFIG, bf16_yaml], model, ckpt,
         f'sample_multiscale, no CFG, N 16 -> 64 -> 256 over {K_seg} '
         f'segments x {LWD_STEPS_PER_FLOW} sub-steps; an eval (batch '
         f'{BATCH}): K1 7, K2 3, K4 3', per_eval)
@@ -2281,16 +2357,17 @@ def phase_lwd(card, out_dir, vae_path):
     shutil.rmtree(os.path.dirname(ckpt))
     torch.cuda.empty_cache()
 
-    # (a) + (c): BFM-XL (configs/bfm_xl.yaml), sample_maruyama_cfg with
-    # representation self-guidance in the guidance window
-    model_cpu = _lwd_model_fp32(BFM_XL_CONFIG)
+    # (a) + (c): BFM-XL (configs/bfm_xl.yaml cut to BFM_XL_CUT),
+    # sample_maruyama_cfg with representation self-guidance in the guidance
+    # window
+    model_cpu = _lwd_model_fp32(BFM_XL_CONFIG, **BFM_XL_CUT)
     model = _lwd_parity('bfm_xl', model_cpu)
     ckpt = write_ckpt('bfm_xl', model_cpu)
     del model_cpu
     model = model.to(torch.bfloat16)
     depth_enc = model.number_of_representation_blocks
     depth_dec = model.layers_per_flow
-    run('bfm_xl', BFM_XL_CONFIG, model, ckpt,
+    run('bfm_xl', [BFM_XL_CONFIG, bfm_yaml], model, ckpt,
         f'sample_maruyama_cfg, CFG {LWD_CFG_SCALE} and self-guidance for t '
         f'in {list(GUIDANCE)}, {model.number_of_perflow} segments x '
         f'{BFM_STEPS_PER_FLOW} sub-steps; an eval (batch {2 * BATCH}): K1 '
@@ -2306,13 +2383,611 @@ def phase_lwd(card, out_dir, vae_path):
     return cases, counts
 
 
+# -- phase 14: LwD training ---------------------------------------------------
+
+def _lwd_train_yaml(out_dir, resume_step):
+    """The YAML merged after configs/fitv2_xl_lwd.yaml on phase 14's main
+    path: bf16 compute, the synthetic shards, a checkpoint at
+    `resume_step`."""
+    path = os.path.join(out_dir, 'lwd_train.yaml')
+    with open(path, 'w') as f:
+        f.write('diffusion:\n  network_config:\n    params:\n'
+                '      dtype: bfloat16\n'
+                'data:\n  params:\n    train:\n'
+                f'      data_path: {os.path.join(out_dir, "lwd_latents")}\n'
+                f'accelerate:\n  checkpointing_steps: {resume_step}\n')
+    return [LWD_CONFIG, path]
+
+
+def _lwd_update_counts(model, recipe='reflow', teacher_depth=0,
+                       solver_steps=0):
+    """Exact launch counts of one segment update's forward (the wrappers
+    count forward launches; the backward passes are PyTorch): K1 twice a
+    block with (B, D) conditioning and once in such a final layer; K2 and
+    K4 once a block with no-affine LayerNorm q/k, K3 with RMSNorm q/k; a
+    distillation teacher's forwards (a FiT of `teacher_depth`, K1 K2 K4)
+    `solver_steps` times."""
+    from fitv2_tpu_torch.models import FiTLwDSharedEncSepDec
+    if isinstance(model, FiTLwDSharedEncSepDec):
+        enc, dec = model.number_of_representation_blocks, \
+            model.layers_per_flow
+        mid = model.number_of_mid_blocks
+        k1, blocks = 2 * enc, enc + dec
+        if recipe == 'finetune':  # the encoder and a decoder twice
+            k1, blocks = 4 * enc, 2 * enc + mid + 2 * dec
+    else:
+        blocks = (model.layers_per_flow + model.rep_layers_per_flow
+                  + model.number_of_shared_blocks)
+        k1 = 2 * blocks + 1
+    block = model.segments[0][0].attn
+    ln = block.bounded
+    want = {'fused_adaln_norm': k1, 'fused_qk_rope': blocks if ln else 0,
+            'flash_masked_attention': blocks,
+            'flash_masked_attention_bounded': blocks if ln else 0}
+    if teacher_depth:
+        for k, n in (('fused_adaln_norm', 2 * teacher_depth + 1),
+                     ('fused_qk_rope', teacher_depth),
+                     ('flash_masked_attention', teacher_depth),
+                     ('flash_masked_attention_bounded', teacher_depth)):
+            want[k] += solver_steps * n
+    return want
+
+
+def phase_lwd_train_kernels():
+    """Phase 14 (a): K1, K2 and K4 inside their autograd Functions at the
+    multi-scale training tiers' grids (N 16 and 64, batch TRAIN_BATCH, XL
+    widths, every token valid) and K3's at BFM-XL's shape (RMSNorm'd q/k,
+    batch TRAIN_BATCH, N 256, 16 heads of 72, unmasked), bf16 and fp32,
+    with phase 11's _grad_case (forward at phase 3's gates, gradients
+    against plain autograd: fp32 1e-5, bf16 3e-2 of the largest; the
+    times the median of LWD_TRAIN_REPS calls)."""
+    import torch
+    from fitv2_tpu_torch import kernels as K
+    dev = torch.device('cuda')
+    gen = torch.Generator(device=dev).manual_seed(SEED + 30)
+    b = TRAIN_BATCH
+    cases = {'adaln': [], 'qk_rope': [], 'attention': []}
+    for dtype in (torch.bfloat16, torch.float32):
+        for n in LWD_TRAIN_GRIDS:
+            path = 'lwd_multiscale_train'
+            x = (torch.randn(b, n, D, device=dev, generator=gen) * 2 + 3
+                 ).to(dtype)
+            mod = (0.5 * torch.randn(b, 6 * D, device=dev, generator=gen)
+                   ).to(dtype)
+
+            def adaln(fn):
+                return lambda a, m: fn(a, *m.chunk(6, dim=-1)[:2])
+            cases['adaln'].append(dict(_grad_case(
+                f'adaln ({b},{n},{D})', dtype, adaln(K.adaln_norm),
+                adaln(K.adaln_norm_reference), [x, mod], 1, 'norm',
+                LWD_TRAIN_REPS), path=path))
+            qkv = torch.randn(b, n, 3, H, DH, device=dev, generator=gen
+                              ).to(dtype)
+            ang = torch.rand(b, n, DH, device=dev, generator=gen) * 6.3
+            cos, sin = torch.cos(ang), torch.sin(ang)
+
+            def qk(fn):
+                return lambda a: fn(*a.unbind(2)[:2], cos, sin)
+            cases['qk_rope'].append(dict(_grad_case(
+                f'qk_rope ({b},{n},{H},{DH})', dtype, qk(K.qk_norm_rope),
+                qk(K.qk_norm_rope_reference), [qkv], 2, 'norm',
+                LWD_TRAIN_REPS), path=path))
+            q, k, v = qkv.unbind(2)
+            qkv_n = torch.stack([*K.qk_norm_rope_reference(q, k, cos, sin),
+                                 v], dim=2)
+            cases['attention'].append(dict(_grad_case(
+                f'attention[bounded,no mask] ({b},{n},{H},{DH})', dtype,
+                lambda a: K.masked_attention(*a.unbind(2), None,
+                                             bounded_logits=True),
+                lambda a: K.attention_bounded_reference(*a.unbind(2)),
+                [qkv_n], 3, 'attention', LWD_TRAIN_REPS), variant='bounded',
+                mask=False, path=path))
+        qkv = torch.randn(b, N, 3, H, DH, device=dev, generator=gen)
+        qkv[:, :, :2] *= torch.rsqrt((qkv[:, :, :2] ** 2).mean(
+            -1, keepdim=True) + 1e-6)  # RMSNorm, its weight at 1
+        cases['attention'].append(dict(_grad_case(
+            f'attention[online,no mask,RMSNorm q/k] ({b},{N},{H},{DH})',
+            dtype, lambda a: K.masked_attention(*a.unbind(2), None,
+                                                bounded_logits=False),
+            lambda a: K.attention_reference(*a.unbind(2), None),
+            [qkv.to(dtype)], 4, 'attention', LWD_TRAIN_REPS),
+            variant='online', mask=False, path='bfm_xl_train',
+            qk_norm='rmsnorm'))
+    torch.cuda.synchronize()
+    return cases
+
+
+def phase_lwd_train_parity():
+    """Phase 14 (b): one fp32 FiTLwD-XL reflow segment update
+    (configs/fitv2_xl_lwd.yaml as it stands, perturbed seeded weights,
+    batch LWD_PARITY_BATCH on the 16 x 16 grid, the middle segment, label
+    drops) on CUDA (kernels, their Functions' backward, the update over
+    every parameter) and on the CPU (plain versions) with the same draws:
+    the loss and gradient norm, every updated master and every first
+    moment (0.1 g) within TOL_SLICE_REL_L2 relative L2."""
+    import torch
+    from fitv2_tpu_torch.models.grid_utils import make_grid_mask_size
+    from fitv2_tpu_torch.train import (
+        OptimizerConfig, create_train_state, make_lwd_train_step)
+    with _clock('phase 14 (b) FiTLwD-XL built'):
+        model = _lwd_model_fp32(LWD_CONFIG)
+    seg = model.number_of_perflow // 2
+    b = LWD_PARITY_BATCH
+    gen = torch.Generator().manual_seed(SEED + 31)
+    grid, mask, size = make_grid_mask_size(b, 16, 16, N)
+    batch = dict(feature=torch.randn(b, N, 16, generator=gen), grid=grid,
+                 mask=mask, label=torch.tensor([207, 360, 1, 999][:b]),
+                 size=size)
+    draws = dict(x0=torch.randn(b, N, 16, generator=gen),
+                 r=torch.rand(b, generator=gen),
+                 drop_ids=torch.tensor([0, 1, 0, 0][:b]))
+    models = {'cuda': copy.deepcopy(model).to('cuda'), 'cpu': model}
+    out = {}
+    for device in ('cuda', 'cpu'):
+        m = models.pop(device)
+        state = create_train_state(m, OptimizerConfig(learning_rate=1e-4))
+        step = make_lwd_train_step(m)
+        _reset_counts()
+        t0 = time.perf_counter()
+        _, metrics = step(state, {k: v.to(device) for k, v in batch.items()},
+                          seg, draws={k: v.to(device)
+                                      for k, v in draws.items()})
+        if device == 'cuda':
+            torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        out[device] = (metrics, state, _lwd_read_counts(), secs)
+        del m, step
+    (m_gpu, s_gpu, counts, t_gpu), (m_cpu, s_cpu, _, t_cpu) = \
+        out['cuda'], out['cpu']
+    want = _lwd_counts(1, _lwd_update_counts(model))
+    if counts != want:
+        raise AssertionError(f'lwd train parity: launches {counts} != {want}')
+    rels = {}
+    for key in ('loss', 'grad_norm'):
+        a, r = m_gpu[key].item(), m_cpu[key].item()
+        rels[key] = abs(a - r) / abs(r)
+    worst = {'masters': (0.0, ''), 'mu': (0.0, '')}
+    for n, p in s_cpu.params.items():
+        q = s_gpu.params[n]
+        pairs = (('masters', q, p), ('mu', s_gpu.optimizer.state[q]['mu'],
+                                     s_cpu.optimizer.state[p]['mu']))
+        for what, o, r in pairs:
+            norm = r.norm().item()
+            rel = (o.cpu() - r).norm().item() / norm if norm else \
+                o.abs().max().item()
+            worst[what] = max(worst[what], (rel, n))
+    ok = (max(rels.values()) <= TOL_SLICE_REL_L2
+          and all(v <= TOL_SLICE_REL_L2 for v, _ in worst.values()))
+    touched = sum(1 for p in s_cpu.params.values()
+                  if s_cpu.optimizer.state[p]['mu'].any())
+    say(f'[lwd-train] FiTLwD-XL fp32 (0.899 B parameters), one reflow '
+        f'update of segment {seg}, batch {b}, CUDA vs CPU: loss '
+        f'{m_gpu["loss"].item():.6f} vs {m_cpu["loss"].item():.6f} '
+        f'(relative {rels["loss"]:.3e}), grad norm relative '
+        f'{rels["grad_norm"]:.3e}; worst master relative L2 '
+        f'{worst["masters"][0]:.3e} ({worst["masters"][1]}), worst first '
+        f'moment (0.1 g) {worst["mu"][0]:.3e} ({worst["mu"][1]}) <= '
+        f'{TOL_SLICE_REL_L2}: {"ok" if ok else "FAIL"}; {touched} of '
+        f'{len(s_cpu.params)} tensors got a nonzero gradient; launches '
+        f'{counts} == expected; the update took {t_gpu:.2f} s on CUDA '
+        f'(first call), {t_cpu:.1f} s on the CPU')
+    if not ok:
+        raise AssertionError(f'lwd train parity: {rels}, {worst}')
+    return dict(rels, masters=worst['masters'][0], mu=worst['mu'][0])
+
+
+def _lwd_train_run(cli, cfg, args, resume, log_every=1, write=True,
+                   skip=()):
+    """One LwDTrainer run of phase 14 (c) from cli/train_lwd.py's
+    build_trainer: the segments and losses of every update, the wall time
+    at each logged batch (after a sync), the checkpoint saves (none are
+    written unless `write`, and none at the batches in `skip`), the peak
+    device memory and the launch counts.
+    Checks bf16 compute over fp32 masters, an fp32 first moment and a
+    constant learning rate (JAX's make_optimizer)."""
+    import torch
+    torch.manual_seed(SEED)  # the initial weights
+    with _clock('phase 14 (c) cli/train_lwd build_trainer'):
+        trainer = cli.build_trainer(cfg, args)
+    trainer.cfg.log_every = log_every
+    if (trainer.model.dtype != torch.bfloat16 or any(
+            p.dtype != torch.float32
+            for p in trainer.master_model.parameters())
+            or trainer.optimizer_config.mu_dtype is not None
+            or trainer.optimizer_config.lr_schedule is not None):
+        raise AssertionError('lwd train: expected bf16 compute over fp32 '
+                             'masters, an fp32 mu and a constant lr')
+    segments, losses, stamps, saves = [], [], {}, []
+    step_fn, save_fn = trainer._train_step, trainer.ckpt.save
+
+    def step(state, batch, seg, generator=None, draws=None):
+        segments.append(seg)
+        state, metrics = step_fn(state, batch, seg, generator, draws)
+        losses.append(metrics['loss'])
+        return state, metrics
+
+    def save(step, state_dict):
+        t0 = time.perf_counter()
+        path = save_fn(step, state_dict) if write and step not in skip \
+            else None
+        saves.append((step, time.perf_counter() - t0))
+        return path
+
+    def hook(step, metrics):
+        torch.cuda.synchronize()
+        stamps[step] = time.perf_counter()
+
+    trainer._train_step, trainer.ckpt.save = step, save
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    stamps[0] = time.perf_counter()
+    with _clock(f'phase 14 (c) train ({"resumed" if resume else "from 0"})'):
+        state = trainer.train(max_steps=args.max_steps, resume=resume,
+                              metric_hook=hook)
+        torch.cuda.synchronize()
+    counts = _lwd_read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    return (trainer, state, segments, [v.item() for v in losses], stamps,
+            saves, counts, peak)
+
+
+def phase_lwd_train_deterministic(card, out_dir):
+    """Phase 14 (c), in a child process with DETERMINISTIC_ENV:
+    cli/train_lwd.py's build_trainer on configs/fitv2_xl_lwd.yaml with a
+    merged bf16 YAML (FiTLwD-XL, 12 segments of 3 blocks, 12 REPA blocks,
+    batch 32, the native loader) on LWD_SHARDS synthetic square shards:
+    LWD_TRAIN_BATCHES batches of 3 segment updates with a checkpoint at
+    LWD_TRAIN_RESUME, then a new trainer resumed from it, deterministic
+    algorithms on: the segments, losses, exact launch counts, and the
+    resumed run's parameters, EMA and moments bit-identical to the
+    uninterrupted run's."""
+    import torch
+    from fitv2_tpu_torch.cli import train_lwd as cli
+    from fitv2_tpu_torch.data import make_synthetic_latent_shards
+    from fitv2_tpu_torch.utils import load_config
+    make_synthetic_latent_shards(os.path.join(out_dir, 'lwd_latents'),
+                                 n=LWD_SHARDS, target_len=N, seed=SEED,
+                                 square=True)
+    cfgdir = _lwd_train_yaml(out_dir, LWD_TRAIN_RESUME)
+    run_dir = os.path.join(out_dir, 'lwd_train')
+    args = cli.parse_args(['--cfgdir', *cfgdir, '--output-dir', run_dir,
+                           '--max-steps', str(LWD_TRAIN_BATCHES),
+                           '--device', 'cuda'])
+    cfg = load_config(cfgdir)
+    torch.use_deterministic_algorithms(True)
+    fill = torch.utils.deterministic.fill_uninitialized_memory
+    torch.utils.deterministic.fill_uninitialized_memory = False
+    try:
+        # the uninterrupted run writes only the checkpoint the resumed run
+        # starts from (the trainer's last save is the resumed run's)
+        trainer, state, segs, losses, stamps, saves, counts, peak = \
+            _lwd_train_run(cli, cfg, args, False,
+                           skip=(LWD_TRAIN_BATCHES,))
+        spp = trainer.cfg.segments_per_step
+        batch = trainer.cfg.global_batch_size
+        per_update = _lwd_update_counts(trainer.model)
+        n_params = sum(p.numel() for p in state.params.values())
+        with _clock('phase 14 (c) the state to the host'):
+            final, state_step = _snapshot(state), state.step
+        del trainer, state
+        torch.cuda.empty_cache()
+        ckpts = sorted(os.listdir(os.path.join(run_dir, 'checkpoints')))
+        if ckpts != [f'checkpoint-{LWD_TRAIN_RESUME}']:
+            raise AssertionError(f'lwd train: checkpoints {ckpts}')
+        # cli/sample_lwd reads checkpoint-LWD_TRAIN_RESUME: the resumed
+        # run's last save is not written either
+        _, state_b, segs_b, losses_b, _, _, counts_b, _ = \
+            _lwd_train_run(cli, cfg, args, True, skip=(LWD_TRAIN_BATCHES,))
+    finally:
+        torch.use_deterministic_algorithms(False)
+        torch.utils.deterministic.fill_uninitialized_memory = fill
+    updates = LWD_TRAIN_BATCHES * spp
+    if (len(losses) != updates or not all(map(math.isfinite, losses))
+            or state_step != updates):
+        raise AssertionError(f'lwd train: losses {losses}, step {state_step}')
+    say(f'[lwd-train] FiTLwD-XL bf16 (fp32 masters, fp32 mu, fp32 EMA; '
+        f'{n_params / 1e9:.3f} B parameters), batch {batch}, '
+        f'{LWD_TRAIN_BATCHES} batches x {spp} segment updates, native loader '
+        f'over {LWD_SHARDS} square shards: segments {segs}, losses '
+        f'{", ".join(f"{v:.4f}" for v in losses)}; peak device memory '
+        f'{peak / 2 ** 30:.2f} GiB; the checkpoint at batch '
+        f'{LWD_TRAIN_RESUME} written in {dict(saves)[LWD_TRAIN_RESUME]:.2f} s '
+        f'[{card}]')
+    for label, got, n in (('uninterrupted', counts, updates),
+                          ('resumed', counts_b,
+                           (LWD_TRAIN_BATCHES - LWD_TRAIN_RESUME) * spp)):
+        want = _lwd_counts(n, per_update)
+        if got != want:
+            raise AssertionError(f'lwd train {label}: launches {got} != '
+                                 f'{want}')
+        say(f'[lwd-train] {label} run, {n} segment updates: launches {got} '
+            f'== expected (an update: {per_update})')
+    resumed_from = LWD_TRAIN_RESUME * spp
+    if segs_b != segs[resumed_from:] or losses_b != losses[resumed_from:]:
+        raise AssertionError(f'lwd train: resumed segments {segs_b} / '
+                             f'losses {losses_b} != {segs[resumed_from:]} / '
+                             f'{losses[resumed_from:]}')
+    with _clock('phase 14 (c) the states compared'):
+        differ = _differ(state_b, final)
+    if differ:
+        say(f'[lwd-train] resumed vs uninterrupted: {len(differ)} tensors '
+            f'differ, e.g. {differ[:5]}')
+        raise AssertionError('lwd train: the resumed run is not '
+                             'bit-identical')
+    say(f'[lwd-train] resumed from batch {LWD_TRAIN_RESUME} to '
+        f'{LWD_TRAIN_BATCHES}: the segment stream replayed ({segs_b}), '
+        f'losses equal, and parameters, EMA, mu and nu bit-identical to the '
+        f'uninterrupted run (deterministic algorithms on)')
+    return dict(counts=counts, counts_resumed=counts_b, peak_bytes=peak,
+                losses=losses, segments=segs)
+
+
+def _busy_split(step, model):
+    """torch.profiler over one call of `step` (a segment update), its device
+    busy time (the union of kernel and copy intervals) split by the phase
+    that launched the work: forward (the model's forward_run_layer),
+    backward (loss.backward()), the update (what follows the backward: the
+    gradients into the masters, the zero gradients, norm, clip, AdamW, EMA)
+    and the rest (the draws, the master -> bf16 copy, the loss). Each part
+    ends with a synchronisation inside its range, so its device work lies
+    within it. Returns (ms by part, the profiled wall ms, launches)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+    forward, backward = model.forward_run_layer, torch.Tensor.backward
+
+    def fwd(*a, **k):
+        torch.cuda.synchronize()
+        with record_function('phase14:forward'):
+            out = forward(*a, **k)
+            torch.cuda.synchronize()
+        return out
+
+    def bwd(self, *a, **k):
+        torch.cuda.synchronize()
+        with record_function('phase14:backward'):
+            backward(self, *a, **k)
+            torch.cuda.synchronize()
+
+    model.forward_run_layer, torch.Tensor.backward = fwd, bwd
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with record_function('phase14:step'):
+                step()
+                torch.cuda.synchronize()
+            window = (time.perf_counter() - t0) * 1e3
+    finally:
+        del model.forward_run_layer
+        torch.Tensor.backward = backward
+    ranges, spans = {}, []
+    for evt in prof.events():
+        if evt.name.startswith('phase14:'):  # the host's range, not the
+            if evt.device_type == torch.autograd.DeviceType.CPU:  # device's
+                ranges[evt.name[len('phase14:'):]] = (evt.time_range.start,
+                                                      evt.time_range.end)
+        elif evt.device_type == torch.autograd.DeviceType.CUDA:
+            spans.append((evt.time_range.start, evt.time_range.end))
+    if not spans or set(ranges) != {'forward', 'backward', 'step'}:
+        raise RuntimeError(f'busy split: no device activity or ranges '
+                           f'{sorted(ranges)}')
+
+    def part(start):
+        if ranges['forward'][0] <= start < ranges['forward'][1]:
+            return 'forward'
+        if ranges['backward'][0] <= start < ranges['backward'][1]:
+            return 'backward'
+        if ranges['backward'][1] <= start < ranges['step'][1]:
+            return 'update'
+        return 'rest'
+
+    busy, ends, launches = {}, {}, 0
+    for start, stop in sorted(spans):
+        p = part(start)
+        launches += 1
+        end = ends.get(p, float('-inf'))
+        if stop > end:
+            busy[p] = busy.get(p, 0.0) + (stop - max(start, end)) / 1e3
+            ends[p] = stop
+    return {p: busy.get(p, 0.0) for p in ('forward', 'backward', 'update',
+                                          'rest')}, window, launches
+
+
+def phase_lwd_train(card, out_dir):
+    """Phase 14 (see the module docstring). Returns the kernel cases and
+    each path's counts."""
+    import numpy as np
+    import torch
+    from fitv2_tpu_torch.cli import sample_lwd
+    from fitv2_tpu_torch.cli import train_lwd as cli
+    from fitv2_tpu_torch.data import INLatentLoader
+    from fitv2_tpu_torch.train import (
+        OptimizerConfig, create_train_state, make_lwd_distill_step,
+        make_lwd_finetune_step, make_lwd_multiscale_train_step,
+        make_lwd_train_step)
+    from fitv2_tpu_torch.train.lwd_train_step import FINETUNE_MODES
+    from fitv2_tpu_torch.train.trainer import step_generator
+    from fitv2_tpu_torch.utils import load_config
+    with _clock('phase 14 (a) Functions'):
+        cases = phase_lwd_train_kernels()
+    with _clock('phase 14 (b) parity'):
+        parity = phase_lwd_train_parity()
+    torch.cuda.empty_cache()
+    with _clock('phase 14 (c) the deterministic child'):
+        det = _run_child_phase('lwd_train', out_dir)
+    counts = {'lwd_train': det['counts'],
+              'lwd_train_resumed': det['counts_resumed']}
+
+    # (c) the rate: a third run, deterministic algorithms off, a sync
+    # after every batch, no checkpoint written
+    cfgdir = _lwd_train_yaml(out_dir, LWD_TRAIN_RESUME)
+    timed = LWD_TRAIN_WARM + LWD_TRAIN_TIMED
+    args = cli.parse_args(['--cfgdir', *cfgdir, '--output-dir',
+                           os.path.join(out_dir, 'lwd_timed'),
+                           '--max-steps', str(timed), '--device', 'cuda'])
+    trainer, state, segs, losses, stamps, _, counts_t, peak = \
+        _lwd_train_run(cli, load_config(cfgdir), args, False, write=False)
+    spp, batch = trainer.cfg.segments_per_step, trainer.cfg.global_batch_size
+    per_update = _lwd_update_counts(trainer.model)
+    if counts_t != _lwd_counts(timed * spp, per_update) or not all(
+            map(math.isfinite, losses)):
+        raise AssertionError(f'lwd train timed run: launches {counts_t}, '
+                             f'losses {losses}')
+    walls = [(stamps[s] - stamps[s - 1]) * 1e3
+             for s in range(LWD_TRAIN_WARM + 1, timed + 1)]
+    ms = statistics.median(walls)
+    say(f'[lwd-train] rate, deterministic algorithms off, a sync after '
+        f'every batch: batches {LWD_TRAIN_WARM + 1}-{timed}, the median '
+        f'batch of {spp} segment updates {ms:.2f} ms (range '
+        f'{min(walls):.2f}-{max(walls):.2f}) = {batch / ms * 1e3:.2f} '
+        f'images/s = {spp / ms * 1e3:.2f} segment updates/s; peak device '
+        f'memory {peak / 2 ** 30:.2f} GiB; launches {counts_t} == expected '
+        f'[{card}]')
+    counts['lwd_train_timed'] = counts_t
+
+    # cli/sample_lwd on the deterministic run's checkpoint
+    ckpt = os.path.join(out_dir, 'lwd_train', 'checkpoints',
+                        f'checkpoint-{LWD_TRAIN_RESUME}')
+    npz = os.path.join(out_dir, 'lwd_train_samples.npz')
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf), _clock(
+            'phase 14 (c) cli/sample_lwd'):
+        sample_lwd.main(['--cfgdir', *cfgdir, '--ckpt', ckpt, '--sampler',
+                         'cfg', '--cfg-scale', str(LWD_CFG_SCALE),
+                         '--steps-per-flow', '1', '--num-fid-samples',
+                         str(BATCH), '--per-device-batch', str(BATCH),
+                         '--global-seed', str(SEED), '--device', 'cuda',
+                         '--out', npz])
+    arr = np.load(npz)['arr_0']
+    if arr.shape != (BATCH, 32, 32, 4) or not np.isfinite(arr).all():
+        raise AssertionError(f'lwd train: sampled {arr.shape}')
+    say(f'[lwd-train] cli/sample_lwd on checkpoint-{LWD_TRAIN_RESUME} '
+        f'(its ema_params, bf16, sample_cfg, one sub-step a segment): '
+        f'latents {arr.shape}, finite, std {arr.std():.4f}, in '
+        f'{time.perf_counter() - t0:.1f} s with the 14 GB checkpoint read')
+
+    # (d) one multi-scale update per tier on the timed run's state
+    loader = INLatentLoader(os.path.join(out_dir, 'lwd_latents'), N,
+                            batch_size=batch, num_workers=4)
+    batch_t = {k: torch.from_numpy(v).cuda() for k, v in next(iter(
+        loader.train_dataloader(batch, 1, 0, SEED))).items()}
+    model = trainer.model
+    ms_step = make_lwd_multiscale_train_step(
+        model, multi_scale_indices=LWD_MS_INDICES)
+    _reset_counts()
+    tiers = []
+    for seg in LWD_MS_SEGMENTS:
+        _, m = ms_step(state, batch_t, seg, step_generator(SEED, state.step))
+        tiers.append((seg, int(m['tier'].item()), m['loss'].item()))
+    counts['lwd_multiscale_train'] = _lwd_read_counts()
+    want = _lwd_counts(len(LWD_MS_SEGMENTS), per_update)
+    if counts['lwd_multiscale_train'] != want or [t for _, t, _ in tiers] \
+            != list(range(len(LWD_MS_SEGMENTS))) or not all(
+            math.isfinite(v) for *_, v in tiers):
+        raise AssertionError(f'lwd multiscale train: {tiers}, '
+                             f'{counts["lwd_multiscale_train"]}')
+    say(f'[lwd-train] multi-scale, one update per tier (segment, tier, '
+        f'loss): {tiers} at N 16, 64, 256; launches '
+        f'{counts["lwd_multiscale_train"]} == expected')
+
+    # (f) the busy split of one FiTLwD-XL reflow update (bf16, batch 32)
+    step = trainer._train_step
+    seg = model.number_of_perflow // 2
+    split, window, launches = _busy_split(lambda: step(
+        state, batch_t, seg, step_generator(SEED, state.step)), model)
+    busy = sum(split.values())
+    say(f'[lwd-train] busy split of one FiTLwD-XL segment update (bf16, '
+        f'batch {batch}, segment {seg}; torch.profiler, a sync closing '
+        f'each part): forward {split["forward"]:.3f} ms, backward '
+        f'{split["backward"]:.3f} ms, the update over all '
+        f'{sum(p.numel() for p in state.params.values()) / 1e9:.3f} B '
+        f'parameters {split["update"]:.3f} ms, the rest {split["rest"]:.3f}'
+        f' ms; busy {busy:.3f} of a {window:.3f} ms window, {launches} '
+        f'device records [{card}]')
+    del trainer, state, model, step, ms_step
+    torch.cuda.empty_cache()
+
+    t_e = time.perf_counter()
+    # (e) configs/bfm.yaml as it stands (fp32): a reflow update, one
+    # finetune update per mode (the shared encoder unchanged), a
+    # distillation update from a seeded FiT teacher of depth 2 (XL widths)
+    bfm = _lwd_model_fp32('configs/bfm.yaml').cuda()
+    teacher = _xl_model_fp32(LWD_TEACHER_DEPTH).cuda().requires_grad_(False)
+
+    def teacher_apply(x, t, b):
+        return teacher(x, t, b['label'], b['grid'], b['mask'],
+                       b['size']).float()
+
+    runs = [('reflow', make_lwd_train_step(bfm), {})]
+    runs += [(f'finetune {mode}', make_lwd_finetune_step(bfm, mode=mode),
+              {'recipe': 'finetune'}) for mode in FINETUNE_MODES]
+    runs.append(('distillation', make_lwd_distill_step(
+        bfm, teacher_apply, LWD_SOLVER_STEPS), dict(
+            teacher_depth=LWD_TEACHER_DEPTH, solver_steps=LWD_SOLVER_STEPS)))
+    seg = bfm.number_of_perflow // 2
+    bfm_counts = {}
+    for label, fn, kw in runs:
+        state = create_train_state(bfm, OptimizerConfig(learning_rate=1e-4))
+        enc = {n: p.detach().clone() for n, p in bfm.named_parameters()
+               if n.startswith('shared_rep_blocks.')}
+        _reset_counts()
+        _, m = fn(state, batch_t, seg, step_generator(SEED, 0))
+        got = _lwd_read_counts()
+        want = _lwd_counts(1, _lwd_update_counts(bfm, **kw))
+        if got != want or not math.isfinite(m['loss'].item()):
+            raise AssertionError(f'bfm {label}: launches {got} != {want}, '
+                                 f'loss {m["loss"]}')
+        if kw.get('recipe') == 'finetune' and not all(
+                torch.equal(p, enc[n]) for n, p in bfm.named_parameters()
+                if n in enc):
+            raise AssertionError(f'bfm {label}: the shared encoder moved')
+        bfm_counts[label] = got
+        say(f'[lwd-train] BFM (configs/bfm.yaml, fp32, batch {batch}) '
+            f'{label} update of segment {seg}: loss {m["loss"].item():.4f}, '
+            f'grad norm {m["grad_norm"].item():.4f}'
+            + ('; the shared encoder unchanged'
+               if kw.get('recipe') == 'finetune' else '')
+            + f'; launches {got} == expected')
+    counts['bfm_train'] = {k: sum(c[k] for c in bfm_counts.values())
+                           for k in bfm_counts['reflow']}
+    del bfm, teacher, runs, state
+    torch.cuda.empty_cache()
+
+    # K3's Function backward on a model path: BFM-XL's widths (RMSNorm q/k,
+    # 'normal' adaLN) cut to 2 encoder blocks and 6 decoders of 1 block
+    bfm_xl = _lwd_model_fp32(BFM_XL_CONFIG, depth=6,
+                             number_of_representation_blocks=2).cuda()
+    state = create_train_state(bfm_xl, OptimizerConfig(learning_rate=1e-4))
+    _reset_counts()
+    _, m = make_lwd_train_step(bfm_xl)(state, batch_t, 3,
+                                       step_generator(SEED, 0))
+    counts['bfm_xl_train'] = _lwd_read_counts()
+    want = _lwd_counts(1, _lwd_update_counts(bfm_xl))
+    if counts['bfm_xl_train'] != want or not math.isfinite(m['loss'].item()):
+        raise AssertionError(f'bfm_xl train: {counts["bfm_xl_train"]}')
+    say(f'[lwd-train] BFM-XL widths (RMSNorm q/k), depth cut to 2 encoder '
+        f'blocks + 6 decoders of 1, fp32, batch {batch}: one reflow update '
+        f'(K3 forward and its Function backward in 3 blocks), loss '
+        f'{m["loss"].item():.4f}; launches {counts["bfm_xl_train"]} == '
+        f'expected')
+    del bfm_xl, state
+    torch.cuda.empty_cache()
+    say(f'[time] phase 14 (e) BFM recipes: {time.perf_counter() - t_e:.1f} s')
+    return cases, counts, dict(parity=parity, ms_per_batch=ms,
+                               busy_split=split)
+
+
 # cuBLAS's fixed workspace, which deterministic algorithms require of a
 # cuBLAS call: cuBLAS reads it once, when it starts, and it makes every
 # sampler step's host side 2.0-2.4x slower (PERF.md §5, PR 9), so only the
 # child processes of the deterministic trainer runs (CHILD_PHASES) set it
 DETERMINISTIC_ENV = {'CUBLAS_WORKSPACE_CONFIG': ':4096:8'}
 CHILD_PHASES = {'train': phase_train_deterministic,
-                'fitv1_train': phase_fitv1_train}
+                'fitv1_train': phase_fitv1_train,
+                'lwd_train': phase_lwd_train_deterministic}
 
 
 def _run_child(argv, env):
@@ -2408,6 +3083,10 @@ def main():
             torch.manual_seed(SEED + 2)
             torch.save(AutoencoderKL().state_dict(), vae_path)
             lwd_cases, lwd_counts = phase_lwd(card, out_dir, vae_path)
+        # phase 14: LwD training (cli/train_lwd on FiTLwD-XL, the recipes)
+        with _clock('phase 14 (lwd train)'):
+            lwd_train_cases, lwd_train_counts, _ = phase_lwd_train(
+                card, out_dir)
     for name, cases in lwd_cases.items():
         results[name]['cases'] += cases
     for name, cases in hr_cases.items():
@@ -2426,6 +3105,15 @@ def main():
             grad_max_abs_err=max(c['max_abs_err'] for c in cases),
             train_fwd_max_abs_err=max(c['fwd_max_abs_err'] for c in cases),
             train_cases=cases)
+    # phase 14's Functions at the multi-scale tiers and BFM-XL's K3
+    for name, cases in lwd_train_cases.items():
+        results[name]['train_cases'] += cases
+        results[name]['grad_max_abs_err'] = max(
+            results[name]['grad_max_abs_err'],
+            *(c['max_abs_err'] for c in cases))
+        results[name]['train_fwd_max_abs_err'] = max(
+            results[name]['train_fwd_max_abs_err'],
+            *(c['fwd_max_abs_err'] for c in cases))
     for name in ('int8_gemm_bias', 'int8_gemm_swiglu_quant'):  # no backward
         results[name].update(train_ms=None, train_plain_ms=None,
                              backward_ms=None, backward_plain_ms=None,
@@ -2455,7 +3143,8 @@ def main():
                **hr_counts, 'train': train_counts,
                'train_resumed': resumed_counts, **v1_counts,
                'fitv1_train': v1_train_counts,
-               'fitv1_train_resumed': v1_resumed_counts, **lwd_counts}
+               'fitv1_train_resumed': v1_resumed_counts, **lwd_counts,
+               **lwd_train_counts}
     # the attention wrapper launches K4 (bounded) or K3 (online softmax):
     # K3's share on each path that counted K4 apart
     results['attention']['k3_launches_by_path'] = {

@@ -6,8 +6,14 @@ state's ``state_dict()`` through ``torch.save``). It is written into a
 temporary directory beside it and renamed into place, so a directory named
 ``checkpoint-{step}`` is always whole. Rotation keeps the newest
 ``total_limit`` saves plus every milestone step. A checkpoint that cannot
-be read raises: nothing re-initialises silently. Async saves are not
-ported.
+be read raises: nothing re-initialises silently.
+
+``async_save=True`` overlaps the write with training, as JAX's orbax
+async path does: ``save`` takes a host copy of the state dict on the
+calling thread, then writes it from one background thread; ``wait()``
+joins that write (re-raising its error) and rotates. ``save`` and
+``restore`` wait for a write in flight first, and rotation runs only after
+a write has finished, so it counts whole checkpoints only.
 """
 
 from __future__ import annotations
@@ -16,6 +22,7 @@ import os
 import re
 import shutil
 import tempfile
+import threading
 from typing import Any, List, Optional, Sequence
 
 import torch
@@ -41,13 +48,25 @@ def latest_checkpoint_step(ckpt_dir: str) -> Optional[int]:
     return steps[-1] if steps else None
 
 
+def _host_copy(obj: Any) -> Any:
+    """``obj`` (nested dicts, lists and tuples) with every tensor copied to
+    the host: a snapshot that later in-place updates do not reach."""
+    if isinstance(obj, torch.Tensor):
+        return obj.detach().to('cpu', copy=True)
+    if isinstance(obj, dict):
+        return {k: _host_copy(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(_host_copy(v) for v in obj)
+    return obj
+
+
 class CheckpointManager:
     def __init__(self, ckpt_dir: str, total_limit: Optional[int] = None,
                  milestone_steps: Sequence[int] = (),
                  async_save: bool = False):
-        if async_save:
-            raise NotImplementedError(
-                'async checkpoint saves are not ported; saves block')
+        self.async_save = async_save
+        self._writer: Optional[threading.Thread] = None
+        self._error: Optional[BaseException] = None
         self.ckpt_dir = os.path.abspath(ckpt_dir)
         self.total_limit = total_limit
         self.milestones = set(milestone_steps)
@@ -58,7 +77,21 @@ class CheckpointManager:
 
     def save(self, step: int, state_dict: Any) -> str:
         """Write ``state_dict`` as checkpoint-{step} (replacing one of that
-        step), then rotate."""
+        step), then rotate; async, start writing a host copy of it and
+        return (rotation follows the write, at the next save or wait)."""
+        self.wait()
+        if not self.async_save:
+            self._write(step, state_dict)
+            self._rotate()
+            return self.path(step)
+        snapshot = _host_copy(state_dict)
+        self._writer = threading.Thread(
+            target=self._write_in_background, args=(step, snapshot),
+            name=f'checkpoint-{step}')
+        self._writer.start()
+        return self.path(step)
+
+    def _write(self, step: int, state_dict: Any) -> None:
         final = self.path(step)
         tmp = tempfile.mkdtemp(prefix=f'.checkpoint-{step}-',
                                dir=self.ckpt_dir)
@@ -70,8 +103,25 @@ class CheckpointManager:
         except BaseException:
             shutil.rmtree(tmp, ignore_errors=True)
             raise
+
+    def _write_in_background(self, step: int, state_dict: Any) -> None:
+        try:
+            self._write(step, state_dict)
+        except BaseException as e:  # re-raised by wait()
+            self._error = e
+
+    def wait(self) -> None:
+        """Block until a write in flight is whole, then rotate; a failed
+        write raises here."""
+        if self._writer is None:
+            return
+        self._writer.join()
+        self._writer = None
+        error, self._error = self._error, None
+        if error is not None:
+            raise RuntimeError(f'async checkpoint write failed: {error}'
+                               ) from error
         self._rotate()
-        return final
 
     def _rotate(self) -> None:
         if self.total_limit is None:
@@ -85,7 +135,8 @@ class CheckpointManager:
                 map_location: Any = None) -> Any:
         """The state_dict saved at ``step`` (default: the latest). Raises
         FileNotFoundError when there is none and the loader's error when
-        it cannot be read."""
+        it cannot be read. A write in flight finishes first."""
+        self.wait()
         if step is None:
             step = latest_checkpoint_step(self.ckpt_dir)
             if step is None:

@@ -218,9 +218,10 @@ def train_state_from_jax(state_np: Any, model: torch.nn.Module, cfg,
     (whose parameters become the master parameters) and
     ``OptimizerConfig`` ``cfg``.
 
-    params, ema_params, adam's mu (cast to ``cfg.mu_dtype``) and nu go
-    through ``state_dict_from_jax`` (``lwd_state_from_jax`` for an LwD
-    model); the adam count becomes the optimizer's
+    params, ema_params, adam's mu (cast to ``cfg.mu_dtype``; fp32 when it
+    is None, as in the LwD trainer, whose JAX state keeps an fp32 mu) and
+    nu go through ``state_dict_from_jax`` (``lwd_state_from_jax`` for an
+    LwD model); the adam count becomes the optimizer's
     count, ``state.step`` the step; under ``optax.MultiSteps`` its
     mini-step, gradient step and accumulated gradients carry over too."""
     from fitv2_tpu_torch.models.fit_lwd import FiTLwD

@@ -10,13 +10,14 @@ run K1; the decoders' blocks and final layer take (B, N, D) conditioning
 and run the plain modulation chain, as in JAX.
 
 The mid-block forecaster (``mid_blocks``, ``mid_coefficient``,
-``mid_gate``) is built so that a JAX state carries over whole; its
-training forward (``forward_run_layer_finetune``) is not ported yet.
+``mid_gate``) learns, in ``forward_run_layer_finetune``, to forecast the
+frozen encoder's representation (the finetune recipe of
+train/lwd_train_step.py); JAX's ``stop_gradient`` is ``.detach()`` there.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -115,6 +116,57 @@ class FiTLwDSharedEncSepDec(FiTLwD):
         return out, self.rep_projection(rep)
 
     forward = forward_run_layer
+
+    def forward_run_layer_finetune(self, x: Tensor, t: Tensor, y: Tensor,
+                                   segment_idx: int, grid: Tensor,
+                                   mask: Optional[Tensor], t_next: Tensor,
+                                   xt_next: Tensor,
+                                   size: Optional[Tensor] = None,
+                                   mode: str = 'replace') -> Dict[str, Tensor]:
+        """The mid-block forecaster's training forward: ``rep_t`` stands in
+        for the frozen encoder's representation at (t, x), from the
+        forecaster fed x and conditioned on t_emb plus the frozen encoder's
+        representation at (t_next, xt_next):
+
+          'replace'   rep_t = mid(x)
+          'residual'  rep_t = rep + coeff(t_emb) * mid(x)
+          'blend'     rep_t = (1 - g) * rep + g * mid(x), g = mid_gate
+
+        Returns x_pred (segment i's decoder on rep_t), x_target and
+        rep_target (the frozen full path at (t, x), detached) and rep_pred
+        (the REPA projection of rep_t). The labels are not dropped."""
+        f_cos, f_sin = self.rope(grid, size)
+        i = segment_idx
+        y_embed = self._emb(self.y_embedders, i)(y)
+        t_emb = self._emb(self.t_embedders, i)(
+            self._time_shift(t).to(self.dtype))
+        c_next, g_next, _ = self._cond(i, t_next, y_embed)
+        rep_frozen = self._encode_representation(
+            xt_next, c_next, mask, f_cos, f_sin, g_next).detach()
+        x_mid = self.representation_x_embedder2(x.to(self.dtype)).detach()
+        c_mid = t_emb[:, None, :] + rep_frozen
+        mid_out = self.mid_blocks(x_mid, c_mid, mask, f_cos, f_sin, 0.0)
+        if mode == 'replace':
+            rep_t = mid_out
+        elif mode == 'residual':
+            rep_t = rep_frozen + self.mid_coefficient(t_emb)[:, None, :] \
+                * mid_out
+        elif mode == 'blend':
+            gate = self.mid_gate(x_mid, c_mid)
+            rep_t = (1.0 - gate) * rep_frozen + gate * mid_out
+        else:
+            raise ValueError(f'unknown finetune mode: {mode!r}')
+        rep_pred = self.rep_projection(rep_t)
+        c_repre, g2 = self._token_cond(t_emb, rep_t)
+        x_pred, _ = self._decode(i, x, c_repre, g2, mask, f_cos, f_sin)
+
+        c, g, _ = self._cond(i, t, y_embed)
+        rep2 = self._encode_representation(x, c, mask, f_cos, f_sin, g)
+        rep_target = self.rep_projection(rep2).detach()
+        c_repre2, g22 = self._token_cond(t_emb, rep2)
+        x_target, _ = self._decode(i, x, c_repre2, g22, mask, f_cos, f_sin)
+        return {'x_pred': x_pred, 'x_target': x_target.detach(),
+                'rep_pred': rep_pred, 'rep_target': rep_target}
 
     def _segment_forward(self, i: int, x2: Tensor, t: Tensor, y2: Tensor,
                          mask, f_cos, f_sin, rep_transform=None

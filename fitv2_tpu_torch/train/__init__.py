@@ -1,17 +1,22 @@
 """FiT training: the flow (FiTv2) and improved-diffusion (FiTv1) train
-steps, optimizer, schedules and the config-driven trainer (counterpart of
-fitv2_tpu/train, one device)."""
+steps, the LwD / BFM segment-flow steps, optimizer, schedules and the
+config-driven trainers (counterpart of fitv2_tpu/train, one device)."""
 
 from fitv2_tpu_torch.train.ddpm_train_step import (
     ddpm_loss, make_ddpm_train_step)
 from fitv2_tpu_torch.train.lr_scheduler import get_scheduler
+from fitv2_tpu_torch.train.lwd_train_step import (
+    SegmentSampler, make_lwd_distill_step, make_lwd_finetune_step,
+    make_lwd_multiscale_train_step, make_lwd_train_step)
 from fitv2_tpu_torch.train.train_step import (
     AdamW, GradAccumulator, OptimizerConfig, TrainState, clip_by_global_norm,
     create_train_state, flow_loss, global_norm, make_step, make_train_step,
     scale_lr_by_global_batch, update_ema)
 
-__all__ = ['AdamW', 'GradAccumulator', 'OptimizerConfig', 'TrainState',
-           'clip_by_global_norm', 'create_train_state', 'ddpm_loss',
-           'flow_loss', 'get_scheduler', 'global_norm',
-           'make_ddpm_train_step', 'make_step', 'make_train_step',
+__all__ = ['AdamW', 'GradAccumulator', 'OptimizerConfig', 'SegmentSampler',
+           'TrainState', 'clip_by_global_norm', 'create_train_state',
+           'ddpm_loss', 'flow_loss', 'get_scheduler', 'global_norm',
+           'make_ddpm_train_step', 'make_lwd_distill_step',
+           'make_lwd_finetune_step', 'make_lwd_multiscale_train_step',
+           'make_lwd_train_step', 'make_step', 'make_train_step',
            'scale_lr_by_global_batch', 'update_ema']

@@ -29,7 +29,8 @@ from __future__ import annotations
 
 import dataclasses
 import warnings
-from typing import Any, Callable, Dict, List, Optional, Tuple, Union
+from typing import (Any, Callable, Dict, List, Optional, Set, Tuple,
+                    Union)
 
 import torch
 from torch import nn
@@ -312,22 +313,30 @@ def flow_loss(model: nn.Module, transport: Transport,
 
 
 def make_step(model: nn.Module, loss_fn: LossFn, max_grad_norm: float = 1.0,
-              ema_decay: float = 0.9999
+              ema_decay: float = 0.9999,
+              required: Optional[Callable[..., Set[str]]] = None
               ) -> Callable[..., Tuple[TrainState, Dict[str, Tensor]]]:
     """The train step of ``model`` (the compute-dtype FiT) under
-    ``loss_fn(model, batch, generator, draws) -> (loss, metrics)``:
-    ``train_step(state, batch, generator=None, draws=None) -> (state,
-    metrics)``. It updates ``state`` in place: masters -> model, loss and
+    ``loss_fn(model, batch, generator, draws, **kwargs) -> (loss,
+    metrics)``: ``train_step(state, batch, generator=None, draws=None,
+    **kwargs) -> (state, metrics)``, the keyword arguments passed on to the
+    loss. It updates ``state`` in place: masters -> model, loss and
     backward, gradients -> fp32 masters, accumulation, clipping, AdamW,
     EMA. metrics: the loss function's, ``loss`` and ``grad_norm`` (of this
-    micro-step's gradient), tensors on the device. A parameter that the
-    backward leaves without a gradient raises: every parameter of the FiT
-    is used, so a missing one means a detached output upstream of it."""
+    micro-step's gradient), tensors on the device.
+
+    A parameter that the backward leaves without a gradient raises: every
+    parameter of the FiT is used, so a missing one means a detached output
+    upstream of it. With ``required`` (``required(**kwargs)`` -> the names
+    that must get one), a step may use a part of the model (an LwD
+    segment): a parameter outside ``required`` that gets no gradient gets
+    a zero one, as ``jax.grad`` gives it, so the norm, the clip and AdamW
+    cover every parameter (Adam moves it by its momentum) as optax does."""
     names, model_params = zip(*model.named_parameters())
 
     def train_step(state: TrainState, batch: Dict[str, Tensor],
                    generator: Optional[torch.Generator] = None,
-                   draws: Optional[Dict[str, Tensor]] = None):
+                   draws: Optional[Dict[str, Tensor]] = None, **kwargs):
         masters = list(state.params.values())
         copies = [p for p, m in zip(model_params, masters) if p is not m]
         if copies:
@@ -336,14 +345,17 @@ def make_step(model: nn.Module, loss_fn: LossFn, max_grad_norm: float = 1.0,
                     copies, [m for p, m in zip(model_params, masters)
                              if p is not m])
         model.zero_grad(set_to_none=True)
-        loss, metrics = loss_fn(model, batch, generator, draws)
+        loss, metrics = loss_fn(model, batch, generator, draws, **kwargs)
         loss.backward()
-        missing = [n for n, p in zip(names, model_params) if p.grad is None]
+        need = set(names) if required is None else required(**kwargs)
+        missing = [n for n, p in zip(names, model_params)
+                   if p.grad is None and n in need]
         if missing:
             raise RuntimeError(
                 f'no gradient for {len(missing)} parameters ({missing[:5]}'
                 '...): an output upstream of them has no grad_fn')
-        grads = [p.grad.float() for p in model_params]
+        grads = [torch.zeros_like(p, dtype=torch.float32) if p.grad is None
+                 else p.grad.float() for p in model_params]
         model.zero_grad(set_to_none=True)
         norm = global_norm(grads)
         clip_norm = norm

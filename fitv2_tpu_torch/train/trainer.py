@@ -92,6 +92,7 @@ class TrainerConfig:
     checkpointing_steps: int = 4000
     checkpoints_total_limit: Optional[int] = 4
     milestone_steps: tuple = ()
+    # write checkpoints from a background thread over a host copy
     async_checkpointing: bool = False
     # on SIGTERM/SIGINT: finish the step, checkpoint, return (preempted)
     handle_preemption: bool = True
@@ -108,6 +109,13 @@ def _refuse_unported(cfg: TrainerConfig) -> None:
     if cfg.mixed_precision not in _DTYPES:
         raise ValueError(f'mixed_precision={cfg.mixed_precision!r}: one of '
                          f'{sorted(_DTYPES)}')
+
+
+def batch_to_device(batch_np: Dict[str, np.ndarray], device: torch.device
+                    ) -> Dict[str, torch.Tensor]:
+    """A loader's numpy batch as tensors on ``device``."""
+    return {k: torch.from_numpy(np.asarray(v)).to(device, non_blocking=True)
+            for k, v in batch_np.items()}
 
 
 def step_generator(seed: int, step: int) -> torch.Generator:
@@ -174,73 +182,100 @@ class Trainer:
         """A fresh state from the master model's current parameters."""
         return create_train_state(self.master_model, self.optimizer_config)
 
-    def _to_device(self, batch_np: Dict[str, np.ndarray]
-                   ) -> Dict[str, torch.Tensor]:
-        return {k: torch.from_numpy(np.asarray(v)).to(self.device,
-                                                      non_blocking=True)
-                for k, v in batch_np.items()}
-
     def train(self, max_steps: Optional[int] = None, resume: bool = True,
               metric_hook: Optional[Callable[[int, Dict], None]] = None
               ) -> TrainState:
         """Train to ``max_steps`` (resuming from the latest checkpoint
         unless ``resume`` is False); returns the state. Checkpoints at every
         ``checkpointing_steps``, at ``max_steps`` and on preemption."""
-        cfg = self.cfg
-        max_steps = max_steps or cfg.max_steps
-        if self.loader is None:
-            self.loader = INLatentLoader(
-                cfg.data_path, cfg.target_len, cfg.random_mode,
-                batch_size=cfg.global_batch_size,
-                num_workers=cfg.num_workers, backend=cfg.loader_backend)
-        resume_step = 0
-        if resume:
-            resume_step = latest_checkpoint_step(self.ckpt.ckpt_dir) or 0
-        it = iter(self.loader.train_dataloader(
-            cfg.global_batch_size, max_steps, resume_step, cfg.seed))
-        state = self.init_state()
-        if resume_step:
-            state.load_state_dict(self.ckpt.restore(
-                resume_step, map_location=self.device))
-            logger.info('resumed from step %d', resume_step)
+        seed = self.cfg.seed
 
-        def run_one(batch_np):
-            return self._train_step(state, self._to_device(batch_np),
-                                    step_generator(cfg.seed, state.step))
+        def run_batch(state, batch):
+            return self._train_step(state, batch,
+                                    step_generator(seed, state.step))[1]
 
-        guard = PreemptionGuard(enabled=cfg.handle_preemption)
-        self.preempted = False
-        t0 = time.time()
-        try:
-            # the first batch runs before the loop, as in the JAX trainer
-            _, metrics = run_one(next(it))
-            step = resume_step + 1
-            for batch_np in it:
-                _, metrics = run_one(batch_np)
-                step += 1
-                if step % cfg.log_every == 0:
-                    # vector metrics (ddpm's per_t_loss and t) stay out
-                    m = {k: float(v) for k, v in metrics.items()
-                         if v.dim() == 0}
-                    m['steps_per_sec'] = cfg.log_every / max(
-                        time.time() - t0, 1e-9)
-                    t0 = time.time()
-                    logger.info('step %d: %s', step, json.dumps(m))
-                    if metric_hook:
-                        metric_hook(step, m)
-                preempted = guard.should_stop(step)
-                if (step % cfg.checkpointing_steps == 0 or step >= max_steps
-                        or preempted):
-                    self.ckpt.save(step, state.state_dict())
-                if preempted:
-                    self.preempted = True
-                    logger.warning('preemption checkpoint written at step '
-                                   '%d; exiting the train loop', step)
-                    break
-                if step >= max_steps:
-                    break
-        finally:
-            guard.restore()
-            if hasattr(it, 'close'):  # stop the loader's producer thread
-                it.close()
-        return state
+        # the first batch runs before the loop, as in the JAX trainer
+        return train_loop(self, run_batch, max_steps, resume, metric_hook,
+                          loader_backend=self.cfg.loader_backend,
+                          check_first=False)
+
+
+def _scalar_metrics(metrics: Dict[str, torch.Tensor]) -> Dict[str, float]:
+    # vector metrics (ddpm's per_t_loss and t) stay out
+    return {k: float(v) for k, v in metrics.items() if v.dim() == 0}
+
+
+def train_loop(trainer, run_batch: Callable[[TrainState, Dict], Any],
+               max_steps: Optional[int] = None, resume: bool = True,
+               metric_hook: Optional[Callable[[int, Dict], None]] = None, *,
+               loader_backend: str = 'native',
+               on_start: Optional[Callable[[int], None]] = None,
+               log_metrics: Callable[[Any], Dict[str, float]] = (
+                   _scalar_metrics),
+               check_first: bool = True) -> TrainState:
+    """The loop of ``Trainer`` and ``LwDTrainer`` over ``trainer``'s
+    ``cfg``, ``loader``, ``ckpt``, ``device`` and ``init_state()``.
+
+    The state comes from the latest checkpoint (unless ``resume`` is False)
+    or ``init_state()``; ``on_start(step)`` then runs with the step resumed
+    from, and the loader starts there. ``run_batch(state, batch)`` takes
+    each batch (tensors on the device) and returns its metrics, which
+    ``log_metrics`` turns into floats every ``log_every`` batches. With
+    ``check_first`` False the first batch runs unlogged and unchecked.
+    Checkpoints at every ``checkpointing_steps``, at ``max_steps`` and on
+    preemption; an async save is whole when the loop returns."""
+    cfg = trainer.cfg
+    max_steps = max_steps or cfg.max_steps
+    if trainer.loader is None:
+        trainer.loader = INLatentLoader(
+            cfg.data_path, cfg.target_len, cfg.random_mode,
+            batch_size=cfg.global_batch_size, num_workers=cfg.num_workers,
+            backend=loader_backend)
+    step = (latest_checkpoint_step(trainer.ckpt.ckpt_dir) or 0) if resume \
+        else 0
+    state = trainer.init_state()
+    if step:
+        state.load_state_dict(trainer.ckpt.restore(
+            step, map_location=trainer.device))
+        logger.info('resumed from step %d', step)
+    if on_start is not None:
+        on_start(step)
+    it = iter(trainer.loader.train_dataloader(
+        cfg.global_batch_size, max_steps, step, cfg.seed))
+    guard = PreemptionGuard(enabled=cfg.handle_preemption)
+    trainer.preempted = False
+    t0 = time.time()
+    try:
+        if not check_first:
+            run_batch(state, batch_to_device(next(it), trainer.device))
+            step += 1
+        for batch_np in it:
+            metrics = run_batch(state, batch_to_device(batch_np,
+                                                       trainer.device))
+            step += 1
+            if step % cfg.log_every == 0:
+                m = log_metrics(metrics)
+                m['steps_per_sec'] = cfg.log_every / max(
+                    time.time() - t0, 1e-9)
+                t0 = time.time()
+                logger.info('step %d: %s', step, json.dumps(m))
+                if metric_hook:
+                    metric_hook(step, m)
+            preempted = guard.should_stop(step)
+            if (step % cfg.checkpointing_steps == 0 or step >= max_steps
+                    or preempted):
+                trainer.ckpt.save(step, state.state_dict())
+            if preempted:
+                trainer.ckpt.wait()
+                trainer.preempted = True
+                logger.warning('preemption checkpoint written at step %d; '
+                               'exiting the train loop', step)
+                break
+            if step >= max_steps:
+                break
+    finally:
+        guard.restore()
+        if hasattr(it, 'close'):  # stop the loader's producer thread
+            it.close()
+    trainer.ckpt.wait()  # an async save is whole when train() returns
+    return state

@@ -1113,3 +1113,85 @@ def test_kernels_at_the_multiscale_grids(dev, dtype, n):
     tol = TOL_FP32_REL * ref.float().abs().max().item() \
         if dtype == torch.float32 else TOL_BF16_ATTN
     assert err <= tol, err
+
+
+@pytest.mark.parametrize('dtype', DTYPES, ids=['fp32', 'bf16'])
+@pytest.mark.parametrize('n', [16, 64])
+def test_lwd_train_functions_at_the_multiscale_grids(dev, dtype, n):
+    """The multi-scale training tiers' grids (XL widths, batch 4, every
+    token valid): K1, K2 and K4 inside their autograd Functions against
+    autograd of the plain versions."""
+    g = _gen(dev, 30)
+    b, d, h, dh = 4, 1152, 16, 72
+    x = (torch.randn(b, n, d, device=dev, generator=g) * 2 + 3).to(dtype)
+    mod = (0.5 * torch.randn(b, 6 * d, device=dev, generator=g)).to(dtype)
+
+    def adaln(fn):
+        return lambda a, m: fn(a, *m.chunk(6, dim=-1)[:2])
+    qkv = torch.randn(b, n, 3, h, dh, device=dev, generator=g).to(dtype)
+    ang = torch.rand(b, n, dh, device=dev, generator=g) * 6.3
+    cos, sin = torch.cos(ang), torch.sin(ang)
+
+    def qk(fn):
+        return lambda a: fn(*a.unbind(2)[:2], cos, sin)
+    q, k, v = qkv.unbind(2)
+    qkv_n = torch.stack([*K.qk_norm_rope_reference(q, k, cos, sin), v], 2)
+    cases = [
+        (K.fused_adaln_norm, adaln(K.adaln_norm),
+         adaln(K.adaln_norm_reference), [x, mod]),
+        (K.fused_qk_rope, qk(K.qk_norm_rope), qk(K.qk_norm_rope_reference),
+         [qkv]),
+        (K.flash_masked_attention,
+         lambda a: K.masked_attention(*a.unbind(2), None,
+                                      bounded_logits=True),
+         lambda a: K.attention_bounded_reference(*a.unbind(2)), [qkv_n])]
+    for i, (wrapper, function, plain, arrays) in enumerate(cases):
+        before = wrapper.launches
+        cots = _cots(dev, plain(*arrays), 31 + i)
+        ours = _grads(function, arrays, cots)
+        assert wrapper.launches == before + 1
+        _assert_grads_close(ours, _grads(plain, arrays, cots))
+
+
+def test_lwd_train_segment_update_cuda_matches_cpu(dev):
+    """Two fp32 reflow segment updates (segment 1, then 0: Adam moves the
+    untouched segment by its momentum) of a small FiTLwD with REPA blocks,
+    per-segment embedders and a shared trunk, on CUDA against the CPU on
+    the same weights, batch and draws: the losses, gradient norms and
+    every updated master, moment and EMA within 1e-4 relative L2 (the
+    slice's parity gate)."""
+    from fitv2_tpu_torch.models.grid_utils import make_grid_mask_size
+    from fitv2_tpu_torch.train import lwd_train_step as lts
+    from fitv2_tpu_torch.train import train_step as tts
+    model = _lwd_model('lwd')
+    g = torch.Generator().manual_seed(9)
+    grid, mask, size = make_grid_mask_size(2, 4, 4, 16)
+    batch = dict(feature=torch.randn(2, 16, 16, generator=g), grid=grid,
+                 mask=mask, label=torch.tensor([3, 8]), size=size,
+                 repa_target=torch.randn(2, 16, 24, generator=g))
+    draws = [dict(x0=torch.randn(2, 16, 16, generator=g),
+                  r=torch.rand(2, generator=g),
+                  drop_ids=torch.tensor(ids)) for ids in ([0, 1], [1, 0])]
+    runs = {}
+    for device in ('cpu', dev):
+        m = copy.deepcopy(model).to(device)
+        state = tts.create_train_state(m, tts.OptimizerConfig(
+            learning_rate=1e-3))
+        step = lts.make_lwd_train_step(m, ema_decay=0.9)
+        before = [w.launches for w in K.KERNEL_WRAPPERS]
+        metrics = [step(state, {k: v.to(device) for k, v in batch.items()},
+                        seg, draws=d)[1] for seg, d in zip((1, 0), draws)]
+        runs[str(device)] = (state, metrics, _launched(before))
+    (cpu, m_cpu, _), (gpu, m_gpu, launched) = runs['cpu'], runs[str(dev)]
+    assert launched[0] > 0 and launched[1] > 0 and launched[2] > 0
+    for a, b in zip(m_gpu, m_cpu):
+        for key in ('loss', 'grad_norm', 'flow_loss', 'proj_loss'):
+            assert abs(a[key].item() - b[key].item()) <= 1e-5 * abs(
+                b[key].item()), key
+    for n, p in cpu.params.items():
+        pairs = [(gpu.params[n], p), (gpu.ema_params[n], cpu.ema_params[n])]
+        pairs += [(gpu.optimizer.state[gpu.params[n]][k],
+                   cpu.optimizer.state[p][k]) for k in ('mu', 'nu')]
+        for o, w in pairs:
+            rel = ((o.cpu() - w).norm() / w.norm().clamp_min(1e-30)).item()
+            assert rel <= 1e-4, (n, rel)

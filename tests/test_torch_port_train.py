@@ -840,7 +840,6 @@ def test_trainer_refuses_what_is_not_ported(shard_dir, tmp_path):
     out = str(tmp_path / 'run')
     for kw, err in ((dict(mesh_fsdp=2), NotImplementedError),
                     (dict(objective='vae'), ValueError),
-                    (dict(async_checkpointing=True), NotImplementedError),
                     (dict(mixed_precision='fp16'), ValueError)):
         with pytest.raises(err):
             _trainer(shard_dir, out, **kw)
