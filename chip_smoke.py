@@ -175,6 +175,35 @@ Phases (any failure raises and exits non-zero; nothing is caught):
                 BFM-XL's widths cut to 2 encoder blocks and 6 decoders of
                 1 (K3's Function backward on a model path), each with
                 exact launch counts.
+ 15. hr train  - from raw images to a trained HR-XL: (a) the remat policies
+                at FiTv2-HR-XL/2's widths (online decoupled NTK RoPE, N
+                1024, 1024 and 800 tokens valid) cut to depth 2, fp32: one
+                flow loss and backward under none, full, dots and dots_all
+                on the card and none on the CPU, every gradient within
+                1e-4 relative L2 of the card's no-remat one, and each
+                policy's exact K1/K2/K4 launches (the recompute relaunches
+                K1 twice, K2 and K4 once a block); (b) cli/prepare_latents'
+                encode_routed (no PIL) with the SD-VAE encoder at its real
+                widths (seeded): card vs CPU in fp32, then 16 uint8 images
+                of mixed sizes routed at 1024 tokens (10 native, 6 larger:
+                512 x 512 resize and crop versions) into shards, fp32 and
+                bf16, with the bucket counts and the encode rate; (c)
+                cli/train on configs/fitv2_hr_xl.yaml as shipped (remat
+                dots, depth 36, batch 8 x 1024 tokens, bf16 over fp32
+                masters) on (b)'s shards: 8 steps, finite losses, exact
+                launches a step (K1 73 + 72, K2 36 + 36, K4 36 + 36), ms a
+                step, images/s and peak memory; an InlineEvalHook at step 8
+                (EMA -> its copy of the compute model, 24 Euler steps,
+                CFG 1.5, batch 4, 512 x 512, phase 5's random VAE decoder and phase 10's
+                InceptionV3 against phase 9's npz) writing its preview and
+                inline_fid, its launches counted apart; then the same run
+                under remat full; (d) an fp32 CAME update at XL width
+                (depth 2) card vs CPU, every master and state tensor within
+                1e-5 relative L2, then cli/train --came on
+                configs/fitv2_xl.yaml (depth 36, batch 32): ms a step and
+                peak memory beside phase 11's AdamW; (e) DINOv2-B/14 and
+                CLIP-B/16 (seeded) card vs CPU in fp32 and their bf16
+                images/s at batch 64.
 The deterministic trainer runs of 11 (c), 12 (d) and 14 (c) run in child
 processes of this script (`--child NAME DIR`) with
 CUBLAS_WORKSPACE_CONFIG=:4096:8, which deterministic algorithms require
@@ -312,6 +341,28 @@ LWD_MS_INDICES, LWD_MS_SEGMENTS = (2, 7), (0, 2, 7)
 LWD_TEACHER_DEPTH, LWD_SOLVER_STEPS = 2, 8
 LWD_TRAIN_REPS = 5  # timed calls a side of each (a) case (each behind a
                     # 25 ms device sleep)
+# phase 15 (raw images to a trained HR-XL): (a) the remat policies' depth
+# and token grids (1024 and 800 of HR_N valid); (b) the images routed by
+# prepare_latents at the HR config's target length, (w, h) native sizes:
+# PREP_SMALL fit it (multiples of 16 px), the rest are larger (their resize
+# and crop arrays 512 x 512); (c) the HR-XL trainer's steps, the steps
+# before the timed median, the inline eval's Euler steps and batch; (d)
+# CAME's card-vs-CPU depth and updates (fp32: the same elementwise math in
+# another order, 1e-5); (e) the teachers' timed batch
+SAC_DEPTH = 2
+SAC_GRIDS = ((32, 32), (20, 40))
+PREP_TARGET_LEN = 1024
+PREP_SIZES = ((512, 512), (512, 384), (384, 512), (640, 320), (320, 640),
+              (256, 256), (496, 512), (352, 464), (1024, 256), (272, 368),
+              (1024, 768), (768, 1024), (800, 800), (1280, 720),
+              (2048, 1536), (600, 1200))
+PREP_SMALL = 10
+PREP_LARGE_HW = 512  # the side of a larger image's resize and crop arrays
+HR_TRAIN_STEPS, HR_TRAIN_WARM = 8, 3
+HOOK_STEPS, HOOK_BATCH = 24, 4
+CAME_PARITY_DEPTH, CAME_PARITY_STEPS = 2, 2
+TOL_CAME_REL = 1e-5
+TEACHER_BATCH = 64
 
 
 def say(*args):
@@ -1550,13 +1601,14 @@ def phase_train_parity():
     return rels[worst]
 
 
-def _train_run(cli, cfg, args, resume, log_every=1, write=True, mses=None):
-    """One Trainer run of phase 11 (c) or 12 (d) from cli/train.py's
+def _train_run(cli, cfg, args, resume, log_every=1, write=True, mses=None,
+               extra_hook=None):
+    """One Trainer run of phase 11 (c), 12 (d) or 15 from cli/train.py's
     build_trainer, reading the metrics every `log_every` steps: every
     step's loss (and its mse into `mses` when given), the wall time at each
-    logged step (after a sync), the checkpoint saves (none are written
-    unless `write`), the peak device memory and the launch counts of the
-    run."""
+    logged step (after a sync; then `extra_hook(step, metrics, trainer)`
+    runs, when given), the checkpoint saves (none are written unless
+    `write`), the peak device memory and the launch counts of the run."""
     import torch
     from fitv2_tpu_torch import kernels as K
     torch.manual_seed(SEED)  # the initial weights
@@ -1587,6 +1639,8 @@ def _train_run(cli, cfg, args, resume, log_every=1, write=True, mses=None):
     def hook(step, metrics):
         torch.cuda.synchronize()
         stamps[step] = time.perf_counter()
+        if extra_hook is not None:
+            extra_hook(step, metrics, trainer)
 
     trainer._train_step, trainer.ckpt.save = step, save
     torch.cuda.synchronize()
@@ -1766,7 +1820,7 @@ def phase_train(card, out_dir):
     args = cli.parse_args(['--cfgdir', 'configs/fitv2_xl.yaml',
                            '--output-dir', os.path.join(out_dir, 'timed'),
                            '--max-steps', str(timed), '--device', 'cuda'])
-    trainer, _, losses_t, stamps, _, counts_t, _ = _train_run(
+    trainer, _, losses_t, stamps, _, counts_t, peak_t = _train_run(
         cli, cfg, args, False, log_every=TRAIN_TIMED, write=False)
     depth = trainer.model.depth
     del trainer
@@ -1780,10 +1834,12 @@ def phase_train(card, out_dir):
     say(f'[train] rate, XL/2 depth {depth}, deterministic algorithms off, '
         f'metrics read every {TRAIN_TIMED} steps: steps {TRAIN_TIMED + 1}-'
         f'{timed} (loader included, from a sync to a sync) {ms:.2f} ms a '
-        f'step = {batch / ms * 1e3:.2f} images/s; launches {counts_t} == '
+        f'step = {batch / ms * 1e3:.2f} images/s; peak '
+        f'{peak_t / 2 ** 30:.2f} GiB; launches {counts_t} == '
         f'expected [{card}]')
     return det['counts'], det['counts_resumed'], dict(
-        det, ms_per_step=ms, images_per_s=batch / ms * 1e3)
+        det, ms_per_step=ms, images_per_s=batch / ms * 1e3,
+        peak_gib=peak_t / 2 ** 30)
 
 
 def _v1_model_fp32():
@@ -2980,6 +3036,408 @@ def phase_lwd_train(card, out_dir):
                                busy_split=split)
 
 
+def _rel_l2(got, ref):
+    """|got - ref| / |ref| over a tensor, in fp64 on the host."""
+    got, ref = got.detach().double().cpu(), ref.detach().double().cpu()
+    return ((got - ref).norm() / ref.norm()).item()
+
+
+def _hr_train_batch(gen):
+    """Phase 15 (a)'s batch on the CPU: a full 32 x 32 grid and a padded
+    20 x 40 one (800 of HR_N tokens), and fixed draws."""
+    import torch
+    from fitv2_tpu_torch.models.grid_utils import make_grid
+    grid = torch.zeros(2, 2, HR_N, dtype=torch.int64)
+    mask = torch.zeros(2, HR_N)
+    for i, (h, w) in enumerate(SAC_GRIDS):
+        grid[i, :, :h * w] = torch.from_numpy(make_grid(h, w))
+        mask[i, :h * w] = 1.0
+    size = torch.tensor(SAC_GRIDS, dtype=torch.int64).reshape(2, 1, 2)
+    batch = dict(feature=torch.randn(2, HR_N, 16, generator=gen)
+                 * mask[..., None], grid=grid, mask=mask,
+                 label=torch.tensor([207, 360]), size=size)
+    draws = dict(t=torch.tensor([0.3, 0.75]),
+                 x0=torch.randn(2, HR_N, 16, generator=gen),
+                 drop_ids=torch.tensor([0, 1]))
+    return batch, draws
+
+
+def phase_sac():
+    """Phase 15 (a): FiTv2-HR-XL/2's widths (online decoupled NTK RoPE, N
+    HR_N) at depth SAC_DEPTH in fp32, one flow loss and backward on the
+    same weights, batch and draws under each remat policy on the card
+    (none, full, dots, dots_all) and without remat on the CPU: every
+    gradient of each policy against no remat on the card, and the card
+    against the CPU, within TOL_SLICE_REL_L2 relative L2; the exact
+    K1/K2/K4 launches of each (the recompute relaunches each kernel once a
+    block). Returns the counts by policy."""
+    import torch
+    from fitv2_tpu_torch.flow import create_transport
+    from fitv2_tpu_torch.models import FiT
+    from fitv2_tpu_torch.train import flow_loss
+    from fitv2_tpu_torch import kernels as K
+    d = SAC_DEPTH
+    base = _xl_model_fp32(d).state_dict()
+    batch, draws = _hr_train_batch(torch.Generator().manual_seed(SEED + 15))
+    transport = create_transport('Linear', 'velocity', snr_type='lognorm')
+    grads, counts = {}, {}
+    for device, policy in (('cpu', 'none'), ('cuda', 'none'),
+                           ('cuda', 'full'), ('cuda', 'dots'),
+                           ('cuda', 'dots_all')):
+        model = FiT(**dict(HR_XL, depth=d, use_checkpoint=policy != 'none',
+                           remat_policy='full' if policy == 'none'
+                           else policy))
+        model.load_state_dict(base)
+        model = model.to(device).train()
+        _reset_counts()
+        loss, _ = flow_loss(model, transport,
+                            {k: v.to(device) for k, v in batch.items()},
+                            draws={k: v.to(device) for k, v in draws.items()})
+        loss.backward()
+        if device == 'cuda':
+            torch.cuda.synchronize()
+            counts[policy] = dict(_read_counts(), flash_masked_attention_bounded=(
+                K.flash_masked_attention.bounded_launches))
+        grads[device, policy] = {n: p.grad.detach().cpu()
+                                 for n, p in model.named_parameters()}
+        del model
+    ref = grads['cuda', 'none']
+    worst = {}
+    for key, g in grads.items():
+        if key == ('cuda', 'none'):
+            continue
+        rels = {n: _rel_l2(t, ref[n]) for n, t in g.items()}
+        name = max(rels, key=rels.get)
+        same = all(torch.equal(t, ref[n]) for n, t in g.items())
+        worst[key] = rels[name]
+        ok = rels[name] <= TOL_SLICE_REL_L2
+        say(f'[sac] HR-XL widths depth {d} fp32, batch 2 (1024 and 800 of '
+            f'{HR_N} tokens): {key[0]} {key[1]} vs cuda none, {len(g)} '
+            f'gradients: worst relative L2 {rels[name]:.3e} ({name}) <= '
+            f'{TOL_SLICE_REL_L2}: {"ok" if ok else "FAIL"}; bit-identical: '
+            f'{"yes" if same else "no"}')
+        if not ok:
+            raise AssertionError(f'sac {key}: {name} {rels[name]}')
+    for policy, got in counts.items():
+        remat = policy != 'none'
+        want = _expected_counts(1, d, fused_qk_rope=1 + remat,
+                                flash_masked_attention=1 + remat)
+        want['fused_adaln_norm'] += 2 * d * remat
+        want['flash_masked_attention_bounded'] = d * (1 + remat)
+        if got != want:
+            raise AssertionError(f'sac {policy}: launches {got} != {want}')
+        say(f'[sac] {policy}: launches {got} == expected (the recompute '
+            f'relaunches K1 twice, K2 and K4 once a block: '
+            f'{"yes" if remat else "no remat"})')
+    return counts
+
+
+def phase_prepare(card, out_dir):
+    """Phase 15 (b): cli/prepare_latents' routing and encoding function
+    (encode_routed, no PIL) with the SD-VAE encoder at its real widths,
+    seeded: the encoder on the card against the CPU (fp32, a 256 x 256
+    flip pair), then PREP_SIZES' images: PREP_SMALL fit PREP_TARGET_LEN
+    tokens, the larger ones come as PREP_LARGE_HW square arrays for both
+    their resize and crop versions; into shards, fp32 (the shards (c) trains on) and bf16, with
+    the bucket counts and the encode rate. Returns the fp32 shard dir."""
+    import numpy as np
+    import torch
+    from fitv2_tpu_torch.cli.prepare_latents import (
+        encode_routed, make_encode_fn)
+    from fitv2_tpu_torch.vae import AutoencoderKL
+    torch.manual_seed(SEED + 16)
+    vae = AutoencoderKL().eval()
+    rng = np.random.default_rng(SEED + 16)
+    pair = rng.uniform(-1, 1, (2, 256, 256, 3)).astype(np.float32)
+    t0 = time.perf_counter()
+    on_cpu = make_encode_fn(vae, 'cpu')(pair)
+    t_cpu = time.perf_counter() - t0
+    vae_gpu = copy.deepcopy(vae).to('cuda')
+    on_card = make_encode_fn(vae_gpu, 'cuda')(pair)
+    rel = float(np.linalg.norm(on_card - on_cpu) / np.linalg.norm(on_cpu))
+    ok = rel <= TOL_SLICE_REL_L2
+    say(f'[prep] SD-VAE encoder (128-512 wide, seeded), fp32 256x256 flip '
+        f'pair: scaled mean {on_card.shape}, card vs CPU relative L2 '
+        f'{rel:.3e} <= {TOL_SLICE_REL_L2}: {"ok" if ok else "FAIL"} (CPU '
+        f'{t_cpu:.1f} s)')
+    if not ok or not np.isfinite(on_card).all():
+        raise AssertionError(f'prep: encoder card vs CPU {rel}')
+    samples = []
+    for i, (w, h) in enumerate(PREP_SIZES):
+        if (w // 16) * (h // 16) <= PREP_TARGET_LEN:
+            arrays = {'native': rng.integers(0, 256, (h, w, 3), np.uint8)}
+        else:
+            arrays = {k: rng.integers(0, 256, (PREP_LARGE_HW,) * 2 + (3,),
+                                      np.uint8) for k in ('resize', 'crop')}
+        samples.append((f'{i:06d}.safetensors', i % 1000, (w, h),
+                        arrays.__getitem__))
+    out = {}
+    for tag, model in (('fp32', vae_gpu), ('bf16', copy.deepcopy(vae_gpu).to(
+            torch.bfloat16))):
+        encode = make_encode_fn(model, 'cuda')
+        encode(pair)  # warm-up
+        torch.cuda.synchronize()
+        shards = os.path.join(out_dir, f'hr_latents_{tag}')
+        t0 = time.perf_counter()
+        counts = encode_routed(samples, encode, shards, PREP_TARGET_LEN, 2,
+                               log_every=0)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        files = {d: len(os.listdir(os.path.join(shards, d)))
+                 for d in sorted(os.listdir(shards))}
+        want = {'small': PREP_SMALL, 'large': len(PREP_SIZES) - PREP_SMALL}
+        if counts != want or sorted(files.values()) != sorted(
+                [want['small'], want['large'], want['large']]):
+            raise AssertionError(f'prep {tag}: counts {counts}, files {files}')
+        images = 2 * (want['small'] + 2 * want['large'])  # flip pairs
+        say(f'[prep] {tag}: {len(samples)} images ({want["small"]} fit '
+            f'{PREP_TARGET_LEN} tokens, {want["large"]} larger: resize + '
+            f'crop) -> {counts}, shards {files}; {images} encoded images '
+            f'(flip pairs, at their bucket size, shard writes included) in '
+            f'{secs:.3f} s = {images / secs:.1f} images/s [{card}]')
+        out[tag] = shards
+    return out['fp32']
+
+
+def _hr_train_cfg(shards, policy):
+    """configs/fitv2_hr_xl.yaml as shipped, reading `shards`, with
+    `policy` as its remat policy."""
+    from fitv2_tpu_torch.utils import load_config
+    cfg = load_config(['configs/fitv2_hr_xl.yaml'])
+    cfg['data']['params']['train']['data_path'] = shards
+    cfg['diffusion']['network_config']['params']['remat_policy'] = policy
+    return cfg
+
+
+def phase_train_hr(card, out_dir, shards, ref_npz, inception_weights):
+    """Phase 15 (c): cli/train's build_trainer on configs/fitv2_hr_xl.yaml
+    as shipped (remat 'dots', depth 36, batch 8 at 1024 tokens, bf16 over
+    fp32 masters, the native loader) on (b)'s shards, HR_TRAIN_STEPS
+    steps, a sync every step: finite losses, exact launches a step, ms a
+    step (the median after HR_TRAIN_WARM), images/s and peak memory; an
+    InlineEvalHook at the last step (HOOK_STEPS Euler steps, batch 4, CFG
+    1.5 at 512 x 512, the smoke's random VAE decoder and InceptionV3,
+    against `ref_npz`) writing its preview and inline_fid; then the same
+    run with remat 'full'. Returns the counts by path and the numbers."""
+    import numpy as np
+    import torch
+    from fitv2_tpu_torch import kernels as K
+    from fitv2_tpu_torch.cli import train as cli
+    from fitv2_tpu_torch.sample import SamplingConfig
+    from fitv2_tpu_torch.train.eval_hook import InlineEvalHook
+    from fitv2_tpu_torch.vae import AutoencoderKL
+    torch.manual_seed(SEED + 2)
+    vae = AutoencoderKL().to(device='cuda', dtype=torch.bfloat16).eval()
+    preview_dir = os.path.join(out_dir, 'previews')
+    results, by_path, hook_state = {}, {}, {}
+    for policy in ('dots', 'full'):
+        args = cli.parse_args(['--cfgdir', 'configs/fitv2_hr_xl.yaml',
+                               '--output-dir', os.path.join(out_dir, 'hr'),
+                               '--max-steps', str(HR_TRAIN_STEPS),
+                               '--device', 'cuda'])
+        extra = None
+        if policy == 'dots':
+            def extra(step, metrics, trainer):
+                if step != HR_TRAIN_STEPS:
+                    return
+                hook = InlineEvalHook(
+                    trainer.model, SamplingConfig(
+                        image_height=512, image_width=512,
+                        num_sampling_steps=HOOK_STEPS, cfg_scale=CFG_SCALE,
+                        per_device_batch=HOOK_BATCH, interpolation='keep',
+                        dtype=torch.bfloat16),
+                    every=HR_TRAIN_STEPS, ref_images=ref_npz,
+                    inception_weights=inception_weights, vae=vae,
+                    out_dir=preview_dir, seed=SEED)
+                hook.attach(lambda: trainer.state.ema_params)
+                before = _counts_now()
+                t0 = time.perf_counter()
+                hook(step, metrics)
+                torch.cuda.synchronize()
+                hook_state['secs'] = time.perf_counter() - t0
+                hook_state['counts'] = _counts_minus(_counts_now(), before)
+                hook_state['metrics'] = dict(metrics)
+        trainer, state, losses, stamps, _, counts, peak = _train_run(
+            cli, _hr_train_cfg(shards, policy), args, False, write=False,
+            extra_hook=extra)
+        depth, batch = trainer.model.depth, trainer.cfg.global_batch_size
+        if trainer.model.remat_policy != policy or not trainer.model.\
+                use_checkpoint:
+            raise AssertionError(f'hr train: remat {policy} not in effect')
+        del trainer, state
+        torch.cuda.empty_cache()
+        if policy == 'dots':
+            counts = _counts_minus(counts, hook_state['counts'])
+        want = dict(_expected_counts(HR_TRAIN_STEPS, depth, fused_qk_rope=2,
+                                     flash_masked_attention=2),
+                    flash_masked_attention_bounded=HR_TRAIN_STEPS * 2 * depth)
+        want['fused_adaln_norm'] += HR_TRAIN_STEPS * 2 * depth
+        if counts != want or not all(map(math.isfinite, losses)):
+            raise AssertionError(f'hr train {policy}: launches {counts} != '
+                                 f'{want}, losses {losses}')
+        step_ms = [(stamps[s] - stamps[s - 1]) * 1e3 for s in sorted(stamps)
+                   if s > HR_TRAIN_WARM and s - 1 in stamps]
+        ms = statistics.median(step_ms)
+        results[policy] = dict(ms_per_step=ms, images_per_s=batch / ms * 1e3,
+                               peak_gib=peak / 2 ** 30, losses=losses)
+        by_path[f'hr_train_{policy}'] = counts
+        say(f'[hr train] configs/fitv2_hr_xl.yaml, remat {policy}, depth '
+            f'{depth}, batch {batch} x {PREP_TARGET_LEN} tokens, bf16 over '
+            f'fp32 masters: losses {", ".join(f"{v:.4f}" for v in losses)}; '
+            f'a step (synced), median of steps {HR_TRAIN_WARM + 1}-'
+            f'{HR_TRAIN_STEPS}: {ms:.2f} ms (range {min(step_ms):.2f}-'
+            f'{max(step_ms):.2f}) = {batch / ms * 1e3:.2f} images/s; peak '
+            f'{peak / 2 ** 30:.2f} GiB; launches a step: K1 '
+            f'{2 * depth + 1} + {2 * depth} (recompute), K2 {depth} + '
+            f'{depth}, K4 {depth} + {depth} == expected [{card}]')
+    hc, hm = hook_state['counts'], hook_state['metrics']
+    want = _expected_counts(HOOK_STEPS, depth, fused_qk_rope=1,
+                            flash_masked_attention=1)
+    want['flash_masked_attention_bounded'] = HOOK_STEPS * depth
+    preview = np.load(os.path.join(preview_dir,
+                                   f'preview_{HR_TRAIN_STEPS}.npz'))['arr_0']
+    if (hc != want or preview.shape != (HOOK_BATCH, 512, 512, 3)
+            or preview.dtype != np.uint8
+            or not math.isfinite(hm.get('inline_fid', math.nan))
+            or not math.isfinite(hm.get('inline_is', math.nan))):
+        raise AssertionError(f'inline eval: launches {hc} (want {want}), '
+                             f'preview {preview.shape}, metrics {hm}')
+    by_path['inline_eval'] = hc
+    say(f'[hr train] InlineEvalHook at step {HR_TRAIN_STEPS}: EMA -> the '
+        f"hook's copy of the bf16 model, {HOOK_STEPS} Euler steps CFG "
+        f'{CFG_SCALE} batch '
+        f'{HOOK_BATCH} at 512x512, VAE, preview {preview.shape} written, '
+        f'inline_fid {hm["inline_fid"]:.3f} inline_is {hm["inline_is"]:.3f} '
+        f'against {os.path.basename(ref_npz)} (seeded weights); '
+        f'{hook_state["secs"]:.2f} s; launches {hc} == expected [{card}]')
+    return by_path, results
+
+
+def _counts_now():
+    from fitv2_tpu_torch import kernels as K
+    return dict(_read_counts(), flash_masked_attention_bounded=(
+        K.flash_masked_attention.bounded_launches))
+
+
+def _counts_minus(a, b):
+    return {k: a[k] - b.get(k, 0) for k in a}
+
+
+def phase_came(card, out_dir, adamw):
+    """Phase 15 (d): an fp32 CAME update at XL width, depth
+    CAME_PARITY_DEPTH, over the JAX counterpart's leaves (scanned blocks),
+    on the card against the CPU on the same masters and gradients
+    (CAME_PARITY_STEPS updates): every master and state tensor within
+    TOL_CAME_REL relative L2; then cli/train --came on
+    configs/fitv2_xl.yaml (depth 36, batch 32, phase 11's shards): the rate
+    over steps TRAIN_TIMED + 1 to 2 TRAIN_TIMED as phase 11 times AdamW,
+    and the peak memory, beside phase 11's (`adamw`: its ms_per_step and
+    peak_gib, None where not run). Returns the counts and the numbers."""
+    import torch
+    from fitv2_tpu_torch.ckpt import jax_leaves
+    from fitv2_tpu_torch.cli import train as cli
+    from fitv2_tpu_torch.train.came import CAME
+    base = _xl_model_fp32(CAME_PARITY_DEPTH)
+    gen = torch.Generator().manual_seed(SEED + 17)
+    grads = [[torch.randn(p.shape, generator=gen) for p in base.parameters()]
+             for _ in range(CAME_PARITY_STEPS)]
+    out = {}
+    for device in ('cpu', 'cuda'):
+        model = copy.deepcopy(base).to(device)
+        masters = dict(model.named_parameters())
+        opt = CAME(masters, jax_leaves(model), lr=1e-4, weight_decay=0.01)
+        for step_grads in grads:
+            for p, g in zip(masters.values(), step_grads):
+                p.grad = g.to(device)
+            opt.step()
+        out[device] = ({n: p.detach().cpu() for n, p in masters.items()},
+                       [{k: v.cpu() for k, v in
+                         opt.state[opt.leaf_params(leaf)[0]].items()}
+                        for leaf in opt.leaves])
+    rels = {n: _rel_l2(t, out['cpu'][0][n]) for n, t in out['cuda'][0].items()}
+    for i, st in enumerate(out['cuda'][1]):
+        for k, v in st.items():
+            rels[f'state[{i}].{k}'] = _rel_l2(v, out['cpu'][1][i][k])
+    worst = max(rels, key=rels.get)
+    ok = rels[worst] <= TOL_CAME_REL
+    say(f'[came] XL width depth {CAME_PARITY_DEPTH} fp32, '
+        f'{CAME_PARITY_STEPS} CAME updates over {len(out["cpu"][1])} JAX '
+        f'leaves (wd 0.01), card vs CPU: worst relative L2 {rels[worst]:.3e} '
+        f'({worst}) of {len(rels)} masters and state tensors <= '
+        f'{TOL_CAME_REL}: {"ok" if ok else "FAIL"}')
+    if not ok:
+        raise AssertionError(f'came parity: {worst} {rels[worst]}')
+    timed = 2 * TRAIN_TIMED
+    cfg = _train_config('configs/fitv2_xl.yaml', out_dir, TRAIN_RESUME)
+    args = cli.parse_args(['--cfgdir', 'configs/fitv2_xl.yaml', '--came',
+                           '--output-dir', os.path.join(out_dir, 'came'),
+                           '--max-steps', str(timed), '--device', 'cuda'])
+    trainer, _, losses, stamps, _, counts, peak = _train_run(
+        cli, cfg, args, False, log_every=TRAIN_TIMED, write=False)
+    depth, batch = trainer.model.depth, trainer.cfg.global_batch_size
+    if not isinstance(trainer.state.optimizer, CAME):
+        raise AssertionError('came: the trainer does not run CAME')
+    del trainer
+    torch.cuda.empty_cache()
+    want = dict(_expected_counts(timed, depth, fused_qk_rope=1,
+                                 flash_masked_attention=1),
+                flash_masked_attention_bounded=timed * depth)
+    if counts != want or not all(map(math.isfinite, losses)):
+        raise AssertionError(f'came run: launches {counts}, losses {losses}')
+    ms = (stamps[timed] - stamps[TRAIN_TIMED]) * 1e3 / TRAIN_TIMED
+    beside = ('' if adamw is None else
+              f'; AdamW (phase 11, the same window): '
+              f'{adamw["ms_per_step"]:.2f} ms, peak '
+              f'{adamw["peak_gib"]:.2f} GiB')
+    say(f'[came] cli/train --came configs/fitv2_xl.yaml, depth {depth}, '
+        f'batch {batch}: steps {TRAIN_TIMED + 1}-{timed} {ms:.2f} ms a step '
+        f'= {batch / ms * 1e3:.2f} images/s, peak {peak / 2 ** 30:.2f} GiB'
+        f'{beside}; launches == expected [{card}]')
+    return counts, dict(ms_per_step=ms, images_per_s=batch / ms * 1e3,
+                        peak_gib=peak / 2 ** 30, parity_rel_l2=rels[worst])
+
+
+def phase_teachers(card):
+    """Phase 15 (e): the REPA teachers DINOv2-B/14 and CLIP-B/16 at their
+    seeded random init (load_encoders): fp32 tokens on the card against the
+    CPU on 2 images at 224 x 224 within TOL_SLICE_REL_L2 relative L2; then
+    bf16 images/s at TEACHER_BATCH (the median of REPS calls, CUDA events
+    behind a device sleep, preprocessing included)."""
+    import numpy as np
+    import torch
+    from fitv2_tpu_torch.encoders import load_encoders
+    rng = np.random.default_rng(SEED + 18)
+    small = torch.from_numpy(rng.integers(0, 256, (2, 224, 224, 3), np.uint8))
+    many = torch.from_numpy(rng.integers(
+        0, 256, (TEACHER_BATCH, 224, 224, 3), np.uint8)).cuda()
+    out = {}
+    for enc, arch in (('dinov2-vit-b', 'vit_base'), ('clip-vit-b', 'vit_base')):
+        model, pre = load_encoders(enc, arch=arch)
+
+        def feats(m, x):
+            return (m.forward_features(pre(x)) if enc.startswith('clip')
+                    else m(pre(x)))
+        with torch.no_grad():
+            ref = feats(model, small)
+            gpu = model.to('cuda')
+            got = feats(gpu, small.cuda())
+            rel = _rel_l2(got, ref)
+            ok = rel <= TOL_SLICE_REL_L2 and torch.isfinite(got).all()
+            say(f'[teachers] {enc} ({arch}, seeded) fp32 tokens '
+                f'{tuple(got.shape)}, card vs CPU relative L2 {rel:.3e} <= '
+                f'{TOL_SLICE_REL_L2}: {"ok" if ok else "FAIL"}')
+            if not ok:
+                raise AssertionError(f'teachers {enc}: {rel}')
+            bf16 = gpu.to(torch.bfloat16)
+            ms = _time_ms(lambda: feats(bf16, many))
+        rate = TEACHER_BATCH / ms * 1e3
+        out[enc] = dict(rel_l2=rel, ms=ms, images_per_s=rate)
+        say(f'[teachers] {enc} bf16 at batch {TEACHER_BATCH}, 224x224: '
+            f'{ms:.2f} ms a batch = {rate:.1f} images/s [{card}]')
+        del model, gpu, bf16
+    return out
+
+
 # cuBLAS's fixed workspace, which deterministic algorithms require of a
 # cuBLAS call: cuBLAS reads it once, when it starts, and it makes every
 # sampler step's host side 2.0-2.4x slower (PERF.md §5, PR 9), so only the
@@ -3059,7 +3517,7 @@ def main():
         with _clock('phase 11 (train)'):
             train_cases = phase_train_kernels()
             phase_train_parity()
-            train_counts, resumed_counts, _ = phase_train(card, out_dir)
+            train_counts, resumed_counts, adamw = phase_train(card, out_dir)
         # phase 12: FiTv1-XL/2 (configs/fit_xl.yaml)
         with _clock('phase 12 (fitv1)'):
             v1_k2_cases, v1_k2_grad_cases = phase_fitv1_kernels(
@@ -3087,6 +3545,22 @@ def main():
         with _clock('phase 14 (lwd train)'):
             lwd_train_cases, lwd_train_counts, _ = phase_lwd_train(
                 card, out_dir)
+        # phase 15: raw images -> latent shards -> HR-XL training under
+        # 'dots' with the inline eval; CAME; the REPA teachers
+        torch.cuda.empty_cache()
+        with _clock('phase 15 (a) remat policies'):
+            sac_counts = phase_sac()
+        with _clock('phase 15 (b) prepare_latents'):
+            hr_shards = phase_prepare(card, out_dir)
+        with _clock('phase 15 (c) HR-XL training + inline eval'):
+            hr_train_counts, _ = phase_train_hr(
+                card, out_dir, hr_shards,
+                os.path.join(out_dir, 'hr_512x512.npz'),
+                os.path.join(out_dir, 'pt_inception.pt'))
+        with _clock('phase 15 (d) CAME'):
+            came_counts, _ = phase_came(card, out_dir, adamw)
+        with _clock('phase 15 (e) teachers'):
+            phase_teachers(card)
     for name, cases in lwd_cases.items():
         results[name]['cases'] += cases
     for name, cases in hr_cases.items():
@@ -3144,7 +3618,9 @@ def main():
                'train_resumed': resumed_counts, **v1_counts,
                'fitv1_train': v1_train_counts,
                'fitv1_train_resumed': v1_resumed_counts, **lwd_counts,
-               **lwd_train_counts}
+               **lwd_train_counts,
+               **{f'sac_{p}': c for p, c in sac_counts.items()},
+               **hr_train_counts, 'came_train': came_counts}
     # the attention wrapper launches K4 (bounded) or K3 (online softmax):
     # K3's share on each path that counted K4 apart
     results['attention']['k3_launches_by_path'] = {

@@ -25,6 +25,16 @@ port's ``nn.ModuleList`` entry ``{name}.{i}``.
 params, EMA, optax's adam mu / nu and counts, MultiSteps' accumulator)
 onto the port's ``train.TrainState`` through the same parameter mapping.
 
+``teacher_state_from_jax`` maps the JAX package's REPA teachers (ViT,
+DINOv2, CLIP) onto ``fitv2_tpu_torch.encoders``' modules (torch hub /
+OpenAI names).
+
+``jax_leaves`` maps the other way, from a port model's parameters to the
+JAX tree's leaves (a depth-stacked leaf holds one port parameter a block):
+what the optimizers need to do per JAX leaf what optax does per leaf
+(CAME's factored moments and RMS clip, the decay labels).
+``came_state_from_jax`` carries a JAX CAME state onto the port's ``CAME``.
+
 ``quant_state_from_jax`` carries the int8 serving mode's collections
 (``quant_calib``: per-site activation absmax; ``quant_weights``: int8
 kernels and per-channel scales) onto the port's ``Int8Linear`` buffers,
@@ -33,8 +43,9 @@ for ``fitv2_tpu_torch.kernels.quant.load_quant_state``.
 
 from __future__ import annotations
 
+import dataclasses
 import re
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, List, Mapping, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -117,9 +128,74 @@ def state_dict_from_jax(params_np: Mapping[str, Any], *, depth: int,
     return sd
 
 
-_LWD_LIST = re.compile(r'(x_embedders|t_embedders|y_embedders|final_layers|'
-                       r'rep_segments|segments)_(\d+)/(.*)')
+_LWD_LISTS = ('x_embedders|t_embedders|y_embedders|final_layers|'
+              'rep_segments|segments')
+_LWD_LIST = re.compile(rf'({_LWD_LISTS})_(\d+)/(.*)')
 _STACK = '/stack/block/'
+
+
+@dataclasses.dataclass(frozen=True)
+class JaxLeaf:
+    """One leaf of the JAX model's parameter tree, as the port holds it.
+
+    path: its '/'-joined flax path; names: the port's parameters it holds
+    (one, or one a block in block order when ``stacked``: JAX stacks them
+    along a new leading axis); transpose: a Dense kernel, the transpose of
+    each port ``nn.Linear`` weight; ndim: the JAX leaf's rank."""
+    path: str
+    names: Tuple[str, ...]
+    stacked: bool
+    transpose: bool
+    ndim: int
+
+    def to_jax(self, tensors: Sequence[torch.Tensor]) -> torch.Tensor:
+        """The leaf in JAX's layout from its port tensors (``names``'
+        order)."""
+        ts = [t.t() if self.transpose else t for t in tensors]
+        return torch.stack(ts) if self.stacked else ts[0]
+
+    def from_jax(self, t: torch.Tensor) -> List[torch.Tensor]:
+        """The inverse of ``to_jax``: one port tensor a name (views)."""
+        parts = t.unbind(0) if self.stacked else [t]
+        return [p.t() if self.transpose else p for p in parts]
+
+
+def jax_leaves(model: torch.nn.Module) -> List[JaxLeaf]:
+    """The leaves of the JAX counterpart of ``model`` (a FiT, whose blocks
+    JAX stacks when ``scan_blocks``; or an LwD model, whose every
+    ``BlockStack`` it stacks), in the order of ``model.named_parameters``'
+    first members."""
+    from fitv2_tpu_torch.models.fit import FiT
+    from fitv2_tpu_torch.models.fit_lwd import BlockStack
+
+    def jax_prefix(name: str) -> str:
+        name = re.sub(rf'(^|\.)({_LWD_LISTS})\.(\d+)', r'\1\2_\3', name)
+        if isinstance(model, FiT):
+            name = re.sub(r'^blocks\.(\d+)', r'blocks_\1', name)
+        return name.replace('.', '/')
+
+    stacks = {name: jax_prefix(name) + '/stack/block'
+              for name, m in model.named_modules()
+              if isinstance(m, BlockStack)}
+    if isinstance(model, FiT) and model.scan_blocks:
+        stacks['blocks'] = 'blocks/block'
+    linear = {id(m.weight) for m in model.modules()
+              if isinstance(m, torch.nn.Linear)}
+    leaves: Dict[str, list] = {}
+    for name, p in model.named_parameters():
+        stack = next((s for s in stacks if name.startswith(s + '.')), None)
+        if stack is not None:
+            rest = name[len(stack) + 1:].split('.', 1)[1]
+            path = f'{stacks[stack]}/{rest.replace(".", "/")}'
+        else:
+            path = jax_prefix(name)
+        if id(p) in linear:
+            path = path[:-len('weight')] + 'kernel'
+        entry = leaves.setdefault(path, [[], stack is not None,
+                                         id(p) in linear, p.dim()])
+        entry[0].append(name)
+    return [JaxLeaf(path, tuple(names), stacked, transpose, ndim + stacked)
+            for path, (names, stacked, transpose, ndim) in leaves.items()]
 
 
 def lwd_state_from_jax(params_np: Mapping[str, Any], model: torch.nn.Module
@@ -199,6 +275,42 @@ def inception_state_from_jax(params_np: Mapping[str, Any]
     return out
 
 
+_TEACHER_RENAMES = (
+    (r'^patch_embed/', 'patch_embed/proj/'),
+    (r'^block(\d+)/(qkv|proj)/', r'blocks/\1/attn/\2/'),
+    (r'^block(\d+)/(fc1|fc2|w12|w3)/', r'blocks/\1/mlp/\2/'),
+    (r'^block(\d+)/(ls[12])_gamma$', r'blocks/\1/\2/gamma'),
+    (r'^block(\d+)/', r'blocks/\1/'),
+    (r'^resblock(\d+)/attn/in_proj/kernel$',
+     r'transformer/resblocks/\1/attn/in_proj_weight'),
+    (r'^resblock(\d+)/attn/in_proj/bias$',
+     r'transformer/resblocks/\1/attn/in_proj_bias'),
+    (r'^resblock(\d+)/(c_fc|c_proj)/', r'transformer/resblocks/\1/mlp/\2/'),
+    (r'^resblock(\d+)/', r'transformer/resblocks/\1/'),
+    (r'/scale$', '/weight'),
+)
+
+
+def teacher_state_from_jax(params_np: Mapping[str, Any]
+                           ) -> Dict[str, torch.Tensor]:
+    """JAX VisionTransformer / DinoV2ViT / CLIPVisionTransformer params
+    (numpy leaves) -> the state dict of the port's module of the same
+    family: conv kernels (kh, kw, I, O) -> (O, I, kh, kw), Dense kernels
+    and CLIP's packed ``in_proj`` (I, O) -> (O, I), LayerNorm ``scale`` ->
+    ``weight``, the torch hub / OpenAI names."""
+    out: Dict[str, torch.Tensor] = {}
+    for path, value in _flatten(params_np.get('params', params_np)).items():
+        for pat, rep in _TEACHER_RENAMES:
+            path = re.sub(pat, rep, path)
+        if path.endswith('kernel') or path.endswith('in_proj_weight'):
+            value = value.transpose(3, 2, 0, 1) if value.ndim == 4 \
+                else value.T
+            path = re.sub(r'kernel$', 'weight', path)
+        out[path.replace('/', '.')] = torch.from_numpy(
+            np.array(value, dtype=np.float32, order='C'))
+    return out
+
+
 def _find_state(node: Any, *fields: str) -> Any:
     """The first optax state (a namedtuple) in ``node`` with ``fields``."""
     if all(hasattr(node, f) for f in fields):
@@ -209,6 +321,64 @@ def _find_state(node: Any, *fields: str) -> Any:
             if found is not None:
                 return found
     return None
+
+
+def _came_tree(node: Any) -> Any:
+    """The params-shaped tree of CAME leaf states in an optax state."""
+    def is_came(x):
+        return hasattr(x, 'r_row') and hasattr(x, 'm')
+    if isinstance(node, Mapping):
+        leaf = node
+        while isinstance(leaf, Mapping) and leaf:
+            leaf = next(iter(leaf.values()))
+        return node if is_came(leaf) else None
+    if isinstance(node, (tuple, list)) and not is_came(node):
+        for child in node:
+            found = _came_tree(child)
+            if found is not None:
+                return found
+    return None
+
+
+def came_state_from_jax(opt_state_np: Any, model: torch.nn.Module,
+                        optimizer) -> None:
+    """Copy the CAME state of a JAX ``opt_state`` (numpy leaves) into the
+    port's ``CAME`` (over ``jax_leaves(model)``): each of its leaves' m and
+    factored r/s (or r_full), in JAX's layout, as the port keeps them; the
+    count of a schedule, where JAX keeps one."""
+    tree = _came_tree(opt_state_np)
+    if tree is None:
+        raise ValueError('no CAME state in opt_state')
+    flat: Dict[str, Any] = {}
+
+    def walk(node, prefix):
+        for k, v in node.items():
+            path = f'{prefix}/{k}' if prefix else k
+            if isinstance(v, Mapping):
+                walk(v, path)
+            else:
+                flat[path] = v
+    walk(tree, '')
+    for leaf in optimizer.leaves:
+        st = flat[leaf.path]
+        keys = (('m', 'r_row', 'r_col', 's_row', 's_col') if leaf.ndim >= 2
+                else ('m', 'r_full'))
+        first = optimizer.leaf_params(leaf)[0]
+        optimizer.state[first] = {
+            k: torch.from_numpy(np.array(getattr(st, k), np.float32)).to(
+                first.device) for k in keys}
+    def schedule_state(node):  # optax's ScaleByScheduleState(count)
+        if 'count' in getattr(node, '_fields', ()):
+            return node
+        if isinstance(node, (tuple, list)):
+            for child in node:
+                found = schedule_state(child)
+                if found is not None:
+                    return found
+        return None
+    sched = schedule_state(opt_state_np)
+    if sched is not None:
+        optimizer.param_groups[0]['count'] = int(sched.count)
 
 
 def train_state_from_jax(state_np: Any, model: torch.nn.Module, cfg,
@@ -223,7 +393,9 @@ def train_state_from_jax(state_np: Any, model: torch.nn.Module, cfg,
     nu go through ``state_dict_from_jax`` (``lwd_state_from_jax`` for an
     LwD model); the adam count becomes the optimizer's
     count, ``state.step`` the step; under ``optax.MultiSteps`` its
-    mini-step, gradient step and accumulated gradients carry over too."""
+    mini-step, gradient step and accumulated gradients carry over too.
+    A CAME state (``cfg.optimizer == 'came'``) goes through
+    ``came_state_from_jax``."""
     from fitv2_tpu_torch.models.fit_lwd import FiTLwD
     from fitv2_tpu_torch.train.train_step import create_train_state
     if isinstance(model, FiTLwD):
@@ -235,8 +407,10 @@ def train_state_from_jax(state_np: Any, model: torch.nn.Module, cfg,
                 tree, depth=model.depth, num_heads=model.num_heads,
                 adaln_type=model.adaln_type, rope_layout=rope_layout)
     state = create_train_state(model, cfg)
-    adam = _find_state(state_np.opt_state, 'mu', 'nu', 'count')
-    if adam is None:
+    came = cfg.optimizer == 'came'
+    adam = None if came else _find_state(state_np.opt_state, 'mu', 'nu',
+                                         'count')
+    if adam is None and not came:
         raise ValueError('no adam state (mu, nu, count) in opt_state')
     multi = _find_state(state_np.opt_state, 'mini_step', 'acc_grads')
     with torch.no_grad():
@@ -245,11 +419,14 @@ def train_state_from_jax(state_np: Any, model: torch.nn.Module, cfg,
             sd = convert(tree)
             for name, t in getattr(state, key).items():
                 t.copy_(sd[name])
-        mu, nu = convert(adam.mu), convert(adam.nu)
-        for name, p in state.params.items():
-            state.optimizer.state[p] = {
-                'mu': mu[name].to(p.device, cfg.mu_dtype or p.dtype),
-                'nu': nu[name].to(p.device, p.dtype)}
+        if came:
+            came_state_from_jax(state_np.opt_state, model, state.optimizer)
+        else:
+            mu, nu = convert(adam.mu), convert(adam.nu)
+            for name, p in state.params.items():
+                state.optimizer.state[p] = {
+                    'mu': mu[name].to(p.device, cfg.mu_dtype or p.dtype),
+                    'nu': nu[name].to(p.device, p.dtype)}
         if multi is not None:
             if state.accumulator is None:
                 raise ValueError('the JAX state accumulates gradients; set '
@@ -259,7 +436,8 @@ def train_state_from_jax(state_np: Any, model: torch.nn.Module, cfg,
                                  [acc[n] for n in state.params])
             state.accumulator.mini_step = int(multi.mini_step)
             state.accumulator.gradient_step = int(multi.gradient_step)
-    for group in state.optimizer.param_groups:
-        group['count'] = int(adam.count)
+    if not came:
+        for group in state.optimizer.param_groups:
+            group['count'] = int(adam.count)
     state.step = int(state_np.step)
     return state

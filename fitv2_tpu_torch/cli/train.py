@@ -11,8 +11,8 @@ its transport, or FiTv1's ``diffusion_steps``), ``data.params.train``
 (shards, target length, per-host batch) and ``accelerate`` (optimizer,
 schedule, checkpoints). A ``learn_sigma`` network (FiTv1,
 configs/fit_xl.yaml) trains the improved-diffusion ``ddpm`` objective,
-any other the flow objective. ``--came`` and a CAME optimizer target
-raise until CAME is ported.
+any other the flow objective. ``--came`` or a CAME optimizer target trains
+with CAME (train/came.py), as in JAX.
 """
 
 from __future__ import annotations
@@ -31,7 +31,7 @@ def parse_args(argv=None):
     p.add_argument('--max-steps', type=int, default=None)
     p.add_argument('--seed', type=int, default=None)
     p.add_argument('--came', action='store_true',
-                   help='train with the CAME optimizer (not ported yet)')
+                   help='train with the CAME optimizer')
     p.add_argument('--device', default='cuda',
                    help="'cuda' (default) or 'cpu'")
     return p.parse_args(argv)
@@ -47,10 +47,6 @@ def build_trainer(cfg, args):
     diff = cfg['diffusion']
     acc = cfg.get('accelerate', {})
     opt_target = str(acc.get('optimizer', {}).get('target', ''))
-    if args.came or 'came' in opt_target.lower():
-        raise NotImplementedError(
-            'the CAME optimizer is not ported yet (ROADMAP.md §1, slice 5 '
-            'remainder); train with AdamW')
     model = config_to_model(diff['network_config'])
     tcfg = diff.get('transport', {})
     transport = create_transport(
@@ -76,6 +72,8 @@ def build_trainer(cfg, args):
         lr_warmup_steps=int(acc.get('lr_warmup_steps', 1000)),
         max_grad_norm=float(acc.get('max_grad_norm', 1.0)),
         weight_decay=float(opt.get('weight_decay', 0.0)),
+        optimizer=('came' if args.came or 'came' in opt_target.lower()
+                   else 'adamw'),
         grad_accum_steps=int(acc.get('gradient_accumulation_steps', 1)),
         seed=args.seed if args.seed is not None else int(
             acc.get('seed', 42)),

@@ -10,11 +10,13 @@ Tokens are (B, N, C).
 
 from __future__ import annotations
 
+from functools import partial
 from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (
+    checkpoint, create_selective_checkpoint_contexts, noop_context_fn)
 
 from fitv2_tpu_torch.models import rope as rope_lib
 from fitv2_tpu_torch.models.modules import (
@@ -23,6 +25,20 @@ from fitv2_tpu_torch.models.modules import (
 
 Tensor = torch.Tensor
 RopeTables = Tuple[Tensor, Tensor]
+
+_aten = torch.ops.aten
+# The ops whose outputs each selective remat policy saves; every other op
+# of a block is recomputed in the backward pass. 'dots' is JAX's
+# dots_with_no_batch_dims_saveable: the 2-D products (qkv, proj, fc1/fc2,
+# adaLN and its LoRA). 'dots_all' is dots_saveable: the batched products
+# too. A kernel launched through ctypes is no aten op, so its autograd
+# Function reruns in the recompute, as a pallas_call does under JAX's
+# policies.
+REMAT_SAVED_OPS = {
+    'dots': (_aten.mm.default, _aten.addmm.default),
+    'dots_all': (_aten.mm.default, _aten.addmm.default, _aten.bmm.default,
+                 _aten.baddbmm.default),
+}
 
 
 def embed_pre_trunk(model: 'FiT', x: Tensor, t: Tensor, y: Tensor,
@@ -63,11 +79,14 @@ class FiT(nn.Module):
     ``gemm_precision='int8'`` makes the blocks' qkv, proj and MLP GEMMs
     int8 W8A8 (``Int8Linear``); adaLN, the embedders and the final layer
     stay in ``dtype``. The sampler calibrates and prequantizes them.
-    ``use_checkpoint`` with ``remat_policy='full'`` recomputes each block
-    in the backward pass (``torch.utils.checkpoint``) where autograd
-    records the forward; the JAX package's ``dots*`` policies are not
-    ported. Knobs of the JAX model that do not change a forward pass
-    (``scan_blocks``, ``use_sit``) are accepted for config compatibility.
+    ``use_checkpoint`` recomputes each block in the backward pass
+    (``torch.utils.checkpoint``) where autograd records the forward:
+    everything with ``remat_policy='full'``, all but the matrix products
+    with 'dots' and 'dots_all' (``REMAT_SAVED_OPS``, selective
+    checkpointing). Knobs of the JAX model that do not change a forward pass
+    (``scan_blocks``, ``use_sit``) are accepted for config compatibility;
+    ``scan_blocks`` is kept: it sets the layout of JAX's parameter tree
+    (each block parameter stacked over depth, ``ckpt.jax_leaves``).
     """
 
     def __init__(self, context_size: int = 256, patch_size: int = 2,
@@ -114,6 +133,7 @@ class FiT(nn.Module):
         self.gemm_precision = gemm_precision
         self.use_checkpoint = use_checkpoint
         self.remat_policy = remat_policy
+        self.scan_blocks = scan_blocks
         self.rope_config = rope_lib.RopeConfig(
             head_dim=hidden_size // num_heads, mode=custom_freqs,
             theta=rope_theta, max_cached_len=max_cached_len,
@@ -206,18 +226,25 @@ class FiT(nn.Module):
         return rope_lib.rope_from_grid(self._rope_cache[key], grid,
                                        cfg.layout)
 
-    def _remat(self) -> bool:
-        """Whether blocks recompute in the backward pass: ``use_checkpoint``
-        and autograd recording. Only the 'full' policy is ported."""
+    def _remat(self):
+        """None where blocks keep their activations (no ``use_checkpoint``,
+        or autograd not recording); else the ``context_fn`` of
+        ``torch.utils.checkpoint`` for ``remat_policy`` (torch's no-op one
+        for 'full', selective checkpointing for 'dots' and 'dots_all')."""
         if not (self.use_checkpoint and torch.is_grad_enabled()):
-            return False
-        if self.remat_policy in ('dots', 'dots_all', 'dots_offload'):
+            return None
+        policy = self.remat_policy
+        if policy == 'full':
+            return noop_context_fn
+        if policy in REMAT_SAVED_OPS:
+            return partial(create_selective_checkpoint_contexts,
+                           list(REMAT_SAVED_OPS[policy]))
+        if policy == 'dots_offload':
             raise NotImplementedError(
-                f'remat_policy={self.remat_policy!r} is not ported (ROADMAP.md'
-                " §1, slice 5 remainder); use remat_policy='full'")
-        if self.remat_policy != 'full':
-            raise ValueError(f'unknown remat_policy: {self.remat_policy!r}')
-        return True
+                "remat_policy='dots_offload' is not ported: it is on "
+                "ROADMAP.md's \"Not to port\" list (a TPU HBM workaround); "
+                "use 'dots'")
+        raise ValueError(f'unknown remat_policy: {policy!r}')
 
     def forward(self, x: Tensor, t: Tensor, y: Tensor, grid: Tensor,
                 mask: Optional[Tensor] = None, size: Optional[Tensor] = None,
@@ -236,11 +263,11 @@ class FiT(nn.Module):
         x, c, cos, sin, global_adaln = embed_pre_trunk(
             self, x, t, y, grid, size, rope, train, force_drop_ids,
             generator)
-        remat = self._remat()
+        context_fn = self._remat()
         for block in self.blocks:
-            if remat:
+            if context_fn is not None:
                 x = checkpoint(block, x, c, mask, cos, sin, global_adaln,
-                               use_reentrant=False)
+                               use_reentrant=False, context_fn=context_fn)
             else:
                 x = block(x, c, mask, cos, sin, global_adaln)
         return finalize_post_trunk(self, x, c, mask)

@@ -1,7 +1,9 @@
 """FiT training: the flow (FiTv2) and improved-diffusion (FiTv1) train
-steps, the LwD / BFM segment-flow steps, optimizer, schedules and the
-config-driven trainers (counterpart of fitv2_tpu/train, one device)."""
+steps, the LwD / BFM segment-flow steps, optimizers (AdamW, CAME, grouped
+and finetune), schedules, the inline eval hook and the config-driven
+trainers (counterpart of fitv2_tpu/train, one device)."""
 
+from fitv2_tpu_torch.train.came import CAME
 from fitv2_tpu_torch.train.ddpm_train_step import (
     ddpm_loss, make_ddpm_train_step)
 from fitv2_tpu_torch.train.lr_scheduler import get_scheduler
@@ -9,14 +11,17 @@ from fitv2_tpu_torch.train.lwd_train_step import (
     SegmentSampler, make_lwd_distill_step, make_lwd_finetune_step,
     make_lwd_multiscale_train_step, make_lwd_train_step)
 from fitv2_tpu_torch.train.train_step import (
-    AdamW, GradAccumulator, OptimizerConfig, TrainState, clip_by_global_norm,
-    create_train_state, flow_loss, global_norm, make_step, make_train_step,
-    scale_lr_by_global_batch, update_ema)
+    AdamW, GradAccumulator, MultiTransform, OptimizerConfig, TrainState,
+    build_optimizer, clip_by_global_norm, create_train_state, flow_loss,
+    global_norm, make_finetune_optimizer, make_grouped_optimizer, make_step,
+    make_train_step, scale_lr_by_global_batch, update_ema)
 
-__all__ = ['AdamW', 'GradAccumulator', 'OptimizerConfig', 'SegmentSampler',
-           'TrainState', 'clip_by_global_norm', 'create_train_state',
+__all__ = ['AdamW', 'CAME', 'GradAccumulator', 'MultiTransform',
+           'OptimizerConfig', 'SegmentSampler', 'TrainState',
+           'build_optimizer', 'clip_by_global_norm', 'create_train_state',
            'ddpm_loss', 'flow_loss', 'get_scheduler', 'global_norm',
-           'make_ddpm_train_step', 'make_lwd_distill_step',
+           'make_ddpm_train_step', 'make_finetune_optimizer',
+           'make_grouped_optimizer', 'make_lwd_distill_step',
            'make_lwd_finetune_step', 'make_lwd_multiscale_train_step',
            'make_lwd_train_step', 'make_step', 'make_train_step',
            'scale_lr_by_global_batch', 'update_ema']

@@ -1,8 +1,10 @@
-"""The train step: loss, gradients, clipping, AdamW, EMA.
+"""The train step: loss, gradients, clipping, AdamW or CAME, EMA.
 
 Counterpart of fitv2_tpu/train/train_step.py, whose optimizer is optax's
-``chain(clip_by_global_norm, adamw)``, wrapped in ``MultiSteps`` when
-gradients accumulate. The port's pieces follow optax's arithmetic:
+``chain(clip_by_global_norm, adamw | came)``, wrapped in ``MultiSteps`` when
+gradients accumulate, or a ``multi_transform`` of such chains over groups
+of parameters (``make_grouped_optimizer``, ``make_finetune_optimizer``).
+The port's pieces follow optax's arithmetic:
 
 - ``clip_by_global_norm``: the gradients are scaled by ``max / norm`` only
   when the global norm is not below ``max`` (no epsilon added);
@@ -13,7 +15,11 @@ gradients accumulate. The port's pieces follow optax's arithmetic:
 - ``GradAccumulator`` (``optax.MultiSteps``): the running mean of k
   micro-gradients, clipped and applied on the k-th; the optimizer's count
   advances only then;
-- ``update_ema`` runs after every micro-step, as in JAX.
+- ``update_ema`` runs after every micro-step, as in JAX;
+- ``MultiTransform`` (``optax.multi_transform``): each group's chain sees
+  only its own parameters, so its clip takes the global norm of the
+  group's gradients; a frozen group (``set_to_zero``) keeps its bits and
+  holds no state. CAME is train/came.py.
 
 ``make_step`` takes the loss as a function: the flow loss here
 (``make_train_step``), the improved-diffusion loss in
@@ -29,13 +35,14 @@ from __future__ import annotations
 
 import dataclasses
 import warnings
-from typing import (Any, Callable, Dict, List, Optional, Set, Tuple,
-                    Union)
+from typing import (Any, Callable, Dict, List, Optional, Sequence, Set,
+                    Tuple, Union)
 
 import torch
 from torch import nn
 
 from fitv2_tpu_torch.flow.transport import Transport
+from fitv2_tpu_torch.train.came import CAME
 
 Tensor = torch.Tensor
 Schedule = Callable[[int], float]
@@ -46,7 +53,9 @@ LossFn = Callable[..., Tuple[Tensor, Dict[str, Tensor]]]
 @dataclasses.dataclass(frozen=True)
 class OptimizerConfig:
     """The JAX package's AdamW defaults. ``mu_dtype`` None keeps the first
-    moment in the parameters' dtype (fp32)."""
+    moment in the parameters' dtype (fp32). ``optimizer='came'`` takes b1
+    and b2 from ``betas``, with CAME's b3 0.9999 and eps (1e-30, 1e-16),
+    as JAX's ``make_optimizer``; ``eps`` and ``mu_dtype`` are Adam's."""
     learning_rate: float = 1e-4
     betas: Tuple[float, float] = (0.9, 0.999)
     eps: float = 1e-8
@@ -221,19 +230,122 @@ def scale_lr_by_global_batch(base_lr: float, global_batch_size: int,
     return base_lr * global_batch_size / base_batch_size
 
 
+class MultiTransform:
+    """``optax.multi_transform`` over named parameters: ``labels`` (name ->
+    label) sends each parameter to ``optimizers[label]``, which clips its
+    group's gradients by ``max_grad_norms[label]`` (the group's own global
+    norm) and steps; a label whose optimizer is None is frozen
+    (``optax.set_to_zero``: the parameters keep their bits)."""
+
+    def __init__(self, labels: Dict[str, str],
+                 optimizers: Dict[str, Optional[torch.optim.Optimizer]],
+                 max_grad_norms: Dict[str, float]):
+        self.labels = labels
+        self.optimizers = optimizers
+        self.max_grad_norms = max_grad_norms
+
+    def step(self) -> None:
+        for label, opt in self.optimizers.items():
+            if opt is None:
+                continue
+            params = [p for g in opt.param_groups for p in g['params']
+                      if p.grad is not None]
+            if params:
+                clip_by_global_norm([p.grad for p in params],
+                                    self.max_grad_norms[label])
+                opt.step()
+
+    def state_dict(self) -> Dict[str, Any]:
+        return {label: opt.state_dict()
+                for label, opt in self.optimizers.items() if opt is not None}
+
+    def load_state_dict(self, state_dict: Dict[str, Any]) -> None:
+        for label, opt in self.optimizers.items():
+            if opt is not None:
+                opt.load_state_dict(state_dict[label])
+
+
+Optimizer = Union[AdamW, CAME, MultiTransform]
+
+
+def build_optimizer(params: Dict[str, Tensor], cfg: OptimizerConfig,
+                    model: nn.Module) -> Union[AdamW, CAME]:
+    """``cfg``'s optimizer over ``params`` (name -> master of ``model``'s
+    parameter of that name), without the clip (``make_step`` clips). CAME
+    runs over the leaves of ``model``'s JAX counterpart
+    (``ckpt.jax_leaves``)."""
+    lr = cfg.lr_schedule or cfg.learning_rate
+    if cfg.optimizer == 'adamw':
+        return AdamW(list(params.values()), lr=lr, betas=cfg.betas,
+                     eps=cfg.eps, weight_decay=cfg.weight_decay,
+                     mu_dtype=cfg.mu_dtype)
+    if cfg.optimizer == 'came':
+        from fitv2_tpu_torch.ckpt.convert import jax_leaves
+        return CAME(params, jax_leaves(model), lr=lr,
+                    betas=(cfg.betas[0], cfg.betas[1], 0.9999),
+                    weight_decay=cfg.weight_decay)
+    raise ValueError(f'unknown optimizer {cfg.optimizer!r} '
+                     "(expected 'adamw' or 'came')")
+
+
+def make_grouped_optimizer(params: Dict[str, Tensor],
+                           group_fn: Callable[[str, Tensor], str],
+                           group_configs: Dict[str, Optional[OptimizerConfig]],
+                           model: nn.Module) -> MultiTransform:
+    """Per-group optimizers: ``group_fn(name, param) -> label`` sends each
+    parameter to ``group_configs[label]``, an ``OptimizerConfig`` (JAX's
+    ``make_optimizer``: its clip, then AdamW or CAME) or None (frozen).
+    ``model``: as ``build_optimizer``'s."""
+    labels = {}
+    for name, p in params.items():
+        label = group_fn(name, p)
+        if label not in group_configs:
+            raise KeyError(f'{name}: label {label!r} not in '
+                           f'{sorted(group_configs)}')
+        labels[name] = label
+    optimizers = {}
+    for label, cfg in group_configs.items():
+        members = {n: p for n, p in params.items() if labels[n] == label}
+        optimizers[label] = (None if cfg is None or not members
+                             else build_optimizer(members, cfg, model))
+    return MultiTransform(labels, optimizers, {
+        label: cfg.max_grad_norm for label, cfg in group_configs.items()
+        if cfg is not None})
+
+
+def make_finetune_optimizer(params: Dict[str, Tensor], cfg: OptimizerConfig,
+                            unfreeze: Sequence[str],
+                            finetune_type: str = 'partial', *,
+                            model: nn.Module
+                            ) -> Union[AdamW, CAME, MultiTransform]:
+    """Freeze by name: with ``finetune_type='full'`` every parameter trains
+    (``cfg``'s optimizer); otherwise only those whose name contains a
+    substring of ``unfreeze`` ('adaLN', 'norm' ...) train, under ``cfg``'s
+    clip and optimizer, and the rest are frozen. ``model``: as
+    ``build_optimizer``'s."""
+    if finetune_type == 'full':
+        return build_optimizer(params, cfg, model)
+    unfreeze = tuple(unfreeze)
+    return make_grouped_optimizer(
+        params, lambda name, _: ('train' if any(u in name for u in unfreeze)
+                                 else 'frozen'),
+        {'train': cfg, 'frozen': None}, model)
+
+
 @dataclasses.dataclass
 class TrainState:
     """What a train step carries from one call to the next.
 
     step: micro-steps taken; params: fp32 master parameters by the
     model's names (the model's own parameters when it computes in fp32);
-    ema_params: their fp32 EMA; optimizer: the moments and the count of
-    applied updates; accumulator: the running gradient mean when
-    gradients accumulate."""
+    ema_params: their fp32 EMA; optimizer: AdamW, CAME or a
+    ``MultiTransform`` of them, with its state and the count of applied
+    updates; accumulator: the running gradient mean when gradients
+    accumulate."""
     step: int
     params: Dict[str, Tensor]
     ema_params: Dict[str, Tensor]
-    optimizer: AdamW
+    optimizer: Optimizer
     accumulator: Optional[GradAccumulator] = None
 
     def state_dict(self) -> Dict[str, Any]:
@@ -267,22 +379,21 @@ class TrainState:
         self.step = int(sd['step'])
 
 
-def create_train_state(model: nn.Module, cfg: OptimizerConfig) -> TrainState:
-    """Masters, EMA, AdamW and accumulator for ``model``. An fp32 model's
-    parameters are the masters; any other dtype gets fp32 copies on the
-    model's device."""
-    if cfg.optimizer != 'adamw':
-        raise NotImplementedError(
-            f'optimizer {cfg.optimizer!r} is not ported yet (ROADMAP.md §1, '
-            "slice 5 remainder); use 'adamw'")
+def create_train_state(model: nn.Module, cfg: OptimizerConfig,
+                       optimizer_fn: Optional[Callable[
+                           [Dict[str, Tensor]], Optimizer]] = None
+                       ) -> TrainState:
+    """Masters, EMA, optimizer and accumulator for ``model``. An fp32
+    model's parameters are the masters; any other dtype gets fp32 copies on
+    the model's device. The optimizer is ``cfg``'s (``build_optimizer``)
+    unless ``optimizer_fn(masters)`` builds another (a grouped or finetune
+    optimizer; the clip is then each group's)."""
     named = dict(model.named_parameters())
     params = {n: p if p.dtype == torch.float32
               else p.detach().float().clone() for n, p in named.items()}
     ema = {n: p.detach().clone() for n, p in params.items()}
-    optimizer = AdamW(list(params.values()),
-                      lr=cfg.lr_schedule or cfg.learning_rate,
-                      betas=cfg.betas, eps=cfg.eps,
-                      weight_decay=cfg.weight_decay, mu_dtype=cfg.mu_dtype)
+    optimizer = (optimizer_fn(params) if optimizer_fn is not None
+                 else build_optimizer(params, cfg, model))
     accumulator = (GradAccumulator(cfg.grad_accum_steps,
                                    list(params.values()))
                    if cfg.grad_accum_steps > 1 else None)
@@ -363,10 +474,11 @@ def make_step(model: nn.Module, loss_fn: LossFn, max_grad_norm: float = 1.0,
             grads = state.accumulator.update(grads)
             clip_norm = None
         if grads is not None:
-            clip_by_global_norm(grads, max_grad_norm, clip_norm)
+            if not isinstance(state.optimizer, MultiTransform):
+                clip_by_global_norm(grads, max_grad_norm, clip_norm)
             for m, g in zip(masters, grads):
                 m.grad = g
-            state.optimizer.step()
+            state.optimizer.step()  # a MultiTransform clips each group
             for m in masters:
                 m.grad = None
         update_ema(state.ema_params, state.params, ema_decay)

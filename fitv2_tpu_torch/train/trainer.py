@@ -1,12 +1,12 @@
 """Config-driven FiT training loop on one device.
 
 Counterpart of fitv2_tpu/train/trainer.py: the resumable data stream, the
-train step (bf16 compute over fp32 master parameters, AdamW, EMA) of the
-FiTv2 flow objective or the FiTv1 ``ddpm`` objective (improved diffusion
-over ``diffusion_steps``), rotating checkpoints, metric logging and the
-preemption guard, in one loop. Where the JAX trainer builds a mesh, the
-port runs on one device, ``cuda`` unless the config asks for the CPU; the
-mesh, pipeline and FSDP options raise.
+train step (bf16 compute over fp32 master parameters, AdamW or CAME, EMA)
+of the FiTv2 flow objective or the FiTv1 ``ddpm`` objective (improved
+diffusion over ``diffusion_steps``), rotating checkpoints, metric logging
+and the preemption guard, in one loop. Where the JAX trainer builds a
+mesh, the port runs on one device, ``cuda`` unless the config asks for the
+CPU; the mesh, pipeline and FSDP options raise.
 
 Differences from the JAX trainer, by design:
 - the initial parameters are the given model's own (the port initialises
@@ -66,7 +66,7 @@ class TrainerConfig:
     max_grad_norm: float = 1.0
     weight_decay: float = 0.0
     grad_accum_steps: int = 1
-    optimizer: str = 'adamw'
+    optimizer: str = 'adamw'  # or 'came'
     # Adam's first moment: bf16 halves that state; None keeps fp32
     mu_dtype: Optional[str] = 'bfloat16'
     ema_decay: float = 0.9999
@@ -106,6 +106,8 @@ def _refuse_unported(cfg: TrainerConfig) -> None:
             'options are not ported (ROADMAP.md §1, slice 9)')
     if cfg.objective not in ('flow', 'ddpm'):
         raise ValueError(f"objective={cfg.objective!r}: 'flow' or 'ddpm'")
+    if cfg.optimizer not in ('adamw', 'came'):
+        raise ValueError(f"optimizer={cfg.optimizer!r}: 'adamw' or 'came'")
     if cfg.mixed_precision not in _DTYPES:
         raise ValueError(f'mixed_precision={cfg.mixed_precision!r}: one of '
                          f'{sorted(_DTYPES)}')
@@ -223,7 +225,9 @@ def train_loop(trainer, run_batch: Callable[[TrainState, Dict], Any],
     ``log_metrics`` turns into floats every ``log_every`` batches. With
     ``check_first`` False the first batch runs unlogged and unchecked.
     Checkpoints at every ``checkpointing_steps``, at ``max_steps`` and on
-    preemption; an async save is whole when the loop returns."""
+    preemption; an async save is whole when the loop returns. The state is
+    ``trainer.state`` while the loop runs (an ``InlineEvalHook`` reads its
+    EMA there)."""
     cfg = trainer.cfg
     max_steps = max_steps or cfg.max_steps
     if trainer.loader is None:
@@ -233,7 +237,7 @@ def train_loop(trainer, run_batch: Callable[[TrainState, Dict], Any],
             backend=loader_backend)
     step = (latest_checkpoint_step(trainer.ckpt.ckpt_dir) or 0) if resume \
         else 0
-    state = trainer.init_state()
+    state = trainer.state = trainer.init_state()
     if step:
         state.load_state_dict(trainer.ckpt.restore(
             step, map_location=trainer.device))

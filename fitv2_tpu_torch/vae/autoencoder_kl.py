@@ -1,20 +1,23 @@
-"""SD-VAE (AutoencoderKL) decoder as ``torch.nn`` modules.
+"""SD-VAE (AutoencoderKL) as ``torch.nn`` modules.
 
-Counterpart of the decode half of fitv2_tpu/vae/autoencoder_kl.py: the
-SD v1 KL-f8 decoder (``post_quant_conv`` -> ``Decoder``: conv_in, a mid
-block of two resnets around single-head attention, up blocks of three
-resnets with nearest x2 upsampling, GroupNorm + SiLU + conv_out). Module
-and parameter names are diffusers' own, so a published diffusers state dict
-loads as it is (vae/torch_import.py). The encoder belongs to a later slice.
+Counterpart of fitv2_tpu/vae/autoencoder_kl.py, the SD v1 KL-f8 model:
+the encoder (conv_in, down blocks of two resnets with a stride-2
+downsample after all but the last, a mid block of two resnets around
+single-head attention, GroupNorm + SiLU + conv_out, then ``quant_conv``)
+and the decoder (``post_quant_conv`` -> conv_in, the mid block, up blocks
+of three resnets with nearest x2 upsampling, GroupNorm + SiLU + conv_out).
+Module and parameter names are diffusers' own, so a published diffusers
+state dict loads as it is (vae/torch_import.py).
 
 Convolutions run in the module's dtype (bf16 for serving); GroupNorm
-statistics and the mid-block softmax run in float32. ``decode`` takes and
-returns NHWC tensors, the JAX package's layout at this boundary.
+statistics and the mid-block softmax run in float32. ``encode`` and
+``decode`` take and return NHWC tensors, the JAX package's layout at this
+boundary.
 """
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -86,6 +89,19 @@ class Upsample(nn.Module):
         return self.conv(F.interpolate(x, scale_factor=2.0, mode='nearest'))
 
 
+class Downsample(nn.Module):
+    """Pad one row and one column at the bottom and right (diffusers'
+    asymmetric (0, 1, 0, 1)), then a 3x3 stride-2 convolution without
+    padding: a symmetric ``padding=1`` shifts the sampling grid."""
+
+    def __init__(self, channels: int):
+        super().__init__()
+        self.conv = nn.Conv2d(channels, channels, 3, stride=2)
+
+    def forward(self, x: Tensor) -> Tensor:
+        return self.conv(F.pad(x, (0, 1, 0, 1)))
+
+
 class MidBlock(nn.Module):
     def __init__(self, channels: int):
         super().__init__()
@@ -97,6 +113,24 @@ class MidBlock(nn.Module):
         x = self.resnets[0](x)
         x = self.attentions[0](x)
         return self.resnets[1](x)
+
+
+class DownBlock(nn.Module):
+    def __init__(self, in_channels: int, out_channels: int, layers: int,
+                 downsample: bool):
+        super().__init__()
+        self.resnets = nn.ModuleList([
+            ResnetBlock(in_channels if j == 0 else out_channels, out_channels)
+            for j in range(layers)])
+        if downsample:
+            self.downsamplers = nn.ModuleList([Downsample(out_channels)])
+
+    def forward(self, x: Tensor) -> Tensor:
+        for r in self.resnets:
+            x = r(x)
+        if hasattr(self, 'downsamplers'):
+            x = self.downsamplers[0](x)
+        return x
 
 
 class UpBlock(nn.Module):
@@ -115,6 +149,31 @@ class UpBlock(nn.Module):
         if hasattr(self, 'upsamplers'):
             x = self.upsamplers[0](x)
         return x
+
+
+class Encoder(nn.Module):
+    """image (B, 3, H, W) -> moments (B, 2 latent, H / 2**(L-1),
+    W / 2**(L-1)), NCHW."""
+
+    def __init__(self, block_out_channels: Sequence[int] = (128, 256, 512, 512),
+                 layers_per_block: int = 2, latent_channels: int = 4,
+                 in_channels: int = 3):
+        super().__init__()
+        ch = list(block_out_channels)
+        self.conv_in = nn.Conv2d(in_channels, ch[0], 3, padding=1)
+        self.down_blocks = nn.ModuleList([
+            DownBlock(ch[max(i - 1, 0)], c, layers_per_block,
+                      downsample=i < len(ch) - 1) for i, c in enumerate(ch)])
+        self.mid_block = MidBlock(ch[-1])
+        self.conv_norm_out = GroupNorm32(ch[-1])
+        self.conv_out = nn.Conv2d(ch[-1], 2 * latent_channels, 3, padding=1)
+
+    def forward(self, x: Tensor) -> Tensor:
+        h = self.conv_in(x)
+        for block in self.down_blocks:
+            h = block(h)
+        h = self.mid_block(h)
+        return self.conv_out(F.silu(self.conv_norm_out(h)))
 
 
 class Decoder(nn.Module):
@@ -141,18 +200,33 @@ class Decoder(nn.Module):
 
 
 class AutoencoderKL(nn.Module):
-    """The decode half of SD's AutoencoderKL (post_quant_conv + Decoder)."""
+    """SD's AutoencoderKL: ``encode`` image -> (mean, logvar), ``decode``
+    latent -> image; NHWC at both ends."""
 
     def __init__(self, block_out_channels: Sequence[int] = (128, 256, 512, 512),
-                 latent_channels: int = 4, layers_per_block: int = 3):
+                 latent_channels: int = 4, layers_per_block: int = 3,
+                 encoder_layers_per_block: int = 2):
         super().__init__()
+        self.encoder = Encoder(block_out_channels, encoder_layers_per_block,
+                               latent_channels)
         self.decoder = Decoder(block_out_channels, layers_per_block,
                                latent_channels)
+        self.quant_conv = nn.Conv2d(2 * latent_channels, 2 * latent_channels,
+                                    1)
         self.post_quant_conv = nn.Conv2d(latent_channels, latent_channels, 1)
 
     @property
     def dtype(self) -> torch.dtype:
         return self.post_quant_conv.weight.dtype
+
+    def encode(self, x: Tensor) -> Tuple[Tensor, Tensor]:
+        """x: (B, H, W, 3) NHWC in [-1, 1] -> the posterior's (mean,
+        logvar), each (B, H/8, W/8, latent) NHWC, logvar clipped to
+        [-30, 20]."""
+        h = self.quant_conv(self.encoder(x.permute(0, 3, 1, 2).to(
+            self.dtype)))
+        mean, logvar = h.permute(0, 2, 3, 1).chunk(2, dim=-1)
+        return mean, torch.clamp(logvar, -30.0, 20.0)
 
     def decode(self, z: Tensor) -> Tensor:
         """z: (B, h, w, latent) NHWC -> image (B, H, W, 3) NHWC, in [-1, 1]
@@ -160,6 +234,13 @@ class AutoencoderKL(nn.Module):
         x = z.permute(0, 3, 1, 2).to(self.dtype)
         x = self.decoder(self.post_quant_conv(x))
         return x.permute(0, 2, 3, 1)
+
+
+def sample_latent(mean: Tensor, logvar: Tensor, noise: Tensor) -> Tensor:
+    """The posterior's reparameterised draw ``mean + exp(logvar / 2) *
+    noise`` (DiagonalGaussianDistribution.sample); ``noise`` is the
+    standard normal draw, of mean's shape."""
+    return mean + torch.exp(0.5 * logvar) * noise
 
 
 def images_to_uint8(images: Tensor) -> Tensor:

@@ -1,11 +1,10 @@
-"""Weights for the port's VAE decoder.
+"""Weights for the port's VAE.
 
-The decoder's parameter names are diffusers' own, so a published diffusers
-``AutoencoderKL`` state dict needs only: drop the encoder half (not ported
-yet), rename the legacy attention names (query/key/value/proj_attn), and
-flatten attention projections stored as 1x1 convolutions.
-``state_dict_from_flax`` carries the JAX package's flax VAE parameters
-across (the inverse of fitv2_tpu/vae/torch_import.py for the decode half).
+The port's parameter names are diffusers' own, so a published diffusers
+``AutoencoderKL`` state dict needs only: rename the legacy attention names
+(query/key/value/proj_attn), and flatten attention projections stored as
+1x1 convolutions. ``state_dict_from_flax`` carries the JAX package's flax
+VAE parameters across (the inverse of fitv2_tpu/vae/torch_import.py).
 """
 
 from __future__ import annotations
@@ -27,11 +26,9 @@ _LEGACY_ATTN = {'query': 'to_q', 'key': 'to_k', 'value': 'to_v',
 
 def convert_diffusers_state_dict(sd: Mapping[str, Tensor]
                                  ) -> Dict[str, Tensor]:
-    """diffusers AutoencoderKL state dict -> the port's (decoder half)."""
+    """diffusers AutoencoderKL state dict -> the port's."""
     out: Dict[str, Tensor] = {}
     for k, v in sd.items():
-        if not k.startswith(('decoder.', 'post_quant_conv.')):
-            continue  # encoder / quant_conv: the encode half is not ported
         m = re.match(r'(.*\.attentions\.\d+)\.(query|key|value|proj_attn)'
                      r'\.(weight|bias)$', k)
         if m:
@@ -51,6 +48,8 @@ _FLAX_RENAMES = (
     (r'/(resnets|attentions)_(\d+)/', r'/\1/\2/'),
     (r'/up_(\d+)_resnets_(\d+)/', r'/up_blocks/\1/resnets/\2/'),
     (r'/up_(\d+)_upsample/', r'/up_blocks/\1/upsamplers/0/'),
+    (r'/down_(\d+)_resnets_(\d+)/', r'/down_blocks/\1/resnets/\2/'),
+    (r'/down_(\d+)_downsample/', r'/down_blocks/\1/downsamplers/0/'),
     (r'/to_out/', r'/to_out/0/'),
     (r'/norm/scale$', r'/weight'),
     (r'/norm/bias$', r'/bias'),
@@ -59,12 +58,10 @@ _FLAX_RENAMES = (
 
 def state_dict_from_flax(params: Mapping[str, Any]) -> Dict[str, Tensor]:
     """The JAX package's flax AutoencoderKL params -> the port's state dict
-    (decoder half; flax conv kernels (kh, kw, I, O) -> (O, I, kh, kw), Dense
-    kernels (I, O) -> (O, I))."""
+    (flax conv kernels (kh, kw, I, O) -> (O, I, kh, kw), Dense kernels
+    (I, O) -> (O, I))."""
     out: Dict[str, Tensor] = {}
     for path, v in _flatten(params.get('params', params)).items():
-        if not path.startswith(('decoder/', 'post_quant_conv/')):
-            continue
         path = '/' + path
         for pat, rep in _FLAX_RENAMES:
             path = re.sub(pat, rep, path)

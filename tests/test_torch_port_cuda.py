@@ -1195,3 +1195,128 @@ def test_lwd_train_segment_update_cuda_matches_cpu(dev):
         for o, w in pairs:
             rel = ((o.cpu() - w).norm() / w.norm().clamp_min(1e-30)).item()
             assert rel <= 1e-4, (n, rel)
+
+
+# -- slice 5c: the remat policies, the VAE encoder, CAME ----------------------
+
+HR_WIDTHS = dict(context_size=1024, hidden_size=1152, depth=2, num_heads=16,
+                 learn_sigma=False, use_sit=True, use_swiglu=True,
+                 q_norm='layernorm', k_norm='layernorm', adaln_type='lora',
+                 adaln_lora_dim=288, online_rope=True,
+                 custom_freqs='ntk-aware', decouple=True, ori_max_pe_len=16,
+                 max_cached_len=1024)
+
+
+def _launch_counts():
+    return {w.__name__: w.launches for w in K.KERNEL_WRAPPERS}, \
+        K.flash_masked_attention.bounded_launches
+
+
+@pytest.mark.parametrize('policy', ['none', 'full', 'dots', 'dots_all'])
+def test_remat_policy_on_the_card(dev, policy):
+    """FiTv2-HR-XL/2's widths (online decoupled NTK RoPE, N 1024: 1024 and
+    800 tokens valid) at depth 2, fp32: one flow loss and backward under
+    the policy on the card, every gradient within 1e-4 relative L2 of the
+    CPU's without remat; the kernels launch inside the checkpointed region
+    (K1 2 and K2, K4 1 a block again in the recompute)."""
+    import copy
+    from fitv2_tpu_torch.flow import create_transport
+    from fitv2_tpu_torch.models import FiT
+    from fitv2_tpu_torch.models.grid_utils import make_grid
+    from fitv2_tpu_torch.train import flow_loss
+    torch.manual_seed(0)
+    remat = policy != 'none'
+    model = FiT(**HR_WIDTHS, use_checkpoint=remat,
+                remat_policy=policy if remat else 'full')
+    gen = torch.Generator().manual_seed(1)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if 'adaLN_modulation.fc_out' in name or 'final_layer.linear' in name:
+                p.add_(0.02 * torch.randn(p.shape, generator=gen))
+    grid = torch.zeros(2, 2, 1024, dtype=torch.int64)
+    mask = torch.zeros(2, 1024)
+    for i, (h, w) in enumerate(((32, 32), (20, 40))):
+        grid[i, :, :h * w] = torch.from_numpy(make_grid(h, w))
+        mask[i, :h * w] = 1.0
+    batch = dict(feature=torch.randn(2, 1024, 16, generator=gen), grid=grid,
+                 mask=mask, label=torch.tensor([3, 999]),
+                 size=torch.tensor([[[32, 32]], [[20, 40]]]))
+    draws = dict(t=torch.tensor([0.25, 0.8]),
+                 x0=torch.randn(2, 1024, 16, generator=gen),
+                 drop_ids=torch.tensor([0, 1]))
+    tr = create_transport()
+    results = []
+    for device in ('cpu', dev):
+        m = copy.deepcopy(model).to(device)
+        if device == 'cpu':
+            m.use_checkpoint = False
+        before, bounded = _launch_counts()
+        loss, _ = flow_loss(m, tr, {k: v.to(device) for k, v in batch.items()},
+                            draws={k: v.to(device) for k, v in draws.items()})
+        loss.backward()
+        after, bounded_after = _launch_counts()
+        results.append(({n: p.grad for n, p in m.named_parameters()},
+                        {k: after[k] - before[k] for k in after},
+                        bounded_after - bounded))
+    (g_cpu, _, _), (g_gpu, counts, bounded) = results
+    d = 2
+    assert counts['fused_adaln_norm'] == 2 * d + 1 + 2 * d * remat
+    assert counts['fused_qk_rope'] == d * (1 + remat)
+    assert counts['flash_masked_attention'] == bounded == d * (1 + remat)
+    for name, g in g_gpu.items():
+        ref = g_cpu[name]
+        rel = ((g.cpu() - ref).norm() / ref.norm()).item()
+        assert rel <= 1e-4, (name, rel)
+
+
+def test_vae_encoder_cuda_matches_cpu(dev):
+    """The SD-VAE encoder at its real widths (seeded), fp32 at 128 x 128:
+    mean and logvar within 1e-4 relative L2 of the CPU's."""
+    import copy
+    from fitv2_tpu_torch.vae import AutoencoderKL
+    torch.manual_seed(0)
+    vae = AutoencoderKL().eval()
+    x = torch.rand(2, 128, 128, 3, generator=torch.Generator().manual_seed(1)
+                   ) * 2 - 1
+    with torch.no_grad():
+        ref = vae.encode(x)
+        got = copy.deepcopy(vae).to(dev).encode(x.to(dev))
+    for a, b in zip(got, ref):
+        assert a.shape == (2, 16, 16, 4)
+        rel = ((a.cpu() - b).norm() / b.norm()).item()
+        assert rel <= 1e-4, rel
+
+
+def test_came_update_cuda_matches_cpu(dev):
+    """Three fp32 CAME updates over the JAX leaves of a FiT at XL width
+    (depth 2, scanned blocks: stacked leaves) on the card against the CPU:
+    every master and state tensor within 1e-5 relative L2."""
+    import copy
+    from fitv2_tpu_torch.ckpt import jax_leaves
+    from fitv2_tpu_torch.models import FiT
+    from fitv2_tpu_torch.train.came import CAME
+    torch.manual_seed(0)
+    model = FiT(context_size=256, hidden_size=1152, depth=2, num_heads=16,
+                learn_sigma=False, use_swiglu=True, q_norm='layernorm',
+                k_norm='layernorm', adaln_type='lora', adaln_lora_dim=288)
+    gen = torch.Generator().manual_seed(2)
+    grads = [[torch.randn(p.shape, generator=gen) for p in model.parameters()]
+             for _ in range(3)]
+    out = []
+    for device in ('cpu', dev):
+        m = copy.deepcopy(model).to(device)
+        masters = dict(m.named_parameters())
+        opt = CAME(masters, jax_leaves(m), lr=1e-3, weight_decay=0.01)
+        for step in grads:
+            for p, g in zip(masters.values(), step):
+                p.grad = g.to(device)
+            opt.step()
+        out.append(([p.detach().cpu() for p in masters.values()],
+                    [{k: v.cpu() for k, v in
+                      opt.state[opt.leaf_params(leaf)[0]].items()}
+                     for leaf in opt.leaves]))
+    (p_cpu, s_cpu), (p_gpu, s_gpu) = out
+    pairs = list(zip(p_gpu, p_cpu)) + [
+        (a[k], b[k]) for a, b in zip(s_gpu, s_cpu) for k in b]
+    for a, b in pairs:
+        assert ((a - b).norm() / b.norm()).item() <= 1e-5

@@ -106,9 +106,8 @@ def test_sampler_with_vae_matches_jax(models):
     from fitv2_tpu_torch.vae import AutoencoderKL, state_dict_from_flax
     jm, params, pm, _ = models
     jvae = JAutoencoderKL(block_out_channels=(8, 16))
-    vparams = jax.jit(jvae.init, static_argnames='method')(
-        jax.random.PRNGKey(1), jnp.zeros((1, 8, 8, 4)),
-        method='decode')['params']
+    vparams = jax.jit(jvae.init)(jax.random.PRNGKey(1),
+                                 jnp.zeros((1, 16, 16, 3)))['params']
     jfn = j_build_sampler(jm, params, JSamplingConfig(
         image_height=64, image_width=64, num_sampling_steps=2,
         num_classes=10, per_device_batch=B, dtype=jnp.float32), jvae, vparams)

@@ -843,12 +843,13 @@ def test_trainer_refuses_what_is_not_ported(shard_dir, tmp_path):
                     (dict(mixed_precision='fp16'), ValueError)):
         with pytest.raises(err):
             _trainer(shard_dir, out, **kw)
-    with pytest.raises(NotImplementedError):
-        _trainer(shard_dir, out, optimizer='came').train(resume=False)
+    with pytest.raises(ValueError, match='adamw'):
+        _trainer(shard_dir, out, optimizer='sgd')
     with pytest.raises(ValueError, match='inference-only'):
         Trainer(FiT(**TINY, gemm_precision='int8'),
                 TrainerConfig(device='cpu'))
-    model = FiT(**dict(TINY, use_checkpoint=True, remat_policy='dots'))
+    model = FiT(**dict(TINY, use_checkpoint=True,
+                       remat_policy='dots_offload'))
     x = torch.zeros(1, 16, 16)
     with pytest.raises(NotImplementedError, match='ROADMAP'):
         model(x, torch.zeros(1), torch.zeros(1, dtype=torch.long),
@@ -932,11 +933,12 @@ accelerate:
     cli.main(['--cfgdir', str(cfg), '--device', 'cpu', '--max-steps', '2',
               '--output-dir', out, '--no-resume'])
     assert os.listdir(os.path.join(out, 'checkpoints')) == ['checkpoint-2']
-    args = cli.parse_args(['--cfgdir', str(cfg), '--came'])
-    assert args.device == 'cuda'
+    assert cli.parse_args(['--cfgdir', str(cfg)]).device == 'cuda'
+    from fitv2_tpu_torch.train.came import CAME
     from fitv2_tpu_torch.utils.config import load_config
-    with pytest.raises(NotImplementedError, match='CAME'):
-        cli.build_trainer(load_config([str(cfg)]), args)
+    args = cli.parse_args(['--cfgdir', str(cfg), '--came', '--device', 'cpu'])
+    trainer = cli.build_trainer(load_config([str(cfg)]), args)
+    assert isinstance(trainer.init_state().optimizer, CAME)
 
 
 def test_metric_logger_and_tee(tmp_path, capsys):

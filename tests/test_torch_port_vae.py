@@ -1,6 +1,6 @@
 """PyTorch port (fitv2_tpu_torch.vae): the SD-VAE decoder against the JAX
 package's flax decoder on the same weights, the diffusers-key loader, and
-the uint8 conversion.
+the uint8 conversion (the encoder: tests/test_torch_port_prep.py).
 
 Tiny decoder (block_out_channels (8, 16)); inputs from numpy with a seed.
 Tolerance 2e-4 (fp32 convolutions summed in different orders over up to
@@ -34,11 +34,9 @@ def _one_thread():
 
 def _jax_vae(seed=0):
     model = JAutoencoderKL(block_out_channels=CH, latent_channels=4)
-    # decode-only init: the decoder and post_quant_conv (the encoder is
-    # not ported)
-    params = jax.jit(model.init, static_argnames='method')(
-        jax.random.PRNGKey(seed), jnp.zeros((1, 4, 6, 4)),
-        method='decode')['params']
+    # both halves: the port's AutoencoderKL holds the encoder too
+    params = jax.jit(model.init)(jax.random.PRNGKey(seed),
+                                 jnp.zeros((1, 8, 12, 3)))['params']
     # randomize the norms too (flax inits them to 1/0)
     rng = np.random.default_rng(seed)
     params = jax.tree_util.tree_map(
@@ -78,18 +76,18 @@ def test_bf16_decoder_keeps_groupnorm_in_fp32():
 
 
 def _diffusers_sd(vae: AutoencoderKL, legacy: bool):
-    """A diffusers-layout checkpoint for ``vae``: encoder keys present (they
-    are skipped), optionally legacy attention names stored as 1x1 convs."""
+    """A diffusers-layout checkpoint for ``vae`` (both halves), optionally
+    with legacy attention names stored as 1x1 convs."""
     sd = {k: v.clone() for k, v in vae.state_dict().items()}
-    sd['encoder.conv_in.weight'] = torch.zeros(8, 3, 3, 3)
-    sd['quant_conv.weight'] = torch.zeros(8, 8, 1, 1)
     if legacy:
         for new, old in (('to_q', 'query'), ('to_k', 'key'),
                          ('to_v', 'value'), ('to_out.0', 'proj_attn')):
             for p in ('weight', 'bias'):
-                v = sd.pop(f'decoder.mid_block.attentions.0.{new}.{p}')
-                sd[f'decoder.mid_block.attentions.0.{old}.{p}'] = (
-                    v[:, :, None, None] if p == 'weight' else v)
+                for half in ('encoder', 'decoder'):
+                    pre = f'{half}.mid_block.attentions.0'
+                    v = sd.pop(f'{pre}.{new}.{p}')
+                    sd[f'{pre}.{old}.{p}'] = (
+                        v[:, :, None, None] if p == 'weight' else v)
     return sd
 
 

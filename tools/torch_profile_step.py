@@ -5,7 +5,8 @@ port goes, on one H100.
 Run from the repository root on a machine with the card:
 
     python3 tools/torch_profile_step.py
-        [--path bf16|int8|fused|hr|fitv1|train|lwd_xl|lwd_multiscale|bfm_xl]
+        [--path bf16|int8|fused|hr|fitv1|train|train_hr|lwd_xl|
+                lwd_multiscale|bfm_xl] [--remat dots|full]
         [--steps N] [--tree DIR]
 
 Builds chip_smoke.py's FiTv2-XL/2 (random weights from its seed, the
@@ -38,6 +39,22 @@ as above; the full step's device busy ms, launches and groups; the
 training forward alone (the flow loss with autograd recording) and the
 update alone (AdamW and the EMA over the masters); the backward is what is
 left of the step.
+
+``--path train_hr`` profiles one train step of the same weights as
+FiTv2-HR-XL/2 (configs/fitv2_hr_xl.yaml: online decoupled NTK RoPE, per-
+block remat under ``--remat``, default its 'dots') at its per-host batch of
+8 on one batch of synthetic shards padded to 1024 tokens: the wall ms per
+step; from one profiled window of ``--steps`` steps with no sync inside a
+step, the device busy ms, the window's wall and the idle share, as above;
+the host ms a step spent inside selective checkpointing's dispatch modes
+(the forward's and the recompute's; the host side of the ops they run
+included, and any wait for room in the launch queue) and the ops through
+them, over ``--steps`` more steps; then one profiled step whose device
+busy time is split by the phase that launched the work: the forward, the
+recompute (each block's forward rerun inside the backward, each bracketed
+by a synchronisation), the rest of the backward, the update (the masters,
+the norm and clip, AdamW, the EMA) and the rest (the draws, the master ->
+bf16 copy, the loss).
 
 ``--path lwd_xl``, ``lwd_multiscale`` and ``bfm_xl`` profile chip_smoke.py's
 phase-13 LwD paths (the seeded models of configs/fitv2_xl_lwd.yaml and
@@ -141,6 +158,39 @@ def wall_ms(fn, steps):
     return walls
 
 
+def sac_dispatch_ms(fn, steps):
+    """Host ms and ops a call spends inside selective checkpointing's
+    dispatch modes (torch.utils.checkpoint's caching mode in the forward,
+    its cached mode in the recompute), over `steps` calls of fn, each
+    mode's __torch_dispatch__ wrapped in a timer (the time includes the
+    host side of the ops that the mode runs)."""
+    import torch
+    from torch.utils import checkpoint
+    spent = [0.0, 0]
+    patched = []
+    for cls in (checkpoint._CachingTorchDispatchMode,
+                checkpoint._CachedTorchDispatchMode):
+        orig = cls.__dict__['__torch_dispatch__']
+
+        def timed(self, func, types, args=(), kwargs=None, _orig=orig):
+            t0 = time.perf_counter()
+            try:
+                return _orig(self, func, types, args, kwargs)
+            finally:
+                spent[0] += time.perf_counter() - t0
+                spent[1] += 1
+        patched.append((cls, orig))
+        cls.__torch_dispatch__ = timed
+    try:
+        for _ in range(steps):
+            fn()
+        torch.cuda.synchronize()
+    finally:
+        for cls, orig in patched:
+            cls.__torch_dispatch__ = orig
+    return spent[0] * 1e3 / steps, spent[1] / steps
+
+
 def train_profile(chip_smoke, steps):
     """The --path train measurements (see the module docstring)."""
     import copy
@@ -205,6 +255,145 @@ def train_profile(chip_smoke, steps):
     }
 
 
+def hr_train_profile(chip_smoke, steps, remat):
+    """The --path train_hr measurements (see the module docstring)."""
+    import copy
+    import tempfile
+    import torch
+    from torch.profiler import ProfilerActivity, record_function
+    from torch.profiler import profile as torch_profile
+    from fitv2_tpu_torch.data import INLatentLoader, make_synthetic_latent_shards
+    from fitv2_tpu_torch.flow import create_transport
+    from fitv2_tpu_torch.models import FiT
+    from fitv2_tpu_torch.train import (
+        OptimizerConfig, create_train_state, make_train_step)
+    from fitv2_tpu_torch.train.trainer import step_generator
+    batch_size, n = 8, chip_smoke.HR_N
+    with tempfile.TemporaryDirectory() as root:
+        make_synthetic_latent_shards(root, n=batch_size, target_len=n,
+                                     seed=chip_smoke.SEED)
+        loader = INLatentLoader(root, n, batch_size=batch_size, num_workers=4)
+        batch_np = next(iter(loader.train_dataloader(batch_size, 1, 0)))
+    batch = {k: torch.from_numpy(v).cuda() for k, v in batch_np.items()}
+    master = FiT(**chip_smoke.HR_XL, use_checkpoint=True, remat_policy=remat)
+    master.load_state_dict(chip_smoke._xl_model_fp32().state_dict())
+    master = master.cuda()
+    model = copy.deepcopy(master).to(torch.bfloat16)
+    state = create_train_state(master, OptimizerConfig(
+        learning_rate=1e-4, mu_dtype=torch.bfloat16))
+    train_step = make_train_step(model, create_transport(
+        'Linear', 'velocity', snr_type='lognorm'))
+
+    def step():
+        train_step(state, batch, step_generator(0, state.step))
+
+    for _ in range(2):
+        step()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    walls = wall_ms(step, steps)
+    peak = torch.cuda.max_memory_allocated()
+    step_busy, step_window, step_launches, _ = profile(step, steps)
+    sac_ms, sac_ops = sac_dispatch_ms(step, steps)
+
+    backward = torch.Tensor.backward
+    in_backward = [False]
+
+    def bracket(name, fn):
+        def run(*a, **k):
+            torch.cuda.synchronize()
+            with record_function(name):
+                out = fn(*a, **k)
+                torch.cuda.synchronize()
+            return out
+        return run
+
+    def bwd(self, *a, **k):
+        in_backward[0] = True
+        try:
+            bracket('split:backward', backward)(self, *a, **k)
+        finally:
+            in_backward[0] = False
+
+    def block_fn(block):
+        forward = block.forward
+
+        def run(*a, **k):
+            if in_backward[0]:
+                return bracket('split:recompute', forward)(*a, **k)
+            return forward(*a, **k)
+        return run
+
+    model.forward = bracket('split:forward', model.forward)
+    for block in model.blocks:
+        block.forward = block_fn(block)
+    torch.Tensor.backward = bwd
+    try:
+        with torch_profile(activities=[ProfilerActivity.CPU,
+                                       ProfilerActivity.CUDA]) as prof:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with record_function('split:step'):
+                step()
+                torch.cuda.synchronize()
+            window = (time.perf_counter() - t0) * 1e3
+    finally:
+        torch.Tensor.backward = backward
+        del model.forward
+        for block in model.blocks:
+            del block.forward
+    ranges: dict[str, list] = {}
+    spans = []
+    for evt in prof.events():
+        if evt.name.startswith('split:'):
+            if evt.device_type == torch.autograd.DeviceType.CPU:
+                ranges.setdefault(evt.name[len('split:'):], []).append(
+                    (evt.time_range.start, evt.time_range.end))
+        elif evt.device_type == torch.autograd.DeviceType.CUDA:
+            spans.append((evt.time_range.start, evt.time_range.end))
+    want_recompute = len(model.blocks) if remat else 0
+    if (not spans or len(ranges.get('recompute', [])) != want_recompute
+            or any(len(ranges.get(k, [])) != 1
+                   for k in ('forward', 'backward', 'step'))):
+        raise RuntimeError(f'busy split: ranges '
+                           f'{ {k: len(v) for k, v in ranges.items()} }')
+
+    def part(start):
+        for name in ('recompute', 'forward', 'backward'):
+            if any(a <= start < b for a, b in ranges.get(name, [])):
+                return name
+        if ranges['backward'][0][1] <= start < ranges['step'][0][1]:
+            return 'update'
+        return 'rest'
+
+    busy: dict[str, float] = {}
+    ends: dict[str, float] = {}
+    for start, stop in sorted(spans):
+        p = part(start)
+        end = ends.get(p, float('-inf'))
+        if stop > end:
+            busy[p] = busy.get(p, 0.0) + (stop - max(start, end)) / 1e3
+            ends[p] = stop
+    split = {p: busy.get(p, 0.0) for p in ('forward', 'recompute',
+                                           'backward', 'update', 'rest')}
+    return {
+        'batch': batch_size, 'tokens': n, 'remat': remat,
+        'valid_tokens': float(batch_np['mask'].sum()),
+        'wall_ms_per_step': walls,
+        'images_per_s': [batch_size / w * 1e3 for w in walls],
+        'peak_memory_bytes': peak,
+        'device_busy_ms_per_step': step_busy,
+        'profiled_wall_ms_per_step': step_window,
+        'idle_share': 1.0 - step_busy / step_window,
+        'launches_per_step': step_launches,
+        'sac_dispatch_host_ms_per_step': sac_ms,
+        'sac_dispatch_ops_per_step': sac_ops,
+        'split_busy_ms': split, 'split_device_busy_ms': sum(split.values()),
+        'split_profiled_wall_ms': window,
+        'split_launches': len(spans),
+    }
+
+
 LWD_PATHS = ('lwd_xl', 'lwd_multiscale', 'bfm_xl')
 
 
@@ -242,8 +431,11 @@ def lwd_profile(chip_smoke, path, steps):
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     ap.add_argument('--path', choices=('bf16', 'int8', 'fused', 'hr',
-                                       'fitv1', 'train') + LWD_PATHS,
-                    default='bf16')
+                                       'fitv1', 'train', 'train_hr')
+                    + LWD_PATHS, default='bf16')
+    ap.add_argument('--remat', choices=('dots', 'full'), default='dots',
+                    help='--path train_hr: the remat policy (configs/'
+                         'fitv2_hr_xl.yaml: dots)')
     ap.add_argument('--steps', type=int, default=None,
                     help=f'sampler steps a call (default {STEPS}; the train '
                          'path: steps timed; the LwD paths: sub-steps a '
@@ -270,6 +462,10 @@ def main() -> None:
         print(json.dumps({**head, 'steps': args.steps,
                           **train_profile(chip_smoke, args.steps)}),
               flush=True)
+        return
+    if args.path == 'train_hr':
+        print(json.dumps({**head, 'steps': args.steps, **hr_train_profile(
+            chip_smoke, args.steps, args.remat)}), flush=True)
         return
     extra = {}
     if args.path == 'hr':
