@@ -204,6 +204,32 @@ Phases (any failure raises and exits non-zero; nothing is caught):
                 peak memory beside phase 11's AdamW; (e) DINOv2-B/14 and
                 CLIP-B/16 (seeded) card vs CPU in fp32 and their bf16
                 images/s at batch 64.
+ 16. int8 lwd, buckets, gan - (a) FiTLwD-XL (configs/fitv2_xl_lwd.yaml,
+                full width, depth 36, K 12) in bf16 and, on the same
+                weights, with gemm_precision='int8': calibrated through
+                the model's forward (init_all, every segment's training
+                forward) on the CFG batch at each segment's middle t, then
+                prequantized; sample_cfg (CFG 1.4, one sub-step a segment,
+                batch 8) within 0.1 relative L2 of bf16's, exact launches
+                (a CFG eval: K6 9 and K7 3 = 3 and 1 a block, K1 7, K2 3,
+                K4 3; calibration launches neither), int8 and bf16
+                images/s interleaved; K6 (qkv, proj, fc2) and K7 (fc1) at
+                M 4096 against their plain versions; (b) an int8 XL/2
+                BucketedSampler over 256 x 256, 320 x 320, 256 x 256 (10
+                steps, CFG 1.5, batch 8): the two 256 x 256 runs and a
+                sampler of that bucket alone on another model bit-
+                identical, the int8 weights quantized once and shared,
+                each bucket binding its own scales; (c) the GAN student's
+                K1, K2 and K4 Functions at (64, 256, 6 heads of 64),
+                unmasked, bf16 and fp32, against autograd of their plain
+                versions; one fp32 generator + discriminator step at
+                full widths (batch 4) card vs CPU; then
+                cli/train_cifar_gan on a synthetic cifar-10-batches-py
+                (random uint8 pickles written here: no download), batch
+                64, 30 steps, --disc-start 10: finite losses and BN
+                statistics, the adversarial terms gated, exact launches
+                (a step: K1 14, K2 6, K4 6), ms a step, images/s, peak
+                memory.
 The deterministic trainer runs of 11 (c), 12 (d) and 14 (c) run in child
 processes of this script (`--child NAME DIR`) with
 CUBLAS_WORKSPACE_CONFIG=:4096:8, which deterministic algorithms require
@@ -214,8 +240,9 @@ Each path's counts are set to 0 just before it runs and read just after.
 The line before the last is the JSON list of kernels (K1-K5 with their
 Functions' forward and backward times and gradient errors; K2's RoPE-only
 case; each path's launches, K3's apart where K4 was counted; phase 13's
-cases with their `path`, phase 14's Function cases in `train_cases` with
-theirs); each phase group prints its seconds ([time]);
+cases with their `path`, phase 14's and phase 16's Function cases in
+`train_cases` with theirs, phase 16's K6 / K7 sites in `sites`); each
+phase group prints its seconds ([time]);
 the last line is {"ok": true, "device": {...}}.
 """
 
@@ -363,6 +390,24 @@ HOOK_STEPS, HOOK_BATCH = 24, 4
 CAME_PARITY_DEPTH, CAME_PARITY_STEPS = 2, 2
 TOL_CAME_REL = 1e-5
 TEACHER_BATCH = 64
+
+
+# phase 16 (int8 LwD serving, per-bucket int8, GAN-guided LwD training):
+# (a) FiTLwD-XL int8: the sub-steps a segment of the held and timed
+# sample_cfg calls, the timed calls a side, the relative L2 bound against
+# bf16 (tests/test_lwd_overfit_e2e.py's drift bound), SwiGLU's hidden width
+INT8_LWD_STEPS_PER_FLOW, INT8_LWD_RATE_CALLS = 1, 3
+MAX_INT8_LWD_REL_L2 = 0.1
+LWD_MLP_H = 3072
+# (b) the int8 buckets (A, B) and the sampler's steps
+INT8_BUCKETS = ((256, 256), (320, 320))
+INT8_BUCKET_STEPS = 10
+# (c) cli/train_cifar_gan: batch, steps, --disc-start, the steps before the
+# timed median; the card-vs-CPU step's batch and bound; the student's
+# widths (hidden 384, 6 heads of 64, 16 x 16 tokens)
+GAN_BATCH, GAN_STEPS, GAN_DISC_START, GAN_WARM = 64, 30, 10, 5
+GAN_PARITY_BATCH, TOL_GAN_REL = 4, 1e-4
+GAN_D, GAN_H, GAN_DH, GAN_N = 384, 6, 64, 256
 
 
 def say(*args):
@@ -3442,6 +3487,368 @@ def phase_teachers(card):
 # cuBLAS call: cuBLAS reads it once, when it starts, and it makes every
 # sampler step's host side 2.0-2.4x slower (PERF.md §5, PR 9), so only the
 # child processes of the deterministic trainer runs (CHILD_PHASES) set it
+# -- phase 16: int8 LwD serving, per-bucket int8, GAN-guided LwD training ----
+
+def phase_int8_lwd(card):
+    """Phase 16 (a): FiTLwD-XL in int8 (see the module docstring). Returns
+    the counted run's launches and the K6 / K7 sites at its shapes."""
+    import torch
+    from fitv2_tpu_torch import kernels as K
+    from fitv2_tpu_torch.kernels.quant import (
+        calibrate_quant_scales, int8_layers, prequantize_weights)
+    from fitv2_tpu_torch.models.grid_utils import make_grid_mask_size
+    from fitv2_tpu_torch.utils import config_to_model, load_config
+    bf16 = _lwd_model_fp32(LWD_CONFIG).to('cuda', torch.bfloat16).eval()
+    with torch.device('cuda'):
+        model = config_to_model(load_config([LWD_CONFIG])['diffusion'][
+            'network_config'], gemm_precision='int8', dtype='bfloat16')
+    model.load_state_dict(bf16.state_dict())
+    model.eval()
+    B, k_seg, blocks = BATCH, model.number_of_perflow, model.layers_per_flow
+    gen = torch.Generator().manual_seed(SEED + 40)
+    z = torch.randn(B, N, 16, generator=gen).cuda()
+    y = (torch.arange(B) * 111 % 1000).cuda()
+    # calibration: the model's forward (init_all: every segment's training
+    # forward, the labels dropped as in training) on the CFG batch, t at
+    # each segment's middle in turn
+    grid, _, size = make_grid_mask_size(2 * B, 16, 16, N, 'cuda')
+    y2 = torch.cat([y, torch.full_like(y, 1000)])
+    xc = torch.randn(2 * B, N, 16, generator=gen).cuda()
+    batches = [(xc, torch.full((2 * B,), (i + 0.5) / k_seg, device='cuda'),
+                y2, grid, None, size, None,
+                torch.Generator().manual_seed(SEED + 41 + i))
+               for i in range(k_seg)]
+    _reset_counts()
+    t0 = time.perf_counter()
+    calibrate_quant_scales(model, batches)
+    prequantize_weights(model)
+    torch.cuda.synchronize()
+    t_calib = time.perf_counter() - t0
+    calib = _read_counts()
+    if calib['int8_gemm_bias'] or calib['int8_gemm_swiglu_quant']:
+        raise AssertionError(f'int8 LwD: calibration launched {calib}')
+    n_layers = len(int8_layers(model))
+
+    def call(m):
+        out = m.sample_cfg(z, y, LWD_CFG_SCALE, INT8_LWD_STEPS_PER_FLOW)
+        torch.cuda.synchronize()
+        return out
+    ref = call(bf16)
+    call(model)  # warm-up
+    _reset_counts()
+    out = call(model)
+    counts = _lwd_read_counts()
+    evals = k_seg * INT8_LWD_STEPS_PER_FLOW
+    want = _lwd_counts(evals, dict(
+        fused_adaln_norm=2 * blocks + 1, fused_qk_rope=blocks,
+        flash_masked_attention=blocks, flash_masked_attention_bounded=blocks,
+        int8_gemm_bias=3 * blocks, int8_gemm_swiglu_quant=blocks))
+    if counts != want:
+        raise AssertionError(f'int8 LwD: launch counts {counts} != {want}')
+    rel = _rel_l2(out, ref)
+    ok = rel < MAX_INT8_LWD_REL_L2 and bool(torch.isfinite(out).all())
+    say(f'[int8 lwd] FiTLwD-XL int8 W8A8 ({n_layers} Int8Linear sites; '
+        f'calibrated through forward = init_all over {k_seg} batches at '
+        f'each segment\'s middle t, then prequantized: {t_calib:.2f} s), '
+        f'sample_cfg {k_seg} segments x {INT8_LWD_STEPS_PER_FLOW} sub-step, '
+        f'batch {B}: relative L2 against bf16 on the same weights and z '
+        f'{rel:.4f} < {MAX_INT8_LWD_REL_L2}: {"ok" if ok else "FAIL"}; '
+        f'launches {counts} == expected (a CFG eval: K6 {3 * blocks} = 3 '
+        f'x {blocks} blocks, K7 {blocks}, K1 {2 * blocks + 1}, K2 and K4 '
+        f'{blocks})')
+    if not ok:
+        raise AssertionError(f'int8 LwD: relative L2 {rel} against bf16')
+    walls = {'int8': [], 'bf16': []}
+    for _ in range(INT8_LWD_RATE_CALLS):
+        for tag, m in (('int8', model), ('bf16', bf16)):
+            t0 = time.perf_counter()
+            call(m)
+            walls[tag].append(time.perf_counter() - t0)
+    med = {t: statistics.median(w) for t, w in walls.items()}
+    rate = {t: B / m for t, m in med.items()}
+    say(f'[int8 lwd] sample_cfg ({evals} CFG evals at batch {2 * B}), the '
+        f'median of {INT8_LWD_RATE_CALLS} calls each, interleaved: int8 '
+        f'{rate["int8"]:.4f} images/s ({med["int8"] / evals * 1e3:.2f} ms '
+        f'an eval), bf16 {rate["bf16"]:.4f} images/s '
+        f'({med["bf16"] / evals * 1e3:.2f} ms an eval) [{card}]')
+    del model, bf16
+    torch.cuda.empty_cache()
+    # K6 at qkv / proj / fc2 and K7 at fc1 at this path's M (the CFG batch)
+    dev = torch.device('cuda')
+    kgen = torch.Generator(device=dev).manual_seed(SEED + 42)
+    m = 2 * B * N
+    k6 = [dict(_k6_site(K, dev, kgen, site, m, kk, nn, torch.bfloat16),
+               path='int8_lwd')
+          for site, kk, nn in (('qkv', D, 3 * D), ('proj', D, D),
+                               ('fc2', LWD_MLP_H, D))]
+    k7 = [dict(_k7_site(K, dev, kgen, m, D, LWD_MLP_H), path='int8_lwd')]
+    return counts, k6, k7, rate
+
+
+def phase_int8_buckets(card):
+    """Phase 16 (b): an int8 FiT-XL/2 BucketedSampler over two buckets in
+    the order A, B, A (see the module docstring)."""
+    import torch
+    from fitv2_tpu_torch.kernels.quant import int8_layers
+    from fitv2_tpu_torch.sample import BucketedSampler, SamplingConfig
+    bf16 = xl_model_bf16()
+    cfg = SamplingConfig(num_sampling_steps=INT8_BUCKET_STEPS,
+                         cfg_scale=CFG_SCALE, per_device_batch=BATCH,
+                         dtype=torch.bfloat16)
+    labels = torch.arange(BATCH) * 111 % 1000
+
+    def sample(buckets, hw):
+        out = buckets.sample(labels, *hw, generator=torch.Generator(
+        ).manual_seed(SEED + 43))
+        torch.cuda.synchronize()
+        return out
+
+    def scales(model):
+        return [m.act_absmax for m in int8_layers(model).values()]
+    a, b = INT8_BUCKETS
+    model = _xl_variant(bf16, gemm_precision='int8')
+    buckets = BucketedSampler(model, cfg)
+    t0 = time.perf_counter()
+    runs = [sample(buckets, a)]
+    weights = [m.weight_q for m in int8_layers(model).values()]
+    scales_a = scales(model)
+    runs.append(sample(buckets, b))
+    scales_b = scales(model)
+    runs.append(sample(buckets, a))
+    secs = time.perf_counter() - t0
+    shared = all(m.weight_q is w for m, w in zip(
+        int8_layers(model).values(), weights))
+    own = (all(x is y for x, y in zip(scales(model), scales_a))
+           and any(not torch.equal(x, y) for x, y in zip(scales_a,
+                                                           scales_b)))
+    ref = sample(BucketedSampler(_xl_variant(bf16, gemm_precision='int8'),
+                                 cfg), a)
+    same = torch.equal(runs[0], runs[2]) and torch.equal(runs[0], ref)
+    finite = all(bool(torch.isfinite(r).all()) for r in runs)
+    shapes = [tuple(r.shape) for r in runs]
+    ok = same and finite and shared and own and \
+        shapes[1] == (BATCH, 4, b[0] // 8, b[1] // 8)
+    say(f'[int8 buckets] XL/2 int8, one BucketedSampler over {a}, {b}, '
+        f'{a} ({INT8_BUCKET_STEPS} steps, CFG {CFG_SCALE}, batch {BATCH}; '
+        f'each bucket calibrated at its own shape): outputs {shapes}; '
+        f'the int8 weights quantized once and shared: {shared}; each '
+        f'bucket binds its own scales: {own}; the two {a} runs and a '
+        f'sampler of {a} alone (another model, the same weights) bit-'
+        f'identical: {same}: {"ok" if ok else "FAIL"} ({secs:.2f} s for '
+        f'the three calls with both bucket builds) [{card}]')
+    if not ok:
+        raise AssertionError('int8 buckets: A, B, A is not A alone, or the '
+                             'weights or scales are not per bucket as they '
+                             'should be')
+    del model, bf16, buckets
+    torch.cuda.empty_cache()
+
+
+def _synthetic_cifar(root, n=256):
+    """A cifar-10-batches-py folder of random uint8 images (seeded): the
+    format cli/train_cifar_gan reads; no download."""
+    import pickle
+    import numpy as np
+    folder = os.path.join(root, 'cifar-10-batches-py')
+    os.makedirs(folder, exist_ok=True)
+    rng = np.random.default_rng(SEED + 44)
+    for i in range(1, 6):
+        with open(os.path.join(folder, f'data_batch_{i}'), 'wb') as f:
+            pickle.dump({b'data': rng.integers(0, 256, (n, 3072),
+                                               dtype=np.uint8),
+                         b'labels': rng.integers(0, 10, n).tolist()}, f)
+    return root
+
+
+def phase_gan_kernels():
+    """Phase 16 (c): K1, K2 and K4 inside their autograd Functions at the
+    GAN student's shapes (batch GAN_BATCH, N 256, D 384, 6 heads of 64,
+    unmasked), bf16 and fp32, with phase 11's _grad_case."""
+    import torch
+    from fitv2_tpu_torch import kernels as K
+    dev = torch.device('cuda')
+    gen = torch.Generator(device=dev).manual_seed(SEED + 45)
+    b, n, d, h, dh = GAN_BATCH, GAN_N, GAN_D, GAN_H, GAN_DH
+    cases = {'adaln': [], 'qk_rope': [], 'attention': []}
+    path = 'gan_train'
+    for dtype in (torch.bfloat16, torch.float32):
+        x = (torch.randn(b, n, d, device=dev, generator=gen) * 2 + 3
+             ).to(dtype)
+        mod = (0.5 * torch.randn(b, 6 * d, device=dev, generator=gen)
+               ).to(dtype)
+
+        def adaln(fn):
+            return lambda a, m: fn(a, *m.chunk(6, dim=-1)[:2])
+        cases['adaln'].append(dict(_grad_case(
+            f'adaln ({b},{n},{d})', dtype, adaln(K.adaln_norm),
+            adaln(K.adaln_norm_reference), [x, mod], 1, 'norm',
+            LWD_TRAIN_REPS), path=path))
+        qkv = torch.randn(b, n, 3, h, dh, device=dev, generator=gen
+                          ).to(dtype)
+        ang = torch.rand(b, n, dh, device=dev, generator=gen) * 6.3
+        cos, sin = torch.cos(ang), torch.sin(ang)
+
+        def qk(fn):
+            return lambda a: fn(*a.unbind(2)[:2], cos, sin)
+        cases['qk_rope'].append(dict(_grad_case(
+            f'qk_rope ({b},{n},{h},{dh})', dtype, qk(K.qk_norm_rope),
+            qk(K.qk_norm_rope_reference), [qkv], 2, 'norm',
+            LWD_TRAIN_REPS), path=path))
+        q, k, v = qkv.unbind(2)
+        qkv_n = torch.stack([*K.qk_norm_rope_reference(q, k, cos, sin), v],
+                            dim=2)
+        cases['attention'].append(dict(_grad_case(
+            f'attention[bounded,no mask] ({b},{n},{h},{dh})', dtype,
+            lambda a: K.masked_attention(*a.unbind(2), None,
+                                         bounded_logits=True),
+            lambda a: K.attention_bounded_reference(*a.unbind(2)),
+            [qkv_n], 3, 'attention', LWD_TRAIN_REPS), variant='bounded',
+            mask=False, path=path))
+    torch.cuda.synchronize()
+    return cases
+
+
+def phase_gan_parity():
+    """Phase 16 (c): one fp32 generator + discriminator step of
+    cli/train_cifar_gan's networks (full widths, batch GAN_PARITY_BATCH,
+    segment 1, the adversarial terms live) on the card against the same
+    step on the CPU, on the same weights, batch and draws: the losses
+    within 1e-5 relative, every generator master, moment and EMA and every
+    discriminator parameter, running statistic and moment within
+    TOL_GAN_REL relative L2."""
+    import torch
+    from fitv2_tpu_torch.cli import train_cifar_gan as cli
+    from fitv2_tpu_torch.losses import (
+        LPIPSWithDiscriminator2D, NLayerDiscriminator)
+    from fitv2_tpu_torch.train import (
+        OptimizerConfig, create_disc_state, create_train_state, disc_adam,
+        make_gan_steps)
+    from fitv2_tpu_torch.train.lwd_train_step import _segment_params
+    torch.manual_seed(SEED + 46)
+    model0 = cli.build_model()
+    disc0 = NLayerDiscriminator(input_nc=3, ndf=64, n_layers=3)
+    gen = torch.Generator().manual_seed(SEED + 47)
+    with torch.no_grad():  # adaLN-zero: perturb, or the velocity is 0
+        for name, p in model0.named_parameters():
+            if 'adaLN_modulation.fc_out' in name or '.linear.' in name:
+                p.add_(0.02 * torch.randn(p.shape, generator=gen))
+    b = GAN_PARITY_BATCH
+    batch = dict(image=torch.rand(b, 32, 32, 3, generator=gen) * 2 - 1,
+                 label=torch.arange(b) * 3 % 10)
+    draws = dict(x0=torch.randn(b, 256, 12, generator=gen),
+                 r=torch.rand(b, generator=gen),
+                 drop_ids=torch.tensor([0, 1] * (b // 2)))
+    runs = {}
+    for device in ('cpu', 'cuda'):
+        model = copy.deepcopy(model0).to(device).train()
+        disc = copy.deepcopy(disc0).to(device).train()
+        state = create_train_state(model, OptimizerConfig(
+            learning_rate=1e-4))
+        dstate = create_disc_state(disc, lambda p: disc_adam(p, 1e-4))
+        loss_fn = cli.make_generator_loss(model, b, device)
+        gen_step, disc_step = make_gan_steps(
+            loss_fn, model, LPIPSWithDiscriminator2D(disc_weight=0.1),
+            required=_segment_params(model))
+        bd = {k: v.to(device) for k, v in batch.items()}
+        dd = {k: v.to(device) for k, v in draws.items()}
+        before = _counts_now()
+        state, gm = gen_step(state, dstate, bd, None, dd, segment_idx=1)
+        with torch.no_grad():
+            _, fake = loss_fn(model, bd, None, dd, 1)
+        dstate, dm = disc_step(dstate, bd['image'], fake, state.step)
+        runs[device] = (state, dstate, {**gm, **dm},
+                        _counts_minus(_counts_now(), before))
+    (cpu, dcpu, mcpu, _), (gpu, dgpu, mgpu, launched) = runs['cpu'], \
+        runs['cuda']
+    if not (launched['fused_adaln_norm'] and launched['fused_qk_rope']
+            and launched['flash_masked_attention_bounded']):
+        raise AssertionError(f'GAN parity: the card step launched {launched}')
+    worst_loss = max(abs(mgpu[k].item() - mcpu[k].item()) / max(
+        abs(mcpu[k].item()), 1e-12) for k in ('loss', 'base_loss',
+                                               'g_loss', 'd_loss'))
+    pairs = []
+    for n, p in cpu.params.items():
+        pairs += [(gpu.params[n], p), (gpu.ema_params[n], cpu.ema_params[n])]
+        pairs += [(gpu.optimizer.state[gpu.params[n]][k],
+                   cpu.optimizer.state[p][k]) for k in ('mu', 'nu')]
+    dp = dict(dgpu.disc.named_parameters())
+    for n, p in dcpu.disc.named_parameters():
+        pairs += [(dp[n], p)] + [
+            (dgpu.optimizer.state[dp[n]][k], dcpu.optimizer.state[p][k])
+            for k in ('mu', 'nu')]
+    sd = dgpu.disc.state_dict()
+    pairs += [(sd[n], t) for n, t in dcpu.disc.state_dict().items()
+              if 'running' in n]
+    worst = max(_rel_l2(o, w) for o, w in pairs if w.abs().max() > 0)
+    ok = worst_loss <= 1e-5 and worst <= TOL_GAN_REL
+    say(f'[gan] one fp32 generator + discriminator step (batch {b}, '
+        f'segment 1, full widths): card vs CPU, losses within '
+        f'{worst_loss:.2e} relative <= 1e-5, {len(pairs)} tensors (masters, '
+        f'EMA, moments, D params, statistics and moments) within '
+        f'{worst:.2e} relative L2 <= {TOL_GAN_REL}: '
+        f'{"ok" if ok else "FAIL"}; the card step launched K1 '
+        f'{launched["fused_adaln_norm"]}, K2 {launched["fused_qk_rope"]}, '
+        f'K4 {launched["flash_masked_attention_bounded"]}')
+    if not ok:
+        raise AssertionError(f'GAN parity: {worst_loss}, {worst}')
+
+
+def phase_gan(card, out_dir):
+    """Phase 16 (c): cli/train_cifar_gan on the card (see the module
+    docstring). Returns the run's launches."""
+    import numpy as np
+    import torch
+    from fitv2_tpu_torch.cli import train_cifar_gan
+    cifar = _synthetic_cifar(os.path.join(out_dir, 'cifar'))
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    out = train_cifar_gan.main([
+        '--cifar', cifar, '--steps', str(GAN_STEPS), '--batch',
+        str(GAN_BATCH), '--disc-start', str(GAN_DISC_START), '--seed',
+        str(SEED)])
+    torch.cuda.synchronize()
+    counts = _lwd_read_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    hist = out['history']
+    # a step: the segment's training forward, then the fake recomputed
+    # with the updated generator: 3 blocks each (12 / 4 segments)
+    blocks = out['model'].layers_per_flow
+    want = _lwd_counts(2 * GAN_STEPS, dict(
+        fused_adaln_norm=2 * blocks + 1, fused_qk_rope=blocks,
+        flash_masked_attention=blocks, flash_masked_attention_bounded=blocks))
+    if counts != want:
+        raise AssertionError(f'GAN: launch counts {counts} != {want}')
+    finite = all(np.isfinite(list(h.values())).all() for h in hist)
+    stats = [t for n, t in out['disc_state'].disc.state_dict().items()
+             if 'running' in n]
+    finite = finite and all(bool(torch.isfinite(t).all()) for t in stats)
+    adv = all(h['loss'] != h['base_loss'] and h['d_loss'] != 0.0
+              for h in hist[GAN_DISC_START:])
+    gated = all(h['loss'] == h['base_loss'] and h['d_loss'] == 0.0
+                for h in hist[:GAN_DISC_START - 1])
+    ms = statistics.median(h['ms'] for h in hist[GAN_WARM:])
+    ok = finite and adv and gated
+    say(f'[gan] cli/train_cifar_gan on the card: FiTLwD student (hidden '
+        f'384, depth 12, 6 heads of 64, K 4, 256 tokens of 2x2x3) + '
+        f'PatchGAN (ndf 64, 3 layers, BatchNorm), fp32, batch {GAN_BATCH}, '
+        f'{GAN_STEPS} steps, --disc-start {GAN_DISC_START}: losses and BN '
+        f'statistics finite, the adversarial terms 0 before step '
+        f'{GAN_DISC_START} and live from it: {"ok" if ok else "FAIL"}; '
+        f'first step gen {hist[0]["loss"]:.4f} d {hist[0]["d_loss"]:.4f}, '
+        f'last gen {hist[-1]["loss"]:.4f} (base {hist[-1]["base_loss"]:.4f},'
+        f' g {hist[-1]["g_loss"]:.4f}) d {hist[-1]["d_loss"]:.4f}; '
+        f'launches {counts} == expected (a step: the training forward and '
+        f'the recomputed fake, each K1 {2 * blocks + 1}, K2 and K4 '
+        f'{blocks}; their backward passes are PyTorch); a step (gen step + '
+        f'fake + disc step, a sync at its end) {ms:.2f} ms, the median of '
+        f'steps {GAN_WARM}-{GAN_STEPS - 1} = {GAN_BATCH / ms * 1e3:.1f} '
+        f'images/s; peak memory {peak:.2f} GiB [{card}]')
+    if not ok:
+        raise AssertionError('GAN: a loss or statistic not finite, or the '
+                             'disc_start gate wrong')
+    return counts, ms, peak
+
+
 DETERMINISTIC_ENV = {'CUBLAS_WORKSPACE_CONFIG': ':4096:8'}
 CHILD_PHASES = {'train': phase_train_deterministic,
                 'fitv1_train': phase_fitv1_train,
@@ -3561,6 +3968,18 @@ def main():
             came_counts, _ = phase_came(card, out_dir, adamw)
         with _clock('phase 15 (e) teachers'):
             phase_teachers(card)
+        # phase 16: int8 LwD serving, per-bucket int8, GAN-guided LwD
+        # training on CIFAR pixels
+        torch.cuda.empty_cache()
+        with _clock('phase 16 (int8 LwD, int8 buckets, GAN)'):
+            with _clock('phase 16 (a) int8 LwD-XL'):
+                int8_lwd_counts, k6_lwd, k7_lwd, _ = phase_int8_lwd(card)
+            with _clock('phase 16 (b) int8 buckets'):
+                phase_int8_buckets(card)
+            with _clock('phase 16 (c) GAN'):
+                gan_cases = phase_gan_kernels()
+                phase_gan_parity()
+                gan_counts, _, _ = phase_gan(card, out_dir)
     for name, cases in lwd_cases.items():
         results[name]['cases'] += cases
     for name, cases in hr_cases.items():
@@ -3579,8 +3998,9 @@ def main():
             grad_max_abs_err=max(c['max_abs_err'] for c in cases),
             train_fwd_max_abs_err=max(c['fwd_max_abs_err'] for c in cases),
             train_cases=cases)
-    # phase 14's Functions at the multi-scale tiers and BFM-XL's K3
-    for name, cases in lwd_train_cases.items():
+    # phase 14's Functions at the multi-scale tiers and BFM-XL's K3, phase
+    # 16's at the GAN student's shapes (Dh 64)
+    for name, cases in [*lwd_train_cases.items(), *gan_cases.items()]:
         results[name]['train_cases'] += cases
         results[name]['grad_max_abs_err'] = max(
             results[name]['grad_max_abs_err'],
@@ -3588,6 +4008,12 @@ def main():
         results[name]['train_fwd_max_abs_err'] = max(
             results[name]['train_fwd_max_abs_err'],
             *(c['fwd_max_abs_err'] for c in cases))
+    # K6 and K7 at the int8 LwD path's shapes (phase 16 (a))
+    results['int8_gemm_bias']['sites'] += k6_lwd
+    results['int8_gemm_swiglu_quant']['sites'] += k7_lwd
+    for name in ('int8_gemm_bias', 'int8_gemm_swiglu_quant'):
+        results[name]['max_abs_err'] = max(
+            st['max_abs_err'] for st in results[name]['sites'])
     for name in ('int8_gemm_bias', 'int8_gemm_swiglu_quant'):  # no backward
         results[name].update(train_ms=None, train_plain_ms=None,
                              backward_ms=None, backward_plain_ms=None,
@@ -3620,7 +4046,8 @@ def main():
                'fitv1_train_resumed': v1_resumed_counts, **lwd_counts,
                **lwd_train_counts,
                **{f'sac_{p}': c for p, c in sac_counts.items()},
-               **hr_train_counts, 'came_train': came_counts}
+               **hr_train_counts, 'came_train': came_counts,
+               'int8_lwd': int8_lwd_counts, 'gan_train': gan_counts}
     # the attention wrapper launches K4 (bounded) or K3 (online softmax):
     # K3's share on each path that counted K4 apart
     results['attention']['k3_launches_by_path'] = {

@@ -38,7 +38,12 @@ what the optimizers need to do per JAX leaf what optax does per leaf
 ``quant_state_from_jax`` carries the int8 serving mode's collections
 (``quant_calib``: per-site activation absmax; ``quant_weights``: int8
 kernels and per-channel scales) onto the port's ``Int8Linear`` buffers,
-for ``fitv2_tpu_torch.kernels.quant.load_quant_state``.
+for ``fitv2_tpu_torch.kernels.quant.load_quant_state``;
+``lwd_quant_state_from_jax`` does so over the LwD family's block stacks.
+
+``disc_state_from_jax`` and ``lpips_state_from_jax`` map the JAX package's
+PatchGAN discriminators (params and BatchNorm ``batch_stats``) and LPIPS
+onto ``fitv2_tpu_torch.losses``' modules.
 """
 
 from __future__ import annotations
@@ -198,6 +203,23 @@ def jax_leaves(model: torch.nn.Module) -> List[JaxLeaf]:
             for path, (names, stacked, transpose, ndim) in leaves.items()]
 
 
+def _lwd_paths(flat: Mapping[str, np.ndarray]):
+    """(the port's '/'-joined path, value) of each leaf of a flattened JAX
+    LwD tree: ``{list}_{i}/...`` -> ``{list}/{i}/...``, and each block
+    stack's ``.../stack/block/...`` leaf unstacked along its own length
+    into ``.../{j}/...``."""
+    for path, value in flat.items():
+        m = _LWD_LIST.fullmatch(path)
+        if m:
+            path = f'{m[1]}/{m[2]}/{m[3]}'
+        if _STACK in path:
+            head, rest = path.split(_STACK, 1)
+            for i in range(value.shape[0]):
+                yield f'{head}/{i}/{rest}', value[i]
+        else:
+            yield path, value
+
+
 def lwd_state_from_jax(params_np: Mapping[str, Any], model: torch.nn.Module
                        ) -> Dict[str, torch.Tensor]:
     """JAX FiTLwD / FiTLwDSharedEncSepDec params (numpy leaves) -> the
@@ -205,17 +227,8 @@ def lwd_state_from_jax(params_np: Mapping[str, Any], model: torch.nn.Module
     are held against ``model``'s (a block stack of another length, a
     missing head or a leaf of another shape raises); ``model`` must use the
     JAX model's RoPE layout."""
-    sd: Dict[str, torch.Tensor] = {}
-    for path, value in _flatten(params_np.get('params', params_np)).items():
-        m = _LWD_LIST.fullmatch(path)
-        if m:
-            path = f'{m[1]}/{m[2]}/{m[3]}'
-        if _STACK in path:
-            head, rest = path.split(_STACK, 1)
-            for i in range(value.shape[0]):
-                sd.update([_leaf(f'{head}/{i}/{rest}', value[i])])
-        else:
-            sd.update([_leaf(path, value)])
+    sd = dict(_leaf(path, value) for path, value in
+              _lwd_paths(_flatten(params_np.get('params', params_np))))
     _check_qkv(sd, 'segments.0.0.attn.qkv.weight', model.num_heads,
                model.rope_layout)
     want = model.state_dict()
@@ -238,24 +251,81 @@ def quant_state_from_jax(collections_np: Mapping[str, Any], depth: int
     ``Int8Linear`` buffers by qualified name: ``act_absmax`` () f32,
     ``kernel_q`` (K, N) -> ``weight_q`` (N, K) int8, ``w_scale`` (1, N) ->
     (N,) f32."""
+    flat = _quant_collections(collections_np)
+    return dict(_quant_leaf(path, value)
+                for path, value in _unstack_blocks(flat, depth).items())
+
+
+def _quant_collections(collections_np: Mapping[str, Any]
+                       ) -> Dict[str, np.ndarray]:
     flat = {}
     for coll in ('quant_calib', 'quant_weights'):
         if coll in collections_np:
             flat.update(_flatten(collections_np[coll]))
-    out: Dict[str, torch.Tensor] = {}
-    for path, value in _unstack_blocks(flat, depth).items():
-        *layer, leaf = path.split('/')
-        name = '.'.join(layer)
-        if leaf == 'kernel_q':
-            out[f'{name}.weight_q'] = torch.from_numpy(np.ascontiguousarray(
-                np.swapaxes(value, -1, -2)).astype(np.int8))
-        elif leaf in ('w_scale', 'act_absmax'):
-            arr = np.array(value, np.float32)  # a writable copy
-            out[f'{name}.{leaf}'] = torch.from_numpy(
-                arr.reshape(-1) if leaf == 'w_scale' else arr.reshape(()))
-        else:
-            raise ValueError(f'{path}: not a quantization leaf')
+    return flat
+
+
+def _quant_leaf(path: str, value: np.ndarray) -> Tuple[str, torch.Tensor]:
+    """One quantization leaf at the port's '/'-joined layer path -> its
+    ``Int8Linear`` buffer name and tensor."""
+    *layer, leaf = path.split('/')
+    name = '.'.join(layer)
+    if leaf == 'kernel_q':
+        return f'{name}.weight_q', torch.from_numpy(np.ascontiguousarray(
+            np.swapaxes(value, -1, -2)).astype(np.int8))
+    if leaf in ('w_scale', 'act_absmax'):
+        arr = np.array(value, np.float32)  # a writable copy
+        return f'{name}.{leaf}', torch.from_numpy(
+            arr.reshape(-1) if leaf == 'w_scale' else arr.reshape(()))
+    raise ValueError(f'{path}: not a quantization leaf')
+
+
+def lwd_quant_state_from_jax(collections_np: Mapping[str, Any]
+                             ) -> Dict[str, torch.Tensor]:
+    """``quant_state_from_jax`` for the LwD family: JAX's ``quant_calib`` /
+    ``quant_weights`` trees over the segment, shared-trunk,
+    representation and mid-block stacks (each ``.../stack/block/...``,
+    stacked along its own length) -> the port's ``Int8Linear`` buffers,
+    through ``lwd_state_from_jax``'s path map."""
+    return dict(_quant_leaf(path, value) for path, value in
+                _lwd_paths(_quant_collections(collections_np)))
+
+
+def _conv_leaf(path: str, value: np.ndarray) -> Tuple[str, torch.Tensor]:
+    """A flax conv / BatchNorm leaf -> the port's name and tensor: a
+    kernel (k..., I, O) -> ``weight`` (O, I, k...); BatchNorm ``scale``
+    -> ``weight``, ``mean`` / ``var`` -> ``running_mean`` /
+    ``running_var``."""
+    *layer, leaf = path.split('/')
+    if leaf == 'kernel':
+        leaf = 'weight'
+        value = np.moveaxis(value, (-1, -2), (0, 1))
+    else:
+        leaf = {'scale': 'weight', 'mean': 'running_mean',
+                'var': 'running_var'}.get(leaf, leaf)
+    return '.'.join([*layer, leaf]), torch.from_numpy(
+        np.array(value, dtype=np.float32, order='C'))
+
+
+def disc_state_from_jax(params_np: Mapping[str, Any],
+                        batch_stats_np: Mapping[str, Any]
+                        ) -> Dict[str, torch.Tensor]:
+    """JAX ``NLayerDiscriminator`` / ``NLayerDiscriminator3D`` params and
+    ``batch_stats`` (numpy leaves) -> the port's discriminator
+    ``state_dict``."""
+    out = dict(_conv_leaf(p, v) for p, v in
+               _flatten(params_np.get('params', params_np)).items())
+    out.update(_conv_leaf(p, v) for p, v in _flatten(
+        batch_stats_np.get('batch_stats', batch_stats_np)).items())
     return out
+
+
+def lpips_state_from_jax(params_np: Mapping[str, Any]
+                         ) -> Dict[str, torch.Tensor]:
+    """JAX ``LPIPS`` params (numpy leaves: ``vgg/conv{i}``, ``lin{i}``) ->
+    the port's ``LPIPS.state_dict()``."""
+    return dict(_conv_leaf(p, v) for p, v in
+                _flatten(params_np.get('params', params_np)).items())
 
 
 def inception_state_from_jax(params_np: Mapping[str, Any]

@@ -2,6 +2,7 @@
 
 from fitv2_tpu_torch.eval.evaluator import (
     Evaluator, create_npz_from_sample_folder)
+from fitv2_tpu_torch.eval.measure import measure_all
 from fitv2_tpu_torch.eval.statistics import (
     activation_statistics, compute_all_metrics, fid_from_activations,
     frechet_distance, inception_score, precision_recall)
@@ -9,5 +10,5 @@ from fitv2_tpu_torch.eval.statistics import (
 __all__ = [
     'Evaluator', 'create_npz_from_sample_folder', 'activation_statistics',
     'compute_all_metrics', 'fid_from_activations', 'frechet_distance',
-    'inception_score', 'precision_recall',
+    'inception_score', 'measure_all', 'precision_recall',
 ]

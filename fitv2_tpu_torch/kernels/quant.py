@@ -213,6 +213,22 @@ def calibrate_quant_scales(model: nn.Module, batches: Iterable[tuple]
             for name, m in layers.items()}
 
 
+class QuantBinding:
+    """One sampler's quantization state of a model whose module other
+    samplers share (one a bucket): each ``Int8Linear``'s ``act_absmax`` and
+    serving ``QuantParts``, captured once. ``bind()`` puts them back on
+    the module before the sampler runs; the parts' reciprocal scales were
+    read at capture, so binding costs no host synchronisation."""
+
+    def __init__(self, model: nn.Module):
+        self.layers = [(m, m.act_absmax, m.quant_parts())
+                       for m in int8_layers(model).values()]
+
+    def bind(self) -> None:
+        for m, act_absmax, parts in self.layers:
+            m.act_absmax, m._parts = act_absmax, parts
+
+
 def load_quant_state(model: nn.Module, state: Dict[str, Tensor]) -> None:
     """Bind quantization buffers by qualified name (as returned by
     ``prequantize_weights``, ``calibrate_quant_scales`` or

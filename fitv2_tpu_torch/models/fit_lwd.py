@@ -116,9 +116,14 @@ class FiTLwD(nn.Module):
 
     ``dtype`` is the compute dtype the parameters are stored in (a
     torch.dtype or its name, e.g. ``'bfloat16'`` from a YAML config).
-    ``gemm_precision='int8'`` and ``sequence_mesh`` are not ported and
-    raise; ``use_checkpoint`` and ``use_sit`` do not change a forward pass
-    and are accepted for config compatibility.
+    ``gemm_precision='int8'`` makes every block stack's qkv, proj and MLP
+    GEMMs int8 W8A8 (``Int8Linear``), as the JAX model's ``quantized``
+    block kwarg does: dynamic per-row activation scales until
+    ``kernels.quant.calibrate_quant_scales(model, [args])`` runs
+    ``model(*args)`` (``init_all``) and binds each site's scale, then the
+    serving GEMMs (K6, and K7 at the SwiGLU). ``sequence_mesh`` is not
+    ported and raises; ``use_checkpoint`` and ``use_sit`` do not change a
+    forward pass and are accepted for config compatibility.
     """
 
     def __init__(self, context_size: int = 256, patch_size: int = 2,
@@ -152,11 +157,7 @@ class FiTLwD(nn.Module):
                  attn_impl: str = 'auto', rope_layout: str = 'split',
                  gemm_precision: str = 'bf16', sequence_mesh: Any = None):
         super().__init__()
-        if gemm_precision == 'int8':
-            raise NotImplementedError(
-                "FiTLwD(gemm_precision='int8'): int8 LwD serving is not "
-                'ported yet (ROADMAP.md §1, item 20b)')
-        if gemm_precision != 'bf16':
+        if gemm_precision not in ('bf16', 'int8'):
             raise ValueError(f'gemm_precision={gemm_precision!r}')
         if sequence_mesh is not None:
             raise NotImplementedError(
@@ -204,7 +205,7 @@ class FiTLwD(nn.Module):
             adaln_type=adaln_type, adaln_lora_dim=adaln_lora_dim,
             use_rope=rel_pos_embed is not None,
             add_rel_pe_to_v=add_rel_pe_to_v, attn_impl=attn_impl,
-            rope_layout=rope_layout)
+            rope_layout=rope_layout, quantized=gemm_precision == 'int8')
 
         K, D = number_of_perflow, hidden_size
         token_dim = patch_size ** 2 * in_channels
@@ -436,7 +437,30 @@ class FiTLwD(nn.Module):
                                  t_next)
         return out, repr_proj
 
-    forward = forward_run_layer
+    @staticmethod
+    def _segment_drops(force_drop_ids, i: int):
+        """Segment i's label drops: one tensor for every segment, or a
+        sequence of one a segment."""
+        if force_drop_ids is None or isinstance(force_drop_ids, Tensor):
+            return force_drop_ids
+        return force_drop_ids[i]
+
+    def init_all(self, x: Tensor, t: Tensor, y: Tensor, grid: Tensor,
+                 mask: Optional[Tensor], size: Optional[Tensor] = None,
+                 force_drop_ids=None,
+                 generator: Optional[torch.Generator] = None) -> Tensor:
+        """Every segment's training forward in turn (labels dropped as in
+        training); returns the last segment's velocity. JAX's ``__call__``:
+        int8 calibration runs it, so every block stack sees the inputs."""
+        out = None
+        for i in range(self.number_of_perflow):
+            out, _ = self.forward_run_layer(
+                x, t, y, i, grid, mask, size, train=True,
+                force_drop_ids=self._segment_drops(force_drop_ids, i),
+                generator=generator)
+        return out
+
+    forward = init_all
 
     # -- samplers -------------------------------------------------------------
 

@@ -115,7 +115,21 @@ class FiTLwDSharedEncSepDec(FiTLwD):
                               f_sin)
         return out, self.rep_projection(rep)
 
-    forward = forward_run_layer
+    def init_all(self, x: Tensor, t: Tensor, y: Tensor, grid: Tensor,
+                 mask: Optional[Tensor], size: Optional[Tensor] = None,
+                 force_drop_ids=None,
+                 generator: Optional[torch.Generator] = None) -> Tensor:
+        """FiTLwD's ``init_all``, then the forecaster's finetune forward at
+        segment 0 in each mode (t_next = t, xt_next = x), as in JAX: the
+        mid blocks see inputs too."""
+        out = super().init_all(x, t, y, grid, mask, size, force_drop_ids,
+                               generator)
+        for mode in ('replace', 'residual', 'blend'):
+            self.forward_run_layer_finetune(x, t, y, 0, grid, mask, t_next=t,
+                                            xt_next=x, size=size, mode=mode)
+        return out
+
+    forward = init_all
 
     def forward_run_layer_finetune(self, x: Tensor, t: Tensor, y: Tensor,
                                    segment_idx: int, grid: Tensor,

@@ -2,11 +2,12 @@
 
 Counterpart of fitv2_tpu/sample/buckets.py. Samplers are built lazily and
 cached; every bucket runs the same module, so the weights live on the card
-once. A bucket larger than the model's context pads its tokens to the
-bucket's own length (``build_sampler(context_size=...)``), and its RoPE
-config is replaced per bucket (``apply_rope_interpolation``). The standard
-buckets cover the published evaluation grid: 256x256 pretrain, 160x320 /
-320x320 extrapolation, 512x512 / 320x640 HR.
+once (an int8 model's quantized weights too; each bucket keeps its own
+activation scales). A bucket larger than the model's context pads its
+tokens to the bucket's own length (``build_sampler(context_size=...)``),
+and its RoPE config is replaced per bucket (``apply_rope_interpolation``).
+The standard buckets cover the published evaluation grid: 256x256
+pretrain, 160x320 / 320x320 extrapolation, 512x512 / 320x640 HR.
 """
 
 from __future__ import annotations
@@ -38,19 +39,21 @@ class BucketedSampler:
     explicit interpolation gets its own sampler. (JAX's key leaves the
     interpolation out, so there a second mode for a cached bucket returns
     the first mode's sampler.)
+
+    Over an int8 model each bucket's sampler calibrates at the bucket's
+    shape (or binds ``quant_collections[(height, width)]``, e.g. JAX's
+    per-bucket collections through ``ckpt.quant_state_from_jax``) and owns
+    its activation scales, as JAX's per-bucket ``quant_calib`` does; the
+    int8 weights are quantized once and shared.
     """
     model: torch.nn.Module
     base_config: SamplingConfig = SamplingConfig()
     vae: Optional[torch.nn.Module] = None
     ori_max_pe_len: int = 16
+    quant_collections: Optional[
+        Dict[Tuple[int, int], Dict[str, torch.Tensor]]] = None
 
     def __post_init__(self):
-        if getattr(self.model, 'gemm_precision', 'bf16') == 'int8':
-            # calibration binds its scales on the shared module, so a
-            # second bucket would overwrite the first bucket's
-            raise NotImplementedError(
-                'BucketedSampler over an int8 model is not ported: build one '
-                'sampler per bucket with build_sampler')
         self._cache: Dict[Tuple[int, int, str, int, float], Callable] = {}
 
     def config_for(self, height: int, width: int,
@@ -77,7 +80,10 @@ class BucketedSampler:
                                         self.model.patch_size)
             self._cache[key] = build_sampler(
                 self.model, cfg, self.vae,
-                context_size=max(self.model.context_size, n_h * n_w))
+                quant_collections=(self.quant_collections or {}).get(
+                    (height, width)),
+                context_size=max(self.model.context_size, n_h * n_w),
+                prequantize=not self._cache)
         return self._cache[key]
 
     def sample(self, labels: torch.Tensor, height: int, width: int,

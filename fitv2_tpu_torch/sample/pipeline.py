@@ -47,7 +47,8 @@ import torch
 from fitv2_tpu_torch.flow.samplers import (
     cfg_model_fn, euler_ladder, euler_sample, euler_sample_extrapolated)
 from fitv2_tpu_torch.kernels.quant import (
-    calibrate_quant_scales, load_quant_state, prequantize_weights)
+    QuantBinding, calibrate_quant_scales, load_quant_state,
+    prequantize_weights)
 from fitv2_tpu_torch.models.fit import forward_with_cfg
 from fitv2_tpu_torch.models.grid_utils import (
     make_grid_mask_size, pixels_to_tokens)
@@ -153,8 +154,8 @@ def apply_rope_interpolation(model, cfg: SamplingConfig) -> RopeConfig:
 
 def build_sampler(model, cfg: SamplingConfig, vae=None,
                   quant_collections: Optional[Dict[str, Tensor]] = None,
-                  context_size: Optional[int] = None
-                  ) -> Callable[..., Tensor]:
+                  context_size: Optional[int] = None,
+                  prequantize: bool = True) -> Callable[..., Tensor]:
     """Returns ``sample_fn(labels, generator=None, z=None,
     step_noise=None)``.
 
@@ -173,9 +174,13 @@ def build_sampler(model, cfg: SamplingConfig, vae=None,
     ``fitv2_tpu_torch.ckpt.quant_state_from_jax``) exactly those are bound;
     without, the built-in calibration runs four forwards on seeded noise
     (``CALIBRATION_POINTS``; labels class 0 and null) and the weights are
-    prequantized. The calibration noise comes from a seeded CPU
-    ``torch.Generator``, so it differs from the JAX sampler's
-    ``jax.random`` draw and the scales differ slightly from JAX's.
+    prequantized (``prequantize=False`` keeps the int8 weights already
+    bound on the module: a ``BucketedSampler``'s later buckets share its
+    first bucket's). The sampler keeps its own activation scales and binds
+    them at each call, so samplers of several buckets share one module.
+    The calibration noise comes from a seeded CPU ``torch.Generator``, so
+    it differs from the JAX sampler's ``jax.random`` draw and the scales
+    differ slightly from JAX's.
 
     ``context_size`` pads the tokens to that length instead of the model's
     own (a bucket larger than the training context; the weights are
@@ -250,7 +255,11 @@ def build_sampler(model, cfg: SamplingConfig, vae=None,
         calibrate_quant_scales(model, [
             (zc * s, torch.full((2 * B,), t, device=device), yc, grid, mask,
              size, rope) for s, t in CALIBRATION_POINTS])
-        prequantize_weights(model)
+        if prequantize:
+            prequantize_weights(model)
+    # this sampler's scales, put back on the (possibly shared) module at
+    # every call: another bucket's sampler may have bound its own since
+    quant = QuantBinding(model) if model.gemm_precision == 'int8' else None
 
     def decode(z: Tensor) -> Tensor:
         """Valid tokens -> unpatchify -> (optional) VAE -> uint8."""
@@ -299,6 +308,8 @@ def build_sampler(model, cfg: SamplingConfig, vae=None,
                              f'{tuple(z.shape)}')
         z = z.to(device=device, dtype=torch.float32)
         labels = labels.to(device=device, dtype=torch.int64)
+        if quant is not None:
+            quant.bind()
         y = torch.cat([labels, y_null])
         if diffusion is not None:
             return decode(diffusion_loop(z, labels, y, generator, step_noise))

@@ -5,6 +5,8 @@ load with pyyaml (deep merge, right wins; ``${tuple:a, b}`` values resolve
 to tuples), and ``config_to_model`` builds the port's model from a
 ``network_config`` whose target names a model of the reference, of the JAX
 package or of the port: the FiT, FiTLwD, the shared-encoder FiTLwD and BFM.
+``get_obj_from_str`` / ``instantiate_from_config`` resolve any target to
+the port's counterpart (``resolve_target``).
 """
 
 from __future__ import annotations
@@ -43,6 +45,15 @@ MODEL_TARGETS = {
 }
 # the targets that build the port's FiT
 FIT_TARGETS = tuple(t for t, m in MODEL_TARGETS.items() if m is _FIT)
+# the other targets a config may name (the reference's and the JAX
+# package's) -> the port's counterpart
+_LOADER = 'fitv2_tpu_torch.data.latent_dataset.INLatentLoader'
+OTHER_TARGETS = {
+    'fit.data.in1k_latent_dataset.INLatentLoader': _LOADER,
+    'fitv2_tpu.data.latent_dataset.INLatentLoader': _LOADER,
+}
+# packages of the JAX world, never imported by the port
+_JAX_PACKAGES = ('fitv2_tpu', 'jax', 'flax', 'optax')
 
 # reference FiT kwargs with no model-side meaning here (checkpoint loading
 # lives in fitv2_tpu_torch.ckpt); dropped silently as by the JAX package
@@ -91,6 +102,56 @@ def load_config(paths: Sequence[str] | str) -> dict:
         with open(p) as f:
             merged = deep_merge(merged, yaml.safe_load(f) or {})
     return _resolve_tuples(merged)
+
+
+def resolve_target(target: str) -> str:
+    """The port's dotted path for a config target: a model target (any in
+    ``MODEL_TARGETS``) -> the function that builds it, a mapped target ->
+    its counterpart, a ``fitv2_tpu.`` path -> the same path under
+    ``fitv2_tpu_torch.`` where the port has it; any other target is
+    returned as it is. A target of the JAX world without a counterpart
+    raises ``NotImplementedError``; the JAX package is never imported."""
+    if target in MODEL_TARGETS:
+        module, build, _ = MODEL_TARGETS[target]
+        return f'fitv2_tpu_torch.models.{module}.{build}'
+    if target in OTHER_TARGETS:
+        return OTHER_TARGETS[target]
+    root = target.split('.', 1)[0]
+    if root not in _JAX_PACKAGES:
+        return target
+    if root == 'fitv2_tpu':
+        candidate = 'fitv2_tpu_torch' + target[len('fitv2_tpu'):]
+        module, _, name = candidate.rpartition('.')
+        try:
+            if hasattr(importlib.import_module(module), name):
+                return candidate
+        except ImportError:
+            pass
+    raise NotImplementedError(f'config target {target!r} has no counterpart '
+                              'in the PyTorch port')
+
+
+def get_obj_from_str(string: str, reload: bool = False) -> Any:
+    """The object a dotted config target names, resolved to the port's
+    counterpart (``resolve_target``)."""
+    module, name = resolve_target(string).rsplit('.', 1)
+    mod = importlib.import_module(module)
+    if reload:
+        importlib.reload(mod)
+    return getattr(mod, name)
+
+
+def instantiate_from_config(config: Mapping[str, Any], **extra) -> Any:
+    """{'target': 'pkg.mod.Cls', 'params': {...}} -> Cls(**params,
+    **extra), with the target resolved to the port's counterpart; the
+    reference's '__is_first_stage__' / '__is_unconditional__' give None."""
+    if 'target' not in config:
+        if config in ('__is_first_stage__', '__is_unconditional__'):
+            return None
+        raise KeyError('Expected key `target` to instantiate.')
+    params = dict(config.get('params') or {})
+    params.update(extra)
+    return get_obj_from_str(config['target'])(**params)
 
 
 def _init_params(cls) -> set:

@@ -1320,3 +1320,183 @@ def test_came_update_cuda_matches_cpu(dev):
         (a[k], b[k]) for a, b in zip(s_gpu, s_cpu) for k in b]
     for a, b in pairs:
         assert ((a - b).norm() / b.norm()).item() <= 1e-5
+
+
+# -- slice 8a and item 20b: int8 LwD serving, int8 buckets, the GAN step ------
+
+@pytest.mark.parametrize('site,k,n', [('qkv', 1152, 3456),
+                                      ('proj', 1152, 1152),
+                                      ('fc2', 3072, 1152), ('fc1', 1152, 0)])
+@pytest.mark.parametrize('m', [4096, 2048])
+def test_int8_gemms_at_the_lwd_xl_shapes(dev, site, k, n, m):
+    """FiTLwD-XL's int8 serving GEMMs at M = 2B x 256 (CFG batch 8, 4):
+    K6 at qkv, proj and fc2 bit for bit, K7 at fc1 (H 3072) within one
+    level on at most 0.1% of its outputs."""
+    if site == 'fc1':
+        xq, wq, scale, bias = _int8_operands(dev, m, k, 2 * 3072, 40)
+        _assert_swiglu_close(xq, wq, scale * 0.3, 0.1 * bias, 20.0)
+    else:
+        xq, wq, scale, bias = _int8_operands(dev, m, k, n, 41)
+        _assert_int8_gemm_bias_exact(xq, wq, scale, bias, torch.bfloat16)
+
+
+def test_int8_lwd_sampler_cuda_matches_cpu(dev):
+    """A small int8 FiTLwD, calibrated through its forward (init_all) and
+    prequantized on the CPU, samples with CFG on the card through K6 and
+    K7 (3 and 1 a block a CFG eval) against the CPU's plain versions:
+    relative L2 within 4e-3 (an int8 rounding flip, as in the CPU parity
+    tests)."""
+    from fitv2_tpu_torch.kernels.quant import (
+        calibrate_quant_scales, prequantize_weights)
+    from fitv2_tpu_torch.models.grid_utils import make_grid_mask_size
+    model = _lwd_model('lwd', gemm_precision='int8')
+    g = torch.Generator().manual_seed(12)
+    grid, _, size = make_grid_mask_size(8, 4, 4, 16)
+    calibrate_quant_scales(model, [(
+        torch.randn(8, 16, 16, generator=g), torch.full((8,), 0.5),
+        torch.arange(8) % 10, grid, None, size, None,
+        torch.Generator().manual_seed(13))])
+    prequantize_weights(model)
+    z, y = torch.randn(4, 16, 16, generator=g), torch.tensor([1, 4, 7, 2])
+    want = model.sample_cfg(z, y, 1.5, 2)
+    before = [w.launches for w in K.KERNEL_WRAPPERS]
+    got = model.to(dev).sample_cfg(z.to(dev), y.to(dev), 1.5, 2).cpu()
+    launched = dict(zip([w.__name__ for w in K.KERNEL_WRAPPERS],
+                        _launched(before)))
+    evals = model.number_of_perflow * 2
+    blocks = model.layers_per_flow + model.number_of_shared_blocks
+    assert launched['int8_gemm_bias'] == 3 * evals * blocks
+    assert launched['int8_gemm_swiglu_quant'] == evals * blocks
+    assert ((got - want).norm() / want.norm()).item() <= 4e-3
+
+
+def test_int8_bucket_order_on_the_card(dev):
+    """An int8 BucketedSampler on the card over buckets A (4 x 4 tokens)
+    and B (6 x 6, dynntk) in the order A, B, A: the two A runs equal a
+    sampler of A alone bit for bit, and each bucket keeps its own
+    scales."""
+    from fitv2_tpu_torch.kernels.quant import int8_layers
+    from fitv2_tpu_torch.sample import BucketedSampler, SamplingConfig
+    cfg = SamplingConfig(num_sampling_steps=3, num_classes=10,
+                         per_device_batch=2, dtype=torch.float32)
+    labels = torch.tensor([3, 8])
+
+    def run(buckets, hw):
+        return buckets.sample(labels, *hw, generator=torch.Generator(
+        ).manual_seed(5)).cpu()
+    a, b = (64, 64), (96, 96)
+    model = _small_fit(gemm_precision='int8').to(dev)
+    buckets = BucketedSampler(model, cfg, ori_max_pe_len=4)
+    first = run(buckets, a)
+    scales_a = [m.act_absmax for m in int8_layers(model).values()]
+    other = run(buckets, b)
+    scales_b = [m.act_absmax for m in int8_layers(model).values()]
+    again = run(buckets, a)
+    alone = run(BucketedSampler(_small_fit(gemm_precision='int8').to(dev),
+                                cfg, ori_max_pe_len=4), a)
+    assert torch.equal(first, again) and torch.equal(first, alone)
+    assert any(not torch.equal(x, y) for x, y in zip(scales_a, scales_b))
+    assert torch.isfinite(other).all() and other.shape[-2:] == (12, 12)
+
+
+@pytest.mark.parametrize('dtype', DTYPES, ids=['fp32', 'bf16'])
+def test_gan_functions_at_the_gan_shapes(dev, dtype):
+    """cli/train_cifar_gan's student (D 384, 6 heads of 64, N 256, every
+    token valid; batch 8): K1, K2 and K4 inside their autograd Functions
+    against autograd of the plain versions."""
+    g = _gen(dev, 50)
+    b, n, d, h, dh = 8, 256, 384, 6, 64
+    x = (torch.randn(b, n, d, device=dev, generator=g) * 2 + 3).to(dtype)
+    mod = (0.5 * torch.randn(b, 6 * d, device=dev, generator=g)).to(dtype)
+    qkv = torch.randn(b, n, 3, h, dh, device=dev, generator=g).to(dtype)
+    ang = torch.rand(b, n, dh, device=dev, generator=g) * 6.3
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    q, k, v = qkv.unbind(2)
+    qkv_n = torch.stack([*K.qk_norm_rope_reference(q, k, cos, sin), v], 2)
+    cases = [
+        (K.fused_adaln_norm,
+         lambda a, m: K.adaln_norm(a, *m.chunk(6, dim=-1)[:2]),
+         lambda a, m: K.adaln_norm_reference(a, *m.chunk(6, dim=-1)[:2]),
+         [x, mod]),
+        (K.fused_qk_rope, lambda a: K.qk_norm_rope(*a.unbind(2)[:2], cos, sin),
+         lambda a: K.qk_norm_rope_reference(*a.unbind(2)[:2], cos, sin),
+         [qkv]),
+        (K.flash_masked_attention,
+         lambda a: K.masked_attention(*a.unbind(2), None,
+                                      bounded_logits=True),
+         lambda a: K.attention_bounded_reference(*a.unbind(2)), [qkv_n])]
+    for i, (wrapper, function, plain, arrays) in enumerate(cases):
+        before = wrapper.launches
+        cots = _cots(dev, plain(*arrays), 51 + i)
+        ours = _grads(function, arrays, cots)
+        assert wrapper.launches == before + 1
+        _assert_grads_close(ours, _grads(plain, arrays, cots))
+
+
+def test_gan_step_cuda_matches_cpu(dev):
+    """One fp32 generator + discriminator step (a small FiTLwD student
+    with 2 heads of 64, a PatchGAN with BatchNorm, the adversarial terms
+    live) on the card against the CPU on the same weights, batch and draws:
+    the losses within 1e-5 relative; every generator master, moment and
+    EMA, and every discriminator parameter, running statistic and moment
+    within 1e-4 relative L2."""
+    from fitv2_tpu_torch.cli.train_cifar_gan import make_generator_loss
+    from fitv2_tpu_torch.losses import (
+        LPIPSWithDiscriminator2D, NLayerDiscriminator)
+    from fitv2_tpu_torch.train import (
+        OptimizerConfig, create_disc_state, create_train_state, disc_adam,
+        make_gan_steps)
+    from fitv2_tpu_torch.train.lwd_train_step import _segment_params
+    student = _lwd_model('lwd', hidden_size=128, num_heads=2,
+                         context_size=64, n_patch_h=8, n_patch_w=8,
+                         in_channels=3)
+    torch.manual_seed(3)
+    disc0 = NLayerDiscriminator(input_nc=3, ndf=8, n_layers=2)
+    g = torch.Generator().manual_seed(14)
+    batch = dict(image=torch.rand(4, 16, 16, 3, generator=g) * 2 - 1,
+                 label=torch.tensor([1, 4, 7, 9]))
+    draws = dict(x0=torch.randn(4, 64, 12, generator=g),
+                 r=torch.rand(4, generator=g),
+                 drop_ids=torch.tensor([1, 0, 0, 1]))
+    runs = {}
+    for device in ('cpu', dev):
+        model = copy.deepcopy(student).to(device).train()
+        disc = copy.deepcopy(disc0).to(device).train()
+        loss_fn = make_generator_loss(model, 4, device)
+        state = create_train_state(model, OptimizerConfig(
+            learning_rate=1e-3))
+        dstate = create_disc_state(disc, lambda p: disc_adam(p, 1e-3))
+        gen_step, disc_step = make_gan_steps(
+            loss_fn, model, LPIPSWithDiscriminator2D(disc_weight=0.1),
+            ema_decay=0.9, required=_segment_params(model))
+        bd = {k: v.to(device) for k, v in batch.items()}
+        dd = {k: v.to(device) for k, v in draws.items()}
+        before = [w.launches for w in K.KERNEL_WRAPPERS]
+        state, gm = gen_step(state, dstate, bd, None, dd, segment_idx=1)
+        with torch.no_grad():
+            _, fake = loss_fn(model, bd, None, dd, 1)
+        dstate, dm = disc_step(dstate, bd['image'], fake, state.step)
+        runs[str(device)] = (state, dstate, {**gm, **dm}, _launched(before))
+    (cpu, dcpu, mcpu, _), (gpu, dgpu, mgpu, launched) = runs['cpu'], \
+        runs[str(dev)]
+    assert launched[0] > 0 and launched[1] > 0 and launched[2] > 0
+    for key in ('loss', 'base_loss', 'g_loss', 'd_loss'):
+        assert abs(mgpu[key].item() - mcpu[key].item()) <= 1e-5 * abs(
+            mcpu[key].item()), key
+    pairs = []
+    for n, p in cpu.params.items():
+        pairs += [(gpu.params[n], p), (gpu.ema_params[n], cpu.ema_params[n])]
+        pairs += [(gpu.optimizer.state[gpu.params[n]][k],
+                   cpu.optimizer.state[p][k]) for k in ('mu', 'nu')]
+    dp = dict(dgpu.disc.named_parameters())
+    for n, p in dcpu.disc.named_parameters():
+        pairs += [(dp[n], p)] + [
+            (dgpu.optimizer.state[dp[n]][k], dcpu.optimizer.state[p][k])
+            for k in ('mu', 'nu')]
+    sd = dgpu.disc.state_dict()
+    pairs += [(sd[n], t) for n, t in dcpu.disc.state_dict().items()
+              if 'running' in n]
+    for o, w in pairs:
+        if w.abs().max() > 0:
+            rel = ((o.cpu() - w).norm() / w.norm()).item()
+            assert rel <= 1e-4, rel

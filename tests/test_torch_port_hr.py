@@ -322,8 +322,13 @@ def test_bucket_cache_keys_on_the_interpolation(small_models):
     first = pb.get(96, 96)
     assert pb.get(96, 96, 'yarn') is not first
     assert pb.get(96, 96) is first and pb.get(96, 96, 'dynntk') is first
-    with pytest.raises(NotImplementedError, match='int8'):
-        BucketedSampler(FiT(**dict(SMALL, gemm_precision='int8')))
+    # an int8 model's buckets too (each calibrates its own scales; the
+    # per-bucket parity is test_torch_port_int8_lwd.py)
+    ib = BucketedSampler(FiT(**dict(SMALL, gemm_precision='int8')),
+                         SamplingConfig(num_classes=10, num_sampling_steps=2,
+                                        per_device_batch=2),
+                         ori_max_pe_len=4)
+    assert ib.get(96, 96, 'yarn') is not ib.get(96, 96)
 
 
 # -- the configs and the CLI ---------------------------------------------------

@@ -389,8 +389,13 @@ def test_unpatchify_matches_jax():
 
 
 def test_unported_options_raise():
-    with pytest.raises(NotImplementedError, match='20b'):
-        FiTLwD(**SMALL, gemm_precision='int8')
+    # int8 serving is ported (its parity is test_torch_port_int8_lwd.py):
+    # every block's qkv, proj, fc1 and fc2 are Int8Linear
+    from fitv2_tpu_torch.kernels.quant import int8_layers
+    assert len(int8_layers(FiTLwD(**SMALL, gemm_precision='int8'))) == \
+        4 * SMALL['depth']
+    with pytest.raises(ValueError, match='gemm_precision'):
+        FiTLwD(**SMALL, gemm_precision='fp8')
     with pytest.raises(NotImplementedError, match='slice 9'):
         FiTLwD(**SMALL, sequence_mesh=object())
     with pytest.raises(ValueError, match='segments'):
