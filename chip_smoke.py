@@ -79,11 +79,11 @@ Phases (any failure raises and exits non-zero; nothing is caught):
                 cli/train.py's build_trainer on configs/fitv2_xl.yaml (batch
                 32, bf16 compute over fp32 masters, bf16 mu, fp32 EMA, the
                 native loader) on 512 synthetic shards padded to 256
-                tokens, its depth cut to 12: 30 steps with a checkpoint at
+                tokens, its depth cut to 6: 30 steps with a checkpoint at
                 20, then a new trainer resumed from 20 to 30, deterministic
                 algorithms on; every loss (the first near 2.0), ms a step
                 (synced every step), peak memory, exact launch counts a
-                step (K1 25, K2 12, K4 12, the rest 0) and the resumed
+                step (K1 13, K2 6, K4 6, the rest 0) and the resumed
                 run's parameters, EMA and moments bit-identical to the
                 uninterrupted run's; then the rate, ms a step and images/s,
                 at the config's depth 36, from a third run with
@@ -106,7 +106,7 @@ Phases (any failure raises and exits non-zero; nothing is caught):
                 with their range), then VAE, uint8, npz with exact
                 launch counts (a forward: K1 57, K2 28, K3 28; K4-K7 0);
                 (d) cli/train.py's build_trainer on the config with its
-                depth cut to 8 (batch 32, the ddpm objective) on phase
+                depth cut to 4 (batch 32, the ddpm objective) on phase
                 11's shards: 10 steps with a checkpoint at 6, a new
                 trainer resumed from 6, deterministic algorithms on;
                 finite losses, the first mse near 1 (an untrained FiT
@@ -230,6 +230,30 @@ Phases (any failure raises and exits non-zero; nothing is caught):
                 statistics, the adversarial terms gated, exact launches
                 (a step: K1 14, K2 6, K4 6), ms a step, images/s, peak
                 memory.
+ 17. captures, data parallel - (a) phase 4's XL/2 weights (depth 36,
+                fp32) in FiT(save_attention=True), batch 1, one forward:
+                every block's (1, 16, 256, 256) map on the card against
+                the CPU's (1e-5), exact launches (K1 73, K2 36, K4 36),
+                the forward's ms with and without the capture; (b)
+                add_rel_pe_to_v at XL width, depth 4, fp32, batch 2 on
+                the padded bucket: card vs CPU (1e-5 relative L2), K2
+                never launched; (c) bf16 XL/2 256x256, batch 8, 50 steps
+                with build_sampler(return_trajectory=True): traj[-1]
+                decodes to the latents bit for bit, which equal the
+                sampler's without the trajectory; exact launches; (d)
+                cli/train.py's path under torchrun, 2 processes on the
+                one card over gloo (`--dp-child train DIR`:
+                init_distributed, build_trainer on configs/fitv2_xl.yaml
+                cut to depth 4, fp32, global batch 32 on phase 11's
+                shards, 3 steps, each rank seeded apart), then the same
+                run in this process: the first step's reduced gradient
+                within 1e-5 relative L2 of one process's, the ranks'
+                parameters bit-identical, exact launches a rank, the ms a
+                step of each; (e) cli/sample --data-parallel under
+                torchrun, 2 processes, XL/2 depth 4 from a seeded
+                reference-layout checkpoint, 16 images, 10 steps: each
+                rank's batches equal this process's sampler on that
+                rank's draws, bit for bit.
 The deterministic trainer runs of 11 (c), 12 (d) and 14 (c) run in child
 processes of this script (`--child NAME DIR`) with
 CUBLAS_WORKSPACE_CONFIG=:4096:8, which deterministic algorithms require
@@ -321,8 +345,8 @@ EVAL_IMAGES, EVAL_BATCH = 512, 64
 # loss is E|x1 - x0|^2 = 2 per valid element, within sampling noise
 TRAIN_BATCH = 32
 TRAIN_STEPS, TRAIN_RESUME = 30, 20
-TRAIN_RESUME_DEPTH = 12  # the deterministic resume runs' depth (the rate's
-                         # run keeps the config's 36)
+TRAIN_RESUME_DEPTH = 6  # the deterministic resume runs' depth (the rate's
+                        # run keeps the config's 36)
 TRAIN_TIMED = 8  # the rate's window: steps TRAIN_TIMED + 1 to 2 TRAIN_TIMED
 TRAIN_SHARDS = 512
 TRAIN_PARITY_DEPTH = 4
@@ -339,7 +363,7 @@ TOL_GRAD_BF16 = 3e-2  # a Function's bf16 gradients vs autograd of the plain
 V1_CONFIG = 'configs/fit_xl.yaml'
 V1_PARITY_INDEX = STEPS // 2
 V1_TRAIN_STEPS, V1_TRAIN_RESUME = 10, 6
-V1_TRAIN_DEPTH = 8  # the ddpm trainer's depth in the smoke (the config: 28)
+V1_TRAIN_DEPTH = 4  # the ddpm trainer's depth in the smoke (the config: 28)
 V1_FIRST_MSE = (0.9, 1.1)
 V1_RATE_CALLS = 3  # timed 250-step denoise calls a mode (the host's spread)
 # phase 13 (the LwD family): FiTLwD-XL (K 12 segments of 3 blocks) and
@@ -936,14 +960,14 @@ def phase_kernels():
     return results
 
 
-def _xl_model_fp32(depth=XL['depth']):
-    """XL/2 on the CPU in fp32, seeded init, zero-init leaves perturbed (an
-    untrained FiT outputs velocity exactly 0 and would make parity
-    vacuous)."""
+def _xl_model_fp32(depth=XL['depth'], **options):
+    """XL/2 on the CPU in fp32 (built with `options`), seeded init,
+    zero-init leaves perturbed (an untrained FiT outputs velocity exactly 0
+    and would make parity vacuous)."""
     import torch
     from fitv2_tpu_torch.models import FiT
     torch.manual_seed(SEED)
-    model = FiT(**dict(XL, depth=depth))
+    model = FiT(**dict(XL, depth=depth, **options))
     gen = torch.Generator().manual_seed(SEED + 1)
     with torch.no_grad():
         for name, p in model.named_parameters():
@@ -3849,6 +3873,442 @@ def phase_gan(card, out_dir):
     return counts, ms, peak
 
 
+# phase 17 (the captures, data parallel): the capture's and rel-PE's card
+# vs CPU bounds (fp32); rel-PE's depth; the trajectory's Euler steps; the
+# data-parallel runs' ranks (torchrun processes sharing the one card over
+# gloo), the trainer's depth, global batch and steps, and the gradient
+# bound against one process; the sampling CLI's depth, images, steps and
+# per-process batch
+TOL_CAPTURE = 1e-5
+REL_PE_DEPTH = 4
+TRAJ_STEPS = 50
+DP_WORLD = 2
+DP_DEPTH, DP_BATCH, DP_STEPS = 4, 32, 3
+TOL_DP_GRAD = 1e-5
+DP_SAMPLES, DP_SAMPLE_STEPS, DP_SAMPLE_BATCH = 16, 10, 4
+
+
+def _xl_capture_pair(model_cpu):
+    """model_cpu's weights in FiT(save_attention=True) on the CPU (the same
+    tensors, built on the meta device: no init) and a copy on the card."""
+    import torch
+    from fitv2_tpu_torch.models import FiT
+    with torch.device('meta'):
+        cap = FiT(**XL, save_attention=True)
+    cap.load_state_dict(model_cpu.state_dict(), assign=True)
+    return cap.eval(), copy.deepcopy(cap).to('cuda')
+
+
+def _cuda_ms(fn, reps=3, warm=True):
+    """The median host time of `reps` calls of fn, each from a sync to a
+    sync, after one call unless `warm` is False."""
+    import torch
+    if warm:
+        fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def phase_capture(model_cpu, card):
+    """Phase 17 (a): XL/2 (depth 36) fp32 with save_attention, batch 1, one
+    forward on the full 16 x 16 grid: every block's map, card vs CPU;
+    exact launches; the forward's time with and without the capture."""
+    import numpy as np
+    import torch
+    from fitv2_tpu_torch.eval.attention_viz import run_with_attention
+    from fitv2_tpu_torch.models import FiT
+    from fitv2_tpu_torch.models.grid_utils import make_grid_mask_size
+    cap_cpu, cap_gpu = _xl_capture_pair(model_cpu)
+    gen = torch.Generator().manual_seed(SEED + 70)
+    x = torch.randn(1, N, 16, generator=gen)
+    t, y = torch.tensor([0.6]), torch.tensor([207])
+    grid, _, size = make_grid_mask_size(1, 16, 16, N)
+    args_cpu = (x, t, y, grid, None, size)
+    args_gpu = tuple(None if a is None else a.cuda() for a in args_cpu)
+    _reset_counts()
+    out_gpu, maps_gpu = run_with_attention(cap_gpu, *args_gpu)
+    torch.cuda.synchronize()
+    counts = _lwd_read_counts()
+    want = _lwd_counts(1, dict(
+        fused_adaln_norm=2 * XL['depth'] + 1, fused_qk_rope=XL['depth'],
+        flash_masked_attention=XL['depth'],
+        flash_masked_attention_bounded=XL['depth']))
+    t0 = time.perf_counter()
+    out_cpu, maps_cpu = run_with_attention(cap_cpu, *args_cpu)
+    t_cpu = time.perf_counter() - t0
+    err = max(float(np.abs(a - b).max()) for a, b in zip(maps_gpu, maps_cpu))
+    rel = ((out_gpu.cpu() - out_cpu).norm() / out_cpu.norm()).item()
+    rows = max(float(np.abs(m.sum(-1) - 1).max()) for m in maps_gpu)
+    shapes = {m.shape for m in maps_gpu}
+    with torch.device('meta'):
+        plain = FiT(**XL)
+    plain.load_state_dict(cap_gpu.state_dict(), assign=True)
+    plain.eval()
+    with torch.no_grad():
+        ms_plain = _cuda_ms(lambda: plain(*args_gpu))
+    ms_cap = _cuda_ms(lambda: run_with_attention(cap_gpu, *args_gpu))
+    ok = (len(maps_gpu) == XL['depth'] and shapes == {(1, H, N, N)}
+          and err <= TOL_CAPTURE and rel <= TOL_SLICE_REL_L2
+          and counts == want)
+    say(f'[capture] XL/2 depth {XL["depth"]} fp32 save_attention, batch 1, '
+        f'one forward (16 x 16 tokens): {len(maps_gpu)} maps {shapes}, rows '
+        f'sum to 1 within {rows:.1e}; card vs CPU: maps max |diff| '
+        f'{err:.3e} <= {TOL_CAPTURE}, output relative L2 {rel:.3e}: '
+        f'{"ok" if ok else "FAIL"}; launches {counts} == expected (K1 '
+        f'{2 * XL["depth"] + 1}, K2 {XL["depth"]}, K4 {XL["depth"]}); the '
+        f'forward {ms_cap:.2f} ms with the capture (maps copied to the '
+        f'host), {ms_plain:.2f} ms without (CPU {t_cpu:.1f} s) [{card}]')
+    if not ok:
+        raise AssertionError(f'capture: maps {err}, output {rel}, counts '
+                             f'{counts}')
+    del cap_gpu, plain
+    torch.cuda.empty_cache()
+    return counts, err
+
+
+def phase_rel_pe_v(card):
+    """Phase 17 (b): add_rel_pe_to_v at XL width, depth REL_PE_DEPTH, fp32,
+    batch 2 on the padded 10 x 20 bucket, one forward card vs CPU; K2 never
+    (q/k take the plain LayerNorm and the interleaved RoPE, v too)."""
+    import torch
+    from fitv2_tpu_torch.models.grid_utils import make_grid_mask_size
+    model = _xl_model_fp32(REL_PE_DEPTH, add_rel_pe_to_v=True)
+    if model.rope_config.layout != 'interleaved':
+        raise AssertionError('rel-PE on v: the tables must be interleaved')
+    gen = torch.Generator().manual_seed(SEED + 71)
+    grid, mask, size = make_grid_mask_size(2, 10, 20, N)
+    args = (torch.randn(2, N, 16, generator=gen), torch.tensor([0.3, 0.8]),
+            torch.tensor([207, 1000]), grid, mask, size)
+    gpu = copy.deepcopy(model).to('cuda')
+    args_gpu = tuple(a.cuda() for a in args)
+    with torch.no_grad():
+        ref = model(*args)
+        _reset_counts()
+        out = gpu(*args_gpu)
+        torch.cuda.synchronize()
+        counts = _lwd_read_counts()
+        ms = _cuda_ms(lambda: gpu(*args_gpu))
+    want = _lwd_counts(1, dict(
+        fused_adaln_norm=2 * REL_PE_DEPTH + 1,
+        flash_masked_attention=REL_PE_DEPTH,
+        flash_masked_attention_bounded=REL_PE_DEPTH))
+    rel = ((out.cpu() - ref).norm() / ref.norm()).item()
+    ok = rel <= TOL_CAPTURE and counts == want and ref.norm() > 0
+    say(f'[rel-pe v] XL width depth {REL_PE_DEPTH} fp32 add_rel_pe_to_v, '
+        f'batch 2, 200 of 256 tokens valid, one forward card vs CPU: '
+        f'relative L2 {rel:.3e} <= {TOL_CAPTURE}: {"ok" if ok else "FAIL"}; '
+        f'launches {counts} == expected (K2 0: plain q/k LayerNorm and '
+        f'interleaved RoPE on q, k and v); {ms:.2f} ms [{card}]')
+    if not ok:
+        raise AssertionError(f'rel-pe v: {rel}, counts {counts}')
+    return counts, rel
+
+
+def phase_trajectory(model_cpu, card):
+    """Phase 17 (c): bf16 XL/2 256 x 256, batch 8, TRAJ_STEPS Euler steps
+    with return_trajectory: every step's state kept, the last one the
+    latents decoded bit for bit, the same latents as the sampler without
+    the trajectory; exact launches; both calls' times."""
+    import torch
+    from fitv2_tpu_torch.sample import SamplingConfig, build_sampler
+    model = copy.deepcopy(model_cpu).to('cuda', torch.bfloat16)
+    scfg = SamplingConfig(num_sampling_steps=TRAJ_STEPS, cfg_scale=CFG_SCALE,
+                          per_device_batch=BATCH, dtype=torch.bfloat16)
+    labels = torch.arange(BATCH) * 111 % 1000
+    z = torch.randn(BATCH, N, 16, generator=torch.Generator().manual_seed(
+        SEED + 72))
+    plain = build_sampler(model, scfg)
+    traced = build_sampler(model, scfg, return_trajectory=True)
+    out_plain = plain(labels, z=z)  # also the warm-up
+    _reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out, traj = traced(labels, z=z)
+    torch.cuda.synchronize()
+    ms_traj = (time.perf_counter() - t0) * 1e3
+    counts = _lwd_read_counts()
+    ms_plain = _cuda_ms(lambda: plain(labels, z=z), reps=1, warm=False)
+    want = _lwd_counts(TRAJ_STEPS, dict(
+        fused_adaln_norm=2 * XL['depth'] + 1, fused_qk_rope=XL['depth'],
+        flash_masked_attention=XL['depth'],
+        flash_masked_attention_bounded=XL['depth']))
+    last = model.unpatchify(traj[-1][:, :N], (32, 32), channel_last=True)
+    last = last[..., :model.in_channels].permute(0, 3, 1, 2)
+    same = torch.equal(last, out) and torch.equal(out, out_plain)
+    ok = (same and counts == want and traj.dtype == torch.float32
+          and tuple(traj.shape) == (TRAJ_STEPS, BATCH, N, 16)
+          and bool(torch.isfinite(traj).all()))
+    say(f'[trajectory] XL/2 bf16 256x256 batch {BATCH}, {TRAJ_STEPS} steps, '
+        f'CFG {CFG_SCALE}, return_trajectory: traj {tuple(traj.shape)} '
+        f'{traj.dtype}, finite; traj[-1] decodes to the latents bit for bit '
+        f'and they equal the sampler without the trajectory: {same}: '
+        f'{"ok" if ok else "FAIL"}; launches {counts} == expected; '
+        f'{ms_traj:.1f} ms with the trajectory, {ms_plain:.1f} ms without '
+        f'[{card}]')
+    if not ok:
+        raise AssertionError(f'trajectory: same {same}, counts {counts}')
+    del model, traj
+    torch.cuda.empty_cache()
+    return counts
+
+
+def _torchrun(argv, env=None, timeout=600):
+    """`python -m torch.distributed.run` with DP_WORLD processes on this
+    host (static rendezvous on a free localhost port) running argv; its
+    output is echoed, a failure raises."""
+    import socket
+    with socket.socket() as s:
+        s.bind(('127.0.0.1', 0))
+        port = s.getsockname()[1]
+    cmd = [sys.executable, '-m', 'torch.distributed.run', '--nnodes', '1',
+           '--nproc_per_node', str(DP_WORLD), '--master_addr', '127.0.0.1',
+           '--master_port', str(port), *argv]
+    # gloo binds the loopback interface: the machine has no other network
+    env = dict(os.environ, GLOO_SOCKET_IFNAME='lo', **(env or {}))
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, env=env, stdout=subprocess.PIPE,
+                          stderr=subprocess.STDOUT, text=True,
+                          timeout=timeout)
+    secs = time.perf_counter() - t0
+    for line in proc.stdout.splitlines()[-40:]:
+        say(f'  | {line}')
+    if proc.returncode != 0:
+        raise AssertionError(f'torchrun {argv}: exited {proc.returncode}')
+    return secs
+
+
+def _dp_train_cfg(out_dir, world):
+    """The YAMLs of phase 17 (d): configs/fitv2_xl.yaml with a merged one
+    that cuts the depth, sets the per-process batch of a DP_BATCH global
+    batch on `world` processes, phase 11's shards and no warm-up."""
+    import yaml
+    path = os.path.join(out_dir, f'dp_train_{world}.yaml')
+    with open(path, 'w') as f:
+        yaml.safe_dump({
+            'diffusion': {'network_config': {'params': {'depth': DP_DEPTH}}},
+            'data': {'params': {'train': {
+                'data_path': os.path.join(out_dir, 'latents'),
+                'loader': {'batch_size': DP_BATCH // world,
+                           'num_workers': 4}}}},
+            'accelerate': {'lr_warmup_steps': 0,
+                           'checkpointing_steps': 1000}}, f)
+    return ['configs/fitv2_xl.yaml', path]
+
+
+def dp_train_run(out_dir, world):
+    """cli/train.py's path on this process (one of `world` under torchrun,
+    or alone): init_distributed, build_trainer on _dp_train_cfg, in fp32
+    (mixed_precision 'no'), each rank's weights seeded by its rank (a fresh
+    run starts from rank 0's); DP_STEPS steps. Writes, per rank, the ms a
+    step, the launches and whether the ranks' parameters are bit-identical
+    after the run, and rank 0 the first step's gradient (reduced and
+    clipped, as the optimizer took it)."""
+    import torch
+    from fitv2_tpu_torch.cli import train as cli
+    from fitv2_tpu_torch.parallel import init_distributed
+    from fitv2_tpu_torch.train.trainer import Trainer
+    from fitv2_tpu_torch.utils import load_config
+    from fitv2_tpu_torch.utils.misc import check_cross_process_consistency
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    run_dir = os.path.join(out_dir, f'dp_run_{world}')
+    args = cli.parse_args(['--cfgdir', *_dp_train_cfg(out_dir, world),
+                           '--output-dir', run_dir, '--max-steps',
+                           str(DP_STEPS), '--no-resume', '--device', 'cuda'])
+    rank, got_world = init_distributed(args.device)
+    if got_world != world:
+        raise AssertionError(f'dp train: {got_world} processes, not {world}')
+    torch.manual_seed(SEED + rank)
+    built = cli.build_trainer(load_config(args.cfgdir), args)
+    trainer = Trainer(built.master_model, dataclasses.replace(
+        built.cfg, mixed_precision='no'), transport=built.transport)
+    del built
+    grads, times = [], []
+    init_state, train_step = trainer.init_state, trainer._train_step
+
+    def capturing_init():
+        state = init_state()
+        step = state.optimizer.step
+
+        def capture_then_step():
+            if not grads:
+                grads.append(torch.cat([p.grad.reshape(-1) for p in
+                                        state.params.values()]).cpu())
+            step()
+        state.optimizer.step = capture_then_step
+        return state
+
+    def timed_step(*a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = train_step(*a, **k)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    trainer.init_state, trainer._train_step = capturing_init, timed_step
+    _reset_counts()
+    state = trainer.train(max_steps=DP_STEPS, resume=False)
+    torch.cuda.synchronize()
+    counts = _lwd_read_counts()
+    params = torch.cat([p.reshape(-1) for p in state.params.values()])
+    same = check_cross_process_consistency(params, 'parameters')
+    if rank == 0:
+        torch.save(grads[0], os.path.join(out_dir, f'dp_grad_{world}.pt'))
+    with open(os.path.join(out_dir, f'dp_train_{world}_{rank}.json'),
+              'w') as f:
+        json.dump(dict(ms=times, counts=counts, same=same,
+                       batch=trainer.cfg.global_batch_size), f)
+
+
+def phase_dp_train(card, out_dir):
+    """Phase 17 (d): cli/train.py under torchrun, DP_WORLD processes on the
+    one card over gloo (dp_train_run in each), then the same run in this
+    one process: the reduced gradient against one process's, the ranks'
+    parameters bit-identical, the ms a step of each."""
+    import torch
+    torch.cuda.empty_cache()
+    secs = _torchrun([os.path.abspath(__file__), '--dp-child', 'train',
+                      out_dir])
+    dp_train_run(out_dir, 1)
+    ranks = []
+    for r in range(DP_WORLD):
+        with open(os.path.join(out_dir, f'dp_train_{DP_WORLD}_{r}.json')) as f:
+            ranks.append(json.load(f))
+    with open(os.path.join(out_dir, 'dp_train_1_0.json')) as f:
+        one = json.load(f)
+    g2, g1 = (torch.load(os.path.join(out_dir, f'dp_grad_{w}.pt'))
+              for w in (DP_WORLD, 1))
+    rel = ((g2 - g1).norm() / g1.norm()).item()
+    want = _lwd_counts(DP_STEPS, dict(
+        fused_adaln_norm=2 * DP_DEPTH + 1, fused_qk_rope=DP_DEPTH,
+        flash_masked_attention=DP_DEPTH,
+        flash_masked_attention_bounded=DP_DEPTH))
+    ms2 = statistics.median(ranks[0]['ms'][1:])
+    ms1 = statistics.median(one['ms'][1:])
+    ok = (rel <= TOL_DP_GRAD and all(r['same'] for r in ranks)
+          and all(r['counts'] == want for r in ranks)
+          and one['counts'] == want and ranks[0]['batch'] == DP_BATCH
+          and one['batch'] == DP_BATCH)
+    say(f'[dp train] cli/train.py under torchrun, {DP_WORLD} processes on '
+        f'the one card (gloo), XL width depth {DP_DEPTH} fp32, global batch '
+        f'{DP_BATCH} ({DP_BATCH // DP_WORLD} a process), {DP_STEPS} steps, '
+        f'each rank seeded apart (the run starts from rank 0\'s weights): '
+        f'the first step\'s reduced gradient vs one process on the whole '
+        f'batch: relative L2 {rel:.3e} <= {TOL_DP_GRAD}; the ranks\' '
+        f'parameters bit-identical after the run: '
+        f'{[r["same"] for r in ranks]}; launches a rank {ranks[0]["counts"]}'
+        f' == expected: {"ok" if ok else "FAIL"}; ms a step (steps 2-'
+        f'{DP_STEPS}, from a sync to a sync, the gradient all-reduce '
+        f'through the host included): {DP_WORLD} processes '
+        f'{ms2:.1f} ms ({ranks[0]["ms"]}), one process {ms1:.1f} ms '
+        f'({one["ms"]}); the torchrun call {secs:.1f} s [{card}]')
+    if not ok:
+        raise AssertionError(f'dp train: gradient {rel}, ranks {ranks}')
+    return ranks[0]['counts'], dict(grad_rel_l2=rel, ms_dp=ms2, ms_one=ms1)
+
+
+def _reference_checkpoint(path, depth, seed):
+    """A seeded random XL/2 (depth `depth`) in the reference layout (the
+    names cli/sample's --ckpt reads; SwiGLU's fc1 as fc1_g and fc1_x), as
+    a torch .pt; every leaf N(0, 0.02), so the velocity is not 0."""
+    import torch
+    from fitv2_tpu_torch.models import FiT
+    with torch.device('meta'):
+        model = FiT(**dict(XL, depth=depth))
+    renames = ((r'^t_embedder\.mlp_(\d)', r't_embedder.mlp.\1'),
+               (r'^y_embedder\.embedding_table$',
+                'y_embedder.embedding_table.weight'),
+               (r'adaLN_modulation\.fc1\.', 'adaLN_modulation.1.'),
+               (r'^(blocks\.\d+\.)adaLN_modulation\.fc_out\.',
+                r'\1adaLN_modulation.2.'),
+               (r'adaLN_modulation\.fc_out\.', 'adaLN_modulation.1.'))
+    gen = torch.Generator().manual_seed(seed)
+    sd = {}
+    for name, p in model.named_parameters():
+        for pat, rep in renames:
+            name = re.sub(pat, rep, name)
+        value = 0.02 * torch.randn(p.shape, generator=gen)
+        if '.mlp.fc1.' in name:
+            g, v = value.chunk(2, dim=0)
+            sd[name.replace('fc1', 'fc1_g')] = g.clone()
+            sd[name.replace('fc1', 'fc1_x')] = v.clone()
+        else:
+            sd[name] = value
+    torch.save(sd, path)
+
+
+def phase_dp_sample(card, out_dir):
+    """Phase 17 (e): cli/sample --data-parallel under torchrun, DP_WORLD
+    processes on the one card, XL/2 at depth 4 from a reference-layout
+    checkpoint, DP_SAMPLES images, DP_SAMPLE_STEPS steps: rank r's images
+    equal this process's sampler called with rank r's draws."""
+    import numpy as np
+    import torch
+    import yaml
+    from fitv2_tpu_torch.ckpt import load_fit_checkpoint
+    from fitv2_tpu_torch.sample import SamplingConfig, build_sampler
+    from fitv2_tpu_torch.sample.pipeline import _batch_inputs
+    from fitv2_tpu_torch.utils import config_to_model
+    depth = DP_DEPTH
+    net = {'target': 'fitv2_tpu.models.fit.FiT',
+           'params': dict(XL, depth=depth)}
+    cfg_path = os.path.join(out_dir, 'dp_sample.yaml')
+    with open(cfg_path, 'w') as f:
+        yaml.safe_dump({'diffusion': {'network_config': net}}, f)
+    ckpt = os.path.join(out_dir, 'dp_sample.pt')
+    _reference_checkpoint(ckpt, depth, SEED + 73)
+    npz = os.path.join(out_dir, 'dp_sample.npz')
+    secs = _torchrun(['-m', 'fitv2_tpu_torch.cli.sample', '--cfgdir',
+                      cfg_path, '--ckpt', ckpt, '--num-fid-samples',
+                      str(DP_SAMPLES), '--per-device-batch',
+                      str(DP_SAMPLE_BATCH), '--num-sampling-steps',
+                      str(DP_SAMPLE_STEPS), '--global-seed', str(SEED),
+                      '--data-parallel', '--device', 'cuda', '--out', npz])
+    arr = np.load(npz)['arr_0']
+    model = config_to_model(net)
+    load_fit_checkpoint(ckpt, model)
+    fn = build_sampler(model.to('cuda').eval(), SamplingConfig(
+        num_sampling_steps=DP_SAMPLE_STEPS,
+        per_device_batch=DP_SAMPLE_BATCH))
+    per = DP_SAMPLES // DP_WORLD
+    same = []
+    for r in range(DP_WORLD):
+        for b in range(per // DP_SAMPLE_BATCH):
+            labels, gen = _batch_inputs(SEED, b, DP_SAMPLE_BATCH, 1000, r)
+            want = fn(labels, generator=gen).cpu().numpy()
+            lo = r * per + b * DP_SAMPLE_BATCH
+            same.append(bool(np.array_equal(arr[lo:lo + DP_SAMPLE_BATCH],
+                                            want)))
+    moved = float(np.abs(arr).mean())
+    ok = (arr.shape == (DP_SAMPLES, 4, 32, 32) and all(same)
+          and np.isfinite(arr).all())
+    say(f'[dp sample] cli/sample --data-parallel under torchrun, {DP_WORLD} '
+        f'processes on the one card, XL/2 depth {depth} (a reference-layout '
+        f'checkpoint), {DP_SAMPLES} images, {DP_SAMPLE_STEPS} steps, batch '
+        f'{DP_SAMPLE_BATCH}: npz {arr.shape} (mean |latent| {moved:.3f}); '
+        f'each rank\'s batch equals this process\'s sampler on that rank\'s '
+        f'draws, bit for bit: {same}: {"ok" if ok else "FAIL"}; the '
+        f'torchrun call {secs:.1f} s [{card}]')
+    if not ok:
+        raise AssertionError(f'dp sample: {arr.shape}, {same}')
+    del model, fn
+    torch.cuda.empty_cache()
+
+
+def dp_child_main(name, out_dir):
+    """A process of phase 17's torchrun (`--dp-child NAME DIR`)."""
+    if name != 'train':
+        raise SystemExit(f'chip_smoke --dp-child: unknown {name!r}')
+    dp_train_run(out_dir, DP_WORLD)
+
+
 DETERMINISTIC_ENV = {'CUBLAS_WORKSPACE_CONFIG': ':4096:8'}
 CHILD_PHASES = {'train': phase_train_deterministic,
                 'fitv1_train': phase_fitv1_train,
@@ -3916,7 +4376,6 @@ def main():
         with _clock('phase 9 (hr)'):
             hr_cases, hr_counts = phase_hr(model_cpu, model_gpu, vae, card,
                                            out_dir)
-        del model_cpu
         with _clock('phase 10 (eval)'):
             phase_eval(card, out_dir)
         del model_gpu, vae
@@ -3980,6 +4439,19 @@ def main():
                 gan_cases = phase_gan_kernels()
                 phase_gan_parity()
                 gan_counts, _, _ = phase_gan(card, out_dir)
+        # phase 17: the analysis captures on phase 4's weights, data
+        # parallel training and sampling under torchrun
+        torch.cuda.empty_cache()
+        with _clock('phase 17 (captures, data parallel)'):
+            with _clock('phase 17 (a)-(c) captures'):
+                capture_counts, _ = phase_capture(model_cpu, card)
+                rel_pe_counts, _ = phase_rel_pe_v(card)
+                traj_counts = phase_trajectory(model_cpu, card)
+            del model_cpu
+            with _clock('phase 17 (d) data-parallel training'):
+                dp_train_counts, _ = phase_dp_train(card, out_dir)
+            with _clock('phase 17 (e) data-parallel sampling'):
+                phase_dp_sample(card, out_dir)
     for name, cases in lwd_cases.items():
         results[name]['cases'] += cases
     for name, cases in hr_cases.items():
@@ -4047,7 +4519,9 @@ def main():
                **lwd_train_counts,
                **{f'sac_{p}': c for p, c in sac_counts.items()},
                **hr_train_counts, 'came_train': came_counts,
-               'int8_lwd': int8_lwd_counts, 'gan_train': gan_counts}
+               'int8_lwd': int8_lwd_counts, 'gan_train': gan_counts,
+               'capture': capture_counts, 'rel_pe_v': rel_pe_counts,
+               'trajectory': traj_counts, 'dp_train_rank0': dp_train_counts}
     # the attention wrapper launches K4 (bounded) or K3 (online softmax):
     # K3's share on each path that counted K4 apart
     results['attention']['k3_launches_by_path'] = {
@@ -4089,4 +4563,6 @@ def main():
 if __name__ == '__main__':
     if len(sys.argv) == 4 and sys.argv[1] == '--child':
         sys.exit(child_main(sys.argv[2], sys.argv[3]))
+    if len(sys.argv) == 4 and sys.argv[1] == '--dp-child':
+        sys.exit(dp_child_main(sys.argv[2], sys.argv[3]))
     sys.exit(main())

@@ -22,8 +22,13 @@ calibrated when the sampler is built), ``--guidance-low/--guidance-high``
 ``--interpolation`` samples a bucket beyond the training grid with that
 RoPE frequency mode; ``no`` (the default) samples with normal frequencies,
 online RoPE off, as the JAX CLI does, also for the HR configs.
-``--data-parallel`` (multi-device) is accepted by the parser and refused
-with an error that names its slice.
+
+``--data-parallel``: under ``torchrun --nproc_per_node N -m
+fitv2_tpu_torch.cli.sample --data-parallel ...`` each of the N processes
+samples on its card (gloo where they share one) ceil(num_fid_samples / N)
+images, its draws keyed by (seed, rank, batch); the images are gathered
+in rank order and process 0 writes the npz. With one process it is the
+path without the flag, as JAX's flag is with one device.
 """
 
 from __future__ import annotations
@@ -83,14 +88,6 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
-def _refuse_unported(args) -> None:
-    """Raise for flags whose mode belongs to a slice not ported yet."""
-    if args.data_parallel:
-        raise NotImplementedError(
-            '--data-parallel: multi-device (slice 9) is not ported to '
-            'fitv2_tpu_torch yet; use fitv2_tpu.cli.sample for it')
-
-
 _DIFFUSION_KEYS = ('noise_schedule', 'diffusion_steps', 'learn_sigma',
                    'sigma_small', 'predict_xstart', 'use_kl',
                    'rescale_learned_sigmas')
@@ -110,10 +107,13 @@ def _diffusion_config(diff_cfg: dict) -> dict:
 
 def main(argv=None):
     args = parse_args(argv)
-    _refuse_unported(args)
+    import numpy as np
     import torch
 
     from fitv2_tpu_torch.ckpt import load_fit_checkpoint
+    from fitv2_tpu_torch.parallel import (
+        init_distributed, process_allgather, process_count, process_index,
+        sync_global_devices)
     from fitv2_tpu_torch.sample import (
         SamplingConfig, build_sampler, generate_fid_samples, save_npz)
     from fitv2_tpu_torch.utils.config import config_to_model, load_config
@@ -121,6 +121,8 @@ def main(argv=None):
     device = torch.device(args.device)
     if device.type == 'cuda' and not torch.cuda.is_available():
         raise RuntimeError('--device cuda but no CUDA device is available')
+    if args.data_parallel:
+        init_distributed(args.device)  # sets each process's card
     cfg = load_config(args.cfgdir)
     overrides = ({'gemm_precision': args.gemm_precision}
                  if args.gemm_precision else {})
@@ -153,8 +155,12 @@ def main(argv=None):
     images = generate_fid_samples(
         fn, args.num_fid_samples, fn.batch_size, args.num_classes,
         seed=args.global_seed, progress=True, resume_dir=args.resume_dir)
-    save_npz(args.out, images, args.num_fid_samples)
-    print(f'Saved {args.out} [shape={images.shape}]')
+    if process_count() > 1:
+        sync_global_devices('samples')
+        images = np.concatenate(process_allgather(images), axis=0)
+    if process_index() == 0:
+        save_npz(args.out, images, args.num_fid_samples)
+        print(f'Saved {args.out} [shape={images.shape}]')
 
 
 if __name__ == '__main__':

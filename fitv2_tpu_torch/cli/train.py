@@ -1,4 +1,5 @@
-"""CLI: FiT training with the PyTorch port, on one device.
+"""CLI: FiT training with the PyTorch port, on one device or data parallel
+under torchrun.
 
 Usage:
     python -m fitv2_tpu_torch.cli.train --cfgdir configs/fitv2_xl.yaml \
@@ -13,6 +14,11 @@ schedule, checkpoints). A ``learn_sigma`` network (FiTv1,
 configs/fit_xl.yaml) trains the improved-diffusion ``ddpm`` objective,
 any other the flow objective. ``--came`` or a CAME optimizer target trains
 with CAME (train/came.py), as in JAX.
+
+Data parallel: ``torchrun --nproc_per_node N -m fitv2_tpu_torch.cli.train
+...`` runs N processes, one card each (gloo where they share a card); the
+YAML's batch is each process's, so the global batch is N times it, as
+JAX's per-host batch.
 """
 
 from __future__ import annotations
@@ -41,6 +47,7 @@ def build_trainer(cfg, args):
     """The ``Trainer`` that ``cfg`` (a loaded YAML dict) and ``args``
     describe."""
     from fitv2_tpu_torch.flow import create_transport
+    from fitv2_tpu_torch.parallel import process_count
     from fitv2_tpu_torch.train.trainer import Trainer, TrainerConfig
     from fitv2_tpu_torch.utils import config_to_model
 
@@ -62,7 +69,8 @@ def build_trainer(cfg, args):
         data_path=data.get('data_path', ''),
         target_len=int(data.get('target_len', 256)),
         random_mode=data.get('random', 'random'),
-        global_batch_size=int(loader_cfg.get('batch_size', 16)),  # one host
+        global_batch_size=(int(loader_cfg.get('batch_size', 16))
+                           * process_count()),  # the batch is per process
         num_workers=int(loader_cfg.get('num_workers', 8)),
         max_steps=args.max_steps or int(acc.get('max_train_steps',
                                                 2_000_000)),
@@ -94,7 +102,9 @@ def build_trainer(cfg, args):
 def main(argv=None):
     logging.basicConfig(level=logging.INFO)
     args = parse_args(argv)
+    from fitv2_tpu_torch.parallel import init_distributed
     from fitv2_tpu_torch.utils.config import load_config
+    init_distributed(args.device)
     trainer = build_trainer(load_config(args.cfgdir), args)
     trainer.train(max_steps=args.max_steps, resume=args.resume)
 

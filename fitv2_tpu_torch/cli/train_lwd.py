@@ -1,4 +1,5 @@
-"""CLI: LwD / BFM training with the PyTorch port, on one device.
+"""CLI: LwD / BFM training with the PyTorch port, on one device or data
+parallel under torchrun.
 
 Usage:
     python -m fitv2_tpu_torch.cli.train_lwd \
@@ -20,6 +21,11 @@ fp32 masters, moments and EMA). The batches come from the shards at the
 YAML's data path. The checkpoints are the port's
 (``checkpoint-{step}/train_state.pt``), whose ``ema_params``
 ``cli/sample_lwd`` samples.
+
+Data parallel: ``torchrun --nproc_per_node N -m fitv2_tpu_torch.cli.
+train_lwd ...`` runs N processes, one card each (gloo where they share a
+card); the YAML's batch is each process's, so the global batch is N
+times it, as JAX's per-host batch.
 """
 
 from __future__ import annotations
@@ -109,6 +115,7 @@ def build_trainer(cfg, args):
     describe."""
     import torch
 
+    from fitv2_tpu_torch.parallel import process_count
     from fitv2_tpu_torch.train.lwd_trainer import LwDTrainer, LwDTrainerConfig
     from fitv2_tpu_torch.utils.config import config_to_model
 
@@ -124,7 +131,8 @@ def build_trainer(cfg, args):
         data_path=data.get('data_path', ''),
         target_len=int(data.get('target_len', 256)),
         random_mode=data.get('random', 'random'),
-        global_batch_size=int(loader_cfg.get('batch_size', 16)),  # one host
+        global_batch_size=(int(loader_cfg.get('batch_size', 16))
+                           * process_count()),  # the batch is per process
         num_workers=int(loader_cfg.get('num_workers', 4)),
         max_steps=args.max_steps or int(acc.get('max_train_steps', 400_000)),
         learning_rate=float(acc.get('learning_rate', 1e-4)),
@@ -160,7 +168,9 @@ def build_trainer(cfg, args):
 def main(argv=None):
     logging.basicConfig(level=logging.INFO)
     args = parse_args(argv)
+    from fitv2_tpu_torch.parallel import init_distributed
     from fitv2_tpu_torch.utils.config import load_config
+    init_distributed(args.device)
     trainer = build_trainer(load_config(args.cfgdir), args)
     trainer.train(max_steps=args.max_steps, resume=args.resume)
 

@@ -105,12 +105,15 @@ class PrefetchLoader:
 
     ``backend``: 'native' (the C++ loader; a build failure raises) or
     'python'. ``batch_offset`` is the global index of the first batch
-    (the resume step), which keys the per-sample draws."""
+    (the resume step) and ``row_offset`` that of this process's first row
+    in each global batch: together they key the per-sample draws, so a
+    process's rows are those rows of the one-process batch."""
 
     def __init__(self, dataset: IN1kLatentDataset, index_stream: np.ndarray,
                  batch_size: int, num_workers: int = 8,
                  prefetch_batches: int = 4, seed: int = 0,
-                 backend: str = 'native', batch_offset: int = 0):
+                 backend: str = 'native', batch_offset: int = 0,
+                 row_offset: int = 0):
         if backend not in BACKENDS:
             raise ValueError(f'backend {backend!r}: one of {BACKENDS}')
         self.dataset = dataset
@@ -121,13 +124,15 @@ class PrefetchLoader:
         self.seed = seed
         self.backend = backend
         self.batch_offset = batch_offset
+        self.row_offset = row_offset
         if backend == 'native':
             from fitv2_tpu_torch.data import native_loader
             native_loader.load_library()  # build now: a failure raises here
 
     def _rngs(self, bi: int, count: int) -> List[np.random.Generator]:
         return [np.random.Generator(np.random.PCG64(
-            (self.seed, self.batch_offset + bi, j))) for j in range(count)]
+            (self.seed, self.batch_offset + bi, self.row_offset + j)))
+            for j in range(count)]
 
     def _batch(self, bi: int, idxs, pool) -> Dict[str, np.ndarray]:
         rngs = self._rngs(bi, len(idxs))
@@ -199,10 +204,11 @@ class INLatentLoader:
                                    max_steps, resume_step, seed)
         local = shard_indices(stream, global_batch_size, process_index,
                               process_count)
-        return PrefetchLoader(self.train_dataset, local,
-                              global_batch_size // process_count,
+        per = global_batch_size // process_count
+        return PrefetchLoader(self.train_dataset, local, per,
                               self.num_workers, seed=seed,
-                              backend=self.backend, batch_offset=resume_step)
+                              backend=self.backend, batch_offset=resume_step,
+                              row_offset=process_index * per)
 
 
 def make_synthetic_latent_shards(root_dir: str, n: int = 16,

@@ -54,13 +54,19 @@ def _full(x: Tensor, t) -> Tensor:
                       device=x.device)
 
 
-def euler_sample(model_fn: ModelFn, x: Tensor, sigmas) -> Tensor:
+def euler_sample(model_fn: ModelFn, x: Tensor, sigmas,
+                 return_trajectory: bool = False):
     """x_{i+1} = x_i + (sigma_{i+1} - sigma_i) * v(x_i, sigma_i); sigmas is
-    the (steps + 1,) ladder, typically ``euler_ladder(steps)``."""
+    the (steps + 1,) ladder, typically ``euler_ladder(steps)``. With
+    ``return_trajectory``, returns (x, traj): traj (steps, *x.shape) holds
+    each step's x_{i+1}, so traj[-1] is x."""
     sig = np.asarray(sigmas, np.float32)
+    traj = []
     for t_cur, t_next in zip(sig[:-1], sig[1:]):
         x = x + float(t_next - t_cur) * model_fn(x, _full(x, t_cur))
-    return x
+        if return_trajectory:
+            traj.append(x)
+    return (x, torch.stack(traj)) if return_trajectory else x
 
 
 def _safe_inv(dt: np.float32) -> np.float32:

@@ -87,6 +87,10 @@ class FiT(nn.Module):
     (``scan_blocks``, ``use_sit``) are accepted for config compatibility;
     ``scan_blocks`` is kept: it sets the layout of JAX's parameter tree
     (each block parameter stacked over depth, ``ckpt.jax_leaves``).
+    ``save_attention`` keeps each block's softmax probabilities
+    (eval/attention_viz.py); ``add_rel_pe_to_v`` rotates v too, and makes
+    ``rope_layout`` 'interleaved' whatever was asked, as JAX's model does
+    for its attention and its RoPE tables.
     """
 
     def __init__(self, context_size: int = 256, patch_size: int = 2,
@@ -118,6 +122,8 @@ class FiT(nn.Module):
                              "'bf16' or 'int8'")
         if rope_layout not in ('split', 'interleaved'):
             raise ValueError(f'rope_layout={rope_layout!r}')
+        if add_rel_pe_to_v:  # v's basis: the attention and tables rotate
+            rope_layout = 'interleaved'  # interleaved, as JAX's do
         self.context_size = context_size
         self.patch_size = patch_size
         self.in_channels = in_channels

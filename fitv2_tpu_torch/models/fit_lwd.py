@@ -121,9 +121,10 @@ class FiTLwD(nn.Module):
     block kwarg does: dynamic per-row activation scales until
     ``kernels.quant.calibrate_quant_scales(model, [args])`` runs
     ``model(*args)`` (``init_all``) and binds each site's scale, then the
-    serving GEMMs (K6, and K7 at the SwiGLU). ``sequence_mesh`` is not
-    ported and raises; ``use_checkpoint`` and ``use_sit`` do not change a
-    forward pass and are accepted for config compatibility.
+    serving GEMMs (K6, and K7 at the SwiGLU). ``add_rel_pe_to_v`` makes
+    ``rope_layout`` 'interleaved', as in JAX. ``sequence_mesh`` (slice
+    9b) is not ported and raises; ``use_checkpoint`` and ``use_sit`` do
+    not change a forward pass and are accepted for config compatibility.
     """
 
     def __init__(self, context_size: int = 256, patch_size: int = 2,
@@ -161,12 +162,15 @@ class FiTLwD(nn.Module):
             raise ValueError(f'gemm_precision={gemm_precision!r}')
         if sequence_mesh is not None:
             raise NotImplementedError(
-                'sequence_mesh: multi-device (slice 9) is not ported')
+                'sequence_mesh: sequence parallelism (slice 9b) is not '
+                'ported')
         if depth % number_of_perflow:
             raise ValueError(f'depth {depth} does not split into '
                              f'{number_of_perflow} segments')
         if rope_layout not in ('split', 'interleaved'):
             raise ValueError(f'rope_layout={rope_layout!r}')
+        if add_rel_pe_to_v:  # as FiT: the interleaved layout throughout
+            rope_layout = 'interleaved'
         self.context_size = context_size
         self.patch_size = patch_size
         self.in_channels = in_channels

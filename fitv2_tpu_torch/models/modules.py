@@ -233,6 +233,14 @@ class Attention(nn.Module):
     ``attn_impl='fused'`` runs q/k norm, RoPE and the attention as one
     kernel off the flat qkv projection where ``fused_attention.supports``
     the configuration (otherwise the unfused path, as in JAX).
+
+    ``save_attention`` keeps each forward's softmax probabilities (B, H, N,
+    N) float32 in ``attn_probs`` (eval/attention_viz.py reads them): the
+    fp32 logits of the normalised, rotated q and k, scaled by Dh**-0.5,
+    -inf on padded keys, then a plain softmax; padded query rows are kept.
+    The attention output still comes from the kernels. ``add_rel_pe_to_v``
+    rotates v as well as q and k, with plain q/k norms and the interleaved
+    layout (the split permutation does not preserve the value basis).
     """
 
     def __init__(self, dim: int, num_heads: int, qkv_bias: bool = True,
@@ -242,11 +250,6 @@ class Attention(nn.Module):
                  save_attention: bool = False, rope_layout: str = 'split',
                  quantized: bool = False):
         super().__init__()
-        if save_attention:
-            raise NotImplementedError(
-                'save_attention (attention-map capture) is not ported yet')
-        if add_rel_pe_to_v:
-            raise NotImplementedError('add_rel_pe_to_v is not ported yet')
         if attn_impl not in ('auto', 'fused'):
             raise ValueError(f'attn_impl={attn_impl!r}: the port picks the '
                              "attention path by device; use 'auto' or "
@@ -257,7 +260,10 @@ class Attention(nn.Module):
         self.k_norm_type = k_norm
         self.qk_norm_weight = qk_norm_weight
         self.use_rope = use_rope
-        self.rope_layout = rope_layout
+        self.add_rel_pe_to_v = add_rel_pe_to_v
+        self.save_attention = save_attention
+        self.attn_probs: Optional[Tensor] = None
+        self.rope_layout = 'interleaved' if add_rel_pe_to_v else rope_layout
         Linear = _linear(quantized)
         self.qkv = Linear(dim, 3 * dim, bias=qkv_bias)
 
@@ -271,8 +277,8 @@ class Attention(nn.Module):
             dim, num_heads, rope_layout, q_norm, k_norm, qk_norm_weight,
             add_rel_pe_to_v, save_attention)
         # fused q/k LN + split RoPE: the hot FiTv2 configuration
-        self.fuse_qk = (use_rope and rope_layout == 'split'
-                        and not qk_norm_weight
+        self.fuse_qk = (use_rope and self.rope_layout == 'split'
+                        and not add_rel_pe_to_v and not qk_norm_weight
                         and q_norm in (None, 'layernorm')
                         and k_norm in (None, 'layernorm'))
         # no-affine LN on both q and k bounds every row to L2 norm sqrt(Dh),
@@ -303,8 +309,17 @@ class Attention(nn.Module):
             if self.use_rope and freqs_cos is not None:
                 cos = freqs_cos[:, :, None, :].to(q.dtype)
                 sin = freqs_sin[:, :, None, :].to(q.dtype)
+                if self.add_rel_pe_to_v:
+                    v = apply_rope(v, cos, sin, self.rope_layout)
                 q = apply_rope(q, cos, sin, self.rope_layout)
                 k = apply_rope(k, cos, sin, self.rope_layout)
+        if self.save_attention:
+            logits = torch.einsum('bqhd,bkhd->bhqk', q.float(), k.float())
+            logits = logits * (Dh ** -0.5)
+            if mask is not None:
+                logits = logits.masked_fill(
+                    ~(mask > 0)[:, None, None, :], float('-inf'))
+            self.attn_probs = torch.softmax(logits, dim=-1).detach()
         out = masked_attention(q, k, v, mask, bounded_logits=self.bounded)
         out = out.reshape(B, N, C)
         if mask is not None:

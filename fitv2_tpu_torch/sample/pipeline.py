@@ -29,8 +29,11 @@ RoPE resolution extrapolation: ``SamplingConfig.interpolation`` picks the
 frequency mode the bucket samples with (``apply_rope_interpolation``);
 the model's parameters are shared, only its RoPE config is replaced.
 
-Not ported yet: data-parallel sampling (multi-device) and the per-step
-trajectory dump.
+``build_sampler(..., return_trajectory=True)`` also returns each Euler
+step's state, the difficulty-analysis capture. ``generate_fid_samples``
+runs on every process of a data-parallel group (``parallel.
+init_distributed``): each generates its share, keyed by (seed, rank,
+batch), and the caller gathers them.
 """
 
 from __future__ import annotations
@@ -53,6 +56,7 @@ from fitv2_tpu_torch.models.fit import forward_with_cfg
 from fitv2_tpu_torch.models.grid_utils import (
     make_grid_mask_size, pixels_to_tokens)
 from fitv2_tpu_torch.models.rope import RopeConfig
+from fitv2_tpu_torch.parallel.mesh import process_count, process_index
 from fitv2_tpu_torch.sched.gaussian_diffusion import create_diffusion
 from fitv2_tpu_torch.vae.autoencoder_kl import images_to_uint8
 
@@ -155,7 +159,8 @@ def apply_rope_interpolation(model, cfg: SamplingConfig) -> RopeConfig:
 def build_sampler(model, cfg: SamplingConfig, vae=None,
                   quant_collections: Optional[Dict[str, Tensor]] = None,
                   context_size: Optional[int] = None,
-                  prequantize: bool = True) -> Callable[..., Tensor]:
+                  prequantize: bool = True,
+                  return_trajectory: bool = False) -> Callable[..., Any]:
     """Returns ``sample_fn(labels, generator=None, z=None,
     step_noise=None)``.
 
@@ -185,14 +190,34 @@ def build_sampler(model, cfg: SamplingConfig, vae=None,
     ``context_size`` pads the tokens to that length instead of the model's
     own (a bucket larger than the training context; the weights are
     shared, as JAX's ``model.clone(context_size=...)`` shares its params).
+
+    ``return_trajectory`` makes ``sample_fn`` return (out, traj): traj
+    (steps, B, n_ctx, p**2*C) float32 holds each Euler step's state, the
+    last one the state decoded. Only the dense full-interval Euler loop
+    has one: with ``velocity_eval_every > 1``, a guidance interval or
+    ddpm/ddim it raises ValueError, as JAX's does.
     """
     use_interval = (cfg.guidance_low, cfg.guidance_high) != (0.0, 1.0)
+    if cfg.velocity_eval_every > 1 and return_trajectory:
+        raise ValueError(
+            'velocity_eval_every > 1 is not supported with '
+            'return_trajectory=True (the extrapolated sampler does not '
+            'materialize per-step states); use velocity_eval_every=1 for '
+            'trajectory dumps')
+    if use_interval and return_trajectory:
+        raise ValueError(
+            'guidance_low/high does not compose with return_trajectory; '
+            'use the full-interval path for trajectory dumps')
     diffusion = None
     if cfg.sampler_mode in ('ddpm', 'ddim'):
         if cfg.velocity_eval_every > 1 or use_interval:
             raise ValueError('sampler_mode ddpm/ddim composes with neither '
                              'velocity_eval_every nor guidance_low/high '
                              '(flow-ladder features)')
+        if return_trajectory:
+            raise ValueError('sampler_mode ddpm/ddim composes with none of '
+                             'velocity_eval_every / guidance_low/high / '
+                             'return_trajectory (flow-ladder features)')
         dc = dict(cfg.diffusion_config or {})
         dc.pop('timestep_respacing', None)
         diffusion = create_diffusion(
@@ -326,6 +351,9 @@ def build_sampler(model, cfg: SamplingConfig, vae=None,
                              size_c, rope=rope_c).float()
             phases = [(0, i0, drift_cond), phases[0],
                       (i1, steps, drift_cond)]
+        if return_trajectory:  # one dense phase: the refusals above
+            z, traj = euler_sample(drift, z, sigmas, return_trajectory=True)
+            return decode(z), traj
         # each phase integrates its own sub-ladder; extrapolation restarts
         # at phase boundaries, where the drift changes meaning
         for a, b, fn in phases:
@@ -350,12 +378,13 @@ def build_sampler(model, cfg: SamplingConfig, vae=None,
     return sample_fn
 
 
-def _batch_inputs(seed: int, batch_index: int, batch: int, num_classes: int
-                 ) -> tuple[Tensor, torch.Generator]:
-    """Labels and a noise generator for one FID batch, derived from
-    (seed, batch index) only, so a resumed run draws what an uninterrupted
-    run would."""
-    ss = np.random.SeedSequence([seed, batch_index])
+def _batch_inputs(seed: int, batch_index: int, batch: int, num_classes: int,
+                  rank: int = 0) -> tuple[Tensor, torch.Generator]:
+    """Labels and a noise generator for one FID batch of process ``rank``,
+    derived from (seed, batch index, rank) only, so a resumed run draws
+    what an uninterrupted run would. Process 0's entropy is [seed, batch
+    index], that of the one-process loop."""
+    ss = np.random.SeedSequence([seed, batch_index] + ([rank] if rank else []))
     label_seed, noise_seed = ss.generate_state(2, dtype=np.uint64)
     labels = torch.from_numpy(np.random.default_rng(label_seed).integers(
         0, num_classes, size=batch, dtype=np.int64))
@@ -366,15 +395,24 @@ def generate_fid_samples(sample_fn: Callable, num_fid_samples: int,
                          per_device_batch: int, num_classes: int = 1000,
                          seed: int = 0, progress: bool = False,
                          resume_dir: Optional[str] = None) -> np.ndarray:
-    """FID generation loop on one device.
+    """FID generation loop of this process.
+
+    Data parallel (``parallel.init_distributed``), each of the P processes
+    generates ceil(N / P) samples, its draws keyed by (seed, rank, batch);
+    gather them in rank order with ``parallel.process_allgather``. One
+    process generates N, as before.
 
     resume_dir makes the loop preemption-safe: each finished batch is
     written there atomically (temporary file + rename); on a rerun, batches
     whose shard exists are loaded instead of sampled. A manifest (seed,
-    batch, sample count, classes, sampler fingerprint) is stamped into the
-    directory, and a rerun with a different one is refused.
+    batch, sample count, classes, sampler fingerprint and, data parallel,
+    the process count) is stamped into the directory by process 0, and a
+    rerun with a different one is refused. Data parallel, the shards are
+    named by rank.
     """
-    n_batches = int(np.ceil(num_fid_samples / per_device_batch))
+    rank, world = process_index(), process_count()
+    per_proc = int(np.ceil(num_fid_samples / world))
+    n_batches = int(np.ceil(per_proc / per_device_batch))
     if resume_dir:
         os.makedirs(resume_dir, exist_ok=True)
         manifest = {
@@ -383,6 +421,8 @@ def generate_fid_samples(sample_fn: Callable, num_fid_samples: int,
             'num_classes': int(num_classes),
             'config_fingerprint': getattr(sample_fn, 'config_fingerprint',
                                           None)}
+        if world > 1:
+            manifest['process_count'] = world
         mpath = os.path.join(resume_dir, 'manifest.json')
         if os.path.exists(mpath):
             with open(mpath) as f:
@@ -394,14 +434,15 @@ def generate_fid_samples(sample_fn: Callable, num_fid_samples: int,
                     f'resume_dir {resume_dir} holds shards from a different '
                     f'run (manifest mismatch, existing vs requested: {diff});'
                     f' point --resume-dir at a fresh directory or delete it')
-        else:
+        elif rank == 0:
             tmp = mpath + '.tmp'
             with open(tmp, 'w') as f:
                 json.dump(manifest, f)
             os.replace(tmp, mpath)
 
     def shard_path(bi: int) -> str:
-        return os.path.join(resume_dir, f'shard_b{bi}.npy')
+        name = f'shard_p{rank}_b{bi}.npy' if world > 1 else f'shard_b{bi}.npy'
+        return os.path.join(resume_dir, name)
 
     out = []
     for bi in range(n_batches):
@@ -413,16 +454,17 @@ def generate_fid_samples(sample_fn: Callable, num_fid_samples: int,
             if arr is not None and len(arr) == per_device_batch:
                 out.append(arr)
                 continue
-        labels, gen = _batch_inputs(seed, bi, per_device_batch, num_classes)
+        labels, gen = _batch_inputs(seed, bi, per_device_batch, num_classes,
+                                    rank)
         imgs = sample_fn(labels, generator=gen).cpu().numpy()
         if resume_dir:
             tmp = shard_path(bi) + '.tmp.npy'
             np.save(tmp, imgs)
             os.replace(tmp, shard_path(bi))
         out.append(imgs)
-        if progress:
+        if progress and rank == 0:
             print(f'batch {bi + 1}/{n_batches}', flush=True)
-    return np.concatenate(out, axis=0)[:num_fid_samples]
+    return np.concatenate(out, axis=0)[:per_proc]
 
 
 def save_npz(path: str, images: np.ndarray,

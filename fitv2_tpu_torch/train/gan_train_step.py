@@ -31,6 +31,7 @@ from torch import nn
 
 from fitv2_tpu_torch.losses.perceptual import (
     LPIPSWithDiscriminator2D, hinge_d_loss, vanilla_d_loss)
+from fitv2_tpu_torch.parallel.mesh import process_count
 from fitv2_tpu_torch.train.train_step import AdamW, TrainState, make_step
 
 Tensor = torch.Tensor
@@ -84,7 +85,12 @@ def make_gan_steps(generator_loss_fn: Callable, model: nn.Module,
     base_loss, g_loss, grad_norm), the keyword arguments passed on to the
     loss and to ``required`` (see ``make_step``). ``disc_step(disc_state,
     real, fake, global_step) -> (disc_state, {'d_loss'})``. Both update
-    their state in place."""
+    their state in place. One process: JAX's GAN loop runs one, and the
+    discriminator's statistics are not reduced across processes."""
+    if process_count() > 1:
+        raise NotImplementedError(
+            'GAN steps run in one process (the discriminator state is '
+            'not reduced across processes), as JAX\'s GAN loop does')
     loss_cfg = loss_cfg or LPIPSWithDiscriminator2D()
 
     def factor(step: int) -> float:

@@ -1,5 +1,5 @@
-"""LwD / BFM training loop on one device: random-segment updates, EMA,
-rotating checkpoints, preemption.
+"""LwD / BFM training loop, on one device or data parallel:
+random-segment updates, EMA, rotating checkpoints, preemption.
 
 Counterpart of fitv2_tpu/train/lwd_trainer.py: each batch takes
 ``segments_per_step`` segment updates, each on a segment drawn from
@@ -14,7 +14,10 @@ given model, in fp32, holds the master parameters; with ``dtype`` other
 than float32 (the model config's dtype) a copy in that dtype computes.
 The loop itself (resume, logging, checkpoints, preemption) is
 ``trainer.train_loop``, which ``Trainer`` runs too: this trainer gives it
-a batch's segment updates and the segment stream's replay.
+a batch's segment updates and the segment stream's replay. Under
+``torchrun`` the processes are the data axis, as ``Trainer``'s: every
+process draws the same segment stream, and the segment updates average
+their gradients (train/train_step.make_step).
 
 Differences from the JAX trainer, by design:
 - the initial parameters are the given model's own;
@@ -25,7 +28,8 @@ Differences from the JAX trainer, by design:
   a batch already taken and starts the loader at the resume step, so it
   equals the uninterrupted run; JAX rebuilds both streams from their start
   and repeats its first segments and batches;
-- a checkpoint that cannot be read raises; the mesh options raise.
+- a checkpoint that cannot be read raises; the mesh axes that shard the
+  model (fsdp, tensor: slice 9b) raise.
 """
 
 from __future__ import annotations
@@ -38,6 +42,7 @@ from typing import Any, Callable, Dict, Optional
 import torch
 
 from fitv2_tpu_torch.ckpt.checkpoint import CheckpointManager
+from fitv2_tpu_torch.parallel.mesh import MeshConfig, build_mesh
 from fitv2_tpu_torch.train import lwd_train_step as steps
 from fitv2_tpu_torch.train.train_step import (
     OptimizerConfig, TrainState, create_train_state)
@@ -48,7 +53,8 @@ RECIPES = ('reflow', 'multiscale', 'finetune')
 
 @dataclasses.dataclass
 class LwDTrainerConfig:
-    # data: the shards' loader (one host: the per-host batch)
+    # data: the shards' loader; global_batch_size is split over the
+    # processes
     data_path: str = ''
     target_len: int = 256
     random_mode: str = 'random'
@@ -66,13 +72,17 @@ class LwDTrainerConfig:
     checkpointing_steps: int = 4000
     checkpoints_total_limit: Optional[int] = 4
     log_every: int = 100
-    # the JAX trainer's mesh axes; one device here, so each must be 1
+    # the JAX trainer's mesh axes: data spans the processes (-1: all of
+    # them); fsdp and tensor shard the model (slice 9b) and must be 1
+    mesh_data: int = -1
     mesh_fsdp: int = 1
     mesh_tensor: int = 1
     # write checkpoints from a background thread over a host copy
     async_checkpointing: bool = False
-    # on SIGTERM/SIGINT: finish the batch, checkpoint, return (preempted)
+    # on SIGTERM/SIGINT: finish the batch, checkpoint, return (preempted);
+    # data parallel, the processes agree on it every this many batches
     handle_preemption: bool = True
+    preemption_sync_every: int = 16
     # the compute dtype (the model config's); masters, moments, EMA: fp32
     dtype: str = 'float32'
     device: str = 'cuda'
@@ -91,10 +101,8 @@ class LwDTrainer:
         ``loader``: an object with ``train_dataloader(batch_size,
         max_steps, resume_step, seed)``; default the shards at
         ``data_path``."""
-        if (config.mesh_fsdp, config.mesh_tensor) != (1, 1):
-            raise NotImplementedError(
-                'the port trains on one device: mesh and FSDP options are '
-                'not ported (ROADMAP.md §1, slice 9)')
+        build_mesh(MeshConfig(data=config.mesh_data, fsdp=config.mesh_fsdp,
+                              tensor=config.mesh_tensor))
         if recipe not in RECIPES:
             raise ValueError(f'unknown LwD recipe: {recipe!r}')
         self.cfg = config

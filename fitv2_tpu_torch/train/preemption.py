@@ -1,10 +1,13 @@
-"""Preemption-safe exit for the training loop, on one process.
+"""Preemption-safe exit for the training loop.
 
 Counterpart of fitv2_tpu/train/preemption.py: the first SIGTERM/SIGINT sets
 a flag (and puts the original handlers back, so a second signal acts at
 once); the loop finishes its step, writes a checkpoint at that step and
-returns. The JAX guard all-gathers the flag across processes; the port
-runs on one process, and that agreement waits for its multi-device slice.
+returns. Across processes the flag is agreed every ``sync_every`` steps
+(a max over the processes; every process polls at the same steps, so
+the collectives line up): a signal on any process stops every process
+after the same step, within ``sync_every`` steps of the signal. A
+per-step agreement would hold the host at every step.
 """
 
 from __future__ import annotations
@@ -12,18 +15,18 @@ from __future__ import annotations
 import logging
 import signal
 
+import torch
+import torch.distributed as dist
+
+from fitv2_tpu_torch.parallel.mesh import collective_device, process_count
+
 logger = logging.getLogger('fitv2_tpu_torch.preemption')
 
 
 class PreemptionGuard:
-    def __init__(self, enabled: bool = True):
-        import torch.distributed as dist
-        if enabled and dist.is_available() and dist.is_initialized() \
-                and dist.get_world_size() > 1:
-            raise NotImplementedError(
-                'the preemption guard is single-process; agreeing on the '
-                'flag across processes is not ported (ROADMAP.md §1, slice 9)')
+    def __init__(self, enabled: bool = True, sync_every: int = 16):
         self.enabled = enabled
+        self.sync_every = max(1, int(sync_every))
         self.sig = None
         self._installed = {}
         if not enabled:
@@ -51,5 +54,16 @@ class PreemptionGuard:
         self._installed.clear()
 
     def should_stop(self, step: int) -> bool:
-        """Poll once per train step: whether a signal has arrived."""
-        return self.enabled and self.sig is not None
+        """Poll once per train step: whether a signal has arrived; data
+        parallel, on any process, agreed at the steps that ``sync_every``
+        divides (every process must poll at every step)."""
+        if not self.enabled:
+            return False
+        if process_count() == 1:
+            return self.sig is not None
+        if step % self.sync_every:
+            return False
+        flag = torch.tensor([int(self.sig is not None)],
+                            device=collective_device())
+        dist.all_reduce(flag, op=dist.ReduceOp.MAX)
+        return bool(flag.item())

@@ -29,6 +29,16 @@ Mixed precision: the trainer keeps fp32 master parameters (``TrainState``)
 and runs a compute-dtype copy of the model, whose gradients are copied
 into the masters, which is what flax's cast-at-use gives JAX. With an fp32
 model the masters are the model's own parameters.
+
+Data parallel (more than one process, ``parallel.init_distributed``): each
+process computes the loss on its rows of the global batch, drawing t, the
+noise and the label drops at the global batch from the (seed, step)
+generator and keeping its rows (``parallel.row_shard_draws``); the fp32
+gradients are averaged across the processes in one flat all-reduce before
+the norm and the clip, and the scalar metrics are averaged too. Every loss
+here is a mean over the batch of per-sample means, so with equal shards
+the average of the processes' gradients is the whole batch's: a run's
+result depends on the process count only through the order of that sum.
 """
 
 from __future__ import annotations
@@ -42,6 +52,8 @@ import torch
 from torch import nn
 
 from fitv2_tpu_torch.flow.transport import Transport
+from fitv2_tpu_torch.parallel.mesh import (
+    all_reduce_mean_, process_count, row_shard_draws)
 from fitv2_tpu_torch.train.came import CAME
 
 Tensor = torch.Tensor
@@ -456,7 +468,8 @@ def make_step(model: nn.Module, loss_fn: LossFn, max_grad_norm: float = 1.0,
                     copies, [m for p, m in zip(model_params, masters)
                              if p is not m])
         model.zero_grad(set_to_none=True)
-        loss, metrics = loss_fn(model, batch, generator, draws, **kwargs)
+        with row_shard_draws(generator):
+            loss, metrics = loss_fn(model, batch, generator, draws, **kwargs)
         loss.backward()
         need = set(names) if required is None else required(**kwargs)
         missing = [n for n, p in zip(names, model_params)
@@ -468,6 +481,9 @@ def make_step(model: nn.Module, loss_fn: LossFn, max_grad_norm: float = 1.0,
         grads = [torch.zeros_like(p, dtype=torch.float32) if p.grad is None
                  else p.grad.float() for p in model_params]
         model.zero_grad(set_to_none=True)
+        world = process_count()
+        if world > 1:
+            grads = _all_reduce_mean(grads)
         norm = global_norm(grads)
         clip_norm = norm
         if state.accumulator is not None:
@@ -483,9 +499,25 @@ def make_step(model: nn.Module, loss_fn: LossFn, max_grad_norm: float = 1.0,
                 m.grad = None
         update_ema(state.ema_params, state.params, ema_decay)
         state.step += 1
-        return state, dict(metrics, loss=loss.detach(), grad_norm=norm)
+        metrics = dict(metrics, loss=loss.detach(), grad_norm=norm)
+        if world > 1:
+            scalar = [k for k, v in metrics.items()
+                      if k != 'grad_norm' and v.dim() == 0
+                      and v.is_floating_point()]
+            means = all_reduce_mean_(torch.stack(
+                [metrics[k].float() for k in scalar]))
+            metrics.update(zip(scalar, means.unbind()))
+        return state, metrics
 
     return train_step
+
+
+def _all_reduce_mean(grads: List[Tensor]) -> List[Tensor]:
+    """The processes' mean of the fp32 gradients, through one flat
+    all-reduce; views of that buffer, shaped as ``grads``."""
+    flat = all_reduce_mean_(torch.cat([g.reshape(-1) for g in grads]))
+    return [part.view_as(g) for part, g in
+            zip(flat.split([g.numel() for g in grads]), grads)]
 
 
 def make_train_step(model: nn.Module, transport: Transport,

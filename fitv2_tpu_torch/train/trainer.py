@@ -1,12 +1,18 @@
-"""Config-driven FiT training loop on one device.
+"""Config-driven FiT training loop, on one device or data parallel.
 
 Counterpart of fitv2_tpu/train/trainer.py: the resumable data stream, the
 train step (bf16 compute over fp32 master parameters, AdamW or CAME, EMA)
 of the FiTv2 flow objective or the FiTv1 ``ddpm`` objective (improved
 diffusion over ``diffusion_steps``), rotating checkpoints, metric logging
-and the preemption guard, in one loop. Where the JAX trainer builds a
-mesh, the port runs on one device, ``cuda`` unless the config asks for the
-CPU; the mesh, pipeline and FSDP options raise.
+and the preemption guard, in one loop. Each process runs on one device,
+``cuda`` unless the config asks for the CPU. Under ``torchrun``
+(``parallel.init_distributed``) the processes are the mesh's data axis:
+``global_batch_size`` is split evenly, each process loads its share of
+every global batch (``shard_indices``), the gradients are averaged
+(train/train_step.make_step), process 0 writes the checkpoints and every
+process restores them, and a preemption signal on any process stops all
+after the same step. The pipeline, FSDP, sequence and tensor axes (slice
+9b) raise.
 
 Differences from the JAX trainer, by design:
 - the initial parameters are the given model's own (the port initialises
@@ -35,6 +41,9 @@ from fitv2_tpu_torch.ckpt.checkpoint import (
     CheckpointManager, latest_checkpoint_step)
 from fitv2_tpu_torch.data.latent_dataset import INLatentLoader
 from fitv2_tpu_torch.flow.transport import Transport, create_transport
+from fitv2_tpu_torch.parallel.mesh import (
+    MeshConfig, broadcast_, build_mesh, process_count, process_index,
+    sync_global_devices)
 from fitv2_tpu_torch.sched.gaussian_diffusion import create_diffusion
 from fitv2_tpu_torch.train.ddpm_train_step import make_ddpm_train_step
 from fitv2_tpu_torch.train.lr_scheduler import get_scheduler
@@ -82,10 +91,12 @@ class TrainerConfig:
     # 'bf16': bf16 compute with fp32 masters, moments and EMA; 'no': fp32
     mixed_precision: str = 'bf16'
     device: str = 'cuda'
-    # the JAX trainer's mesh axes a config may set; one device here, so
-    # each must be 1
+    # the JAX trainer's mesh axes: data spans the processes (-1: all of
+    # them); the axes that shard the model (slice 9b) must be 1
+    mesh_data: int = -1
     mesh_stage: int = 1
     mesh_fsdp: int = 1
+    mesh_sequence: int = 1
     mesh_tensor: int = 1
     # checkpoints and logging
     output_dir: str = 'runs/fitv2'
@@ -94,16 +105,16 @@ class TrainerConfig:
     milestone_steps: tuple = ()
     # write checkpoints from a background thread over a host copy
     async_checkpointing: bool = False
-    # on SIGTERM/SIGINT: finish the step, checkpoint, return (preempted)
+    # on SIGTERM/SIGINT: finish the step, checkpoint, return (preempted);
+    # data parallel, the processes agree on it every this many steps
     handle_preemption: bool = True
+    preemption_sync_every: int = 16
     log_every: int = 100
 
 
 def _refuse_unported(cfg: TrainerConfig) -> None:
-    if (cfg.mesh_stage, cfg.mesh_fsdp, cfg.mesh_tensor) != (1, 1, 1):
-        raise NotImplementedError(
-            'the port trains on one device: mesh, pipeline and FSDP '
-            'options are not ported (ROADMAP.md §1, slice 9)')
+    build_mesh(MeshConfig(cfg.mesh_data, cfg.mesh_stage, cfg.mesh_fsdp,
+                          cfg.mesh_sequence, cfg.mesh_tensor))
     if cfg.objective not in ('flow', 'ddpm'):
         raise ValueError(f"objective={cfg.objective!r}: 'flow' or 'ddpm'")
     if cfg.optimizer not in ('adamw', 'came'):
@@ -227,9 +238,16 @@ def train_loop(trainer, run_batch: Callable[[TrainState, Dict], Any],
     Checkpoints at every ``checkpointing_steps``, at ``max_steps`` and on
     preemption; an async save is whole when the loop returns. The state is
     ``trainer.state`` while the loop runs (an ``InlineEvalHook`` reads its
-    EMA there)."""
+    EMA there). Data parallel, each process takes its share of every
+    global batch (its loader gets ``process_index`` and
+    ``process_count``), a fresh run starts from process 0's parameters,
+    process 0 writes the checkpoints and a barrier follows each save."""
     cfg = trainer.cfg
     max_steps = max_steps or cfg.max_steps
+    rank, world = process_index(), process_count()
+    if cfg.global_batch_size % world:
+        raise ValueError(f'global_batch_size={cfg.global_batch_size} does '
+                         f'not split into {world} processes')
     if trainer.loader is None:
         trainer.loader = INLatentLoader(
             cfg.data_path, cfg.target_len, cfg.random_mode,
@@ -242,11 +260,19 @@ def train_loop(trainer, run_batch: Callable[[TrainState, Dict], Any],
         state.load_state_dict(trainer.ckpt.restore(
             step, map_location=trainer.device))
         logger.info('resumed from step %d', step)
+    elif world > 1:  # every process starts from process 0's parameters
+        broadcast_(list(state.params.values()))
+        with torch.no_grad():
+            torch._foreach_copy_(list(state.ema_params.values()),
+                                 list(state.params.values()))
     if on_start is not None:
         on_start(step)
+    shard = (dict(process_index=rank, process_count=world) if world > 1
+             else {})
     it = iter(trainer.loader.train_dataloader(
-        cfg.global_batch_size, max_steps, step, cfg.seed))
-    guard = PreemptionGuard(enabled=cfg.handle_preemption)
+        cfg.global_batch_size, max_steps, step, cfg.seed, **shard))
+    guard = PreemptionGuard(enabled=cfg.handle_preemption,
+                            sync_every=cfg.preemption_sync_every)
     trainer.preempted = False
     t0 = time.time()
     try:
@@ -268,7 +294,9 @@ def train_loop(trainer, run_batch: Callable[[TrainState, Dict], Any],
             preempted = guard.should_stop(step)
             if (step % cfg.checkpointing_steps == 0 or step >= max_steps
                     or preempted):
-                trainer.ckpt.save(step, state.state_dict())
+                if rank == 0:
+                    trainer.ckpt.save(step, state.state_dict())
+                sync_global_devices('checkpoint')
             if preempted:
                 trainer.ckpt.wait()
                 trainer.preempted = True
@@ -282,4 +310,5 @@ def train_loop(trainer, run_batch: Callable[[TrainState, Dict], Any],
         if hasattr(it, 'close'):  # stop the loader's producer thread
             it.close()
     trainer.ckpt.wait()  # an async save is whole when train() returns
+    sync_global_devices('checkpoint written')
     return state

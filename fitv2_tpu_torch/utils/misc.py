@@ -4,8 +4,8 @@ NaN guards, the analytic FLOP count.
 Counterpart of fitv2_tpu/utils/misc.py: ``profiled_function`` labels a
 function in ``torch.profiler`` traces (``record_function``), ``trace_to``
 records a ``torch.profiler.profile`` of its block into a directory (a
-Chrome trace), and ``check_cross_process_consistency`` holds in one
-process (multi-device is ROADMAP item 26). ``count_params`` and
+Chrome trace), and ``check_cross_process_consistency`` all-gathers a
+value and compares every process's with the first's. ``count_params`` and
 ``print_module_summary`` take a module or a nested mapping of tensors.
 """
 
@@ -19,7 +19,7 @@ from typing import Any, Iterator, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from fitv2_tpu_torch.utils.training_stats import _single_process
+from fitv2_tpu_torch.parallel.mesh import process_allgather, process_count
 
 
 class EasyDict(dict):
@@ -79,9 +79,15 @@ def nan_to_num(x, nan: float = 0.0, posinf: Optional[float] = None,
 
 
 def check_cross_process_consistency(x, name: str = 'tensor') -> bool:
-    """Whether every process holds the same ``x``: True in one process."""
-    _single_process('check_cross_process_consistency')
-    return True
+    """Whether every process holds the same ``x`` (bit for bit); a process
+    that finds a difference prints ``name``."""
+    if process_count() == 1:
+        return True
+    gathered = process_allgather(torch.as_tensor(x))
+    ok = bool((gathered == gathered[0]).all())
+    if not ok:
+        print(f'[consistency] {name} differs across processes')
+    return ok
 
 
 def _named_leaves(params: Any, prefix: str = ''

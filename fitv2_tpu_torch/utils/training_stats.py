@@ -3,9 +3,9 @@
 Counterpart of fitv2_tpu/utils/training_stats.py (the StyleGAN stats
 collector): values reduce to (num, sum, sum of squares) float32 triples;
 ``report`` accumulates them on the host by name, ``Collector`` turns them
-into mean and standard deviation. One process: the cross-process
-reductions (``psum_moments``, ``Collector.update(cross_process=True)``)
-raise at a world size above 1 (multi-device is ROADMAP item 26).
+into mean and standard deviation. Across processes ``psum_moments`` and
+``Collector.update(cross_process=True)`` sum the triples with an
+all-reduce (JAX's ``psum`` and ``process_allgather`` + sum).
 """
 
 from __future__ import annotations
@@ -15,27 +15,21 @@ from typing import Dict
 
 import numpy as np
 import torch
+import torch.distributed as dist
+
+from fitv2_tpu_torch.parallel.mesh import (
+    collective_device, process_count, process_index)
 
 Tensor = torch.Tensor
 
 
-def _world_size() -> int:
-    dist = torch.distributed
-    return (dist.get_world_size()
-            if dist.is_available() and dist.is_initialized() else 1)
-
-
-def _rank() -> int:
-    dist = torch.distributed
-    return dist.get_rank() if dist.is_available() and dist.is_initialized() \
-        else 0
-
-
-def _single_process(what: str) -> None:
-    if _world_size() > 1:
-        raise NotImplementedError(
-            f'{what} across processes: multi-device is not ported '
-            '(ROADMAP.md item 26)')
+def _all_reduce_sum(m: Tensor, group=None) -> Tensor:
+    """The sum of ``m`` over the processes of ``group``, on m's device."""
+    if process_count() == 1:
+        return m
+    buf = m.to(collective_device())
+    dist.all_reduce(buf, group=group)
+    return buf.to(m.device)
 
 
 def moments(x) -> Tensor:
@@ -47,10 +41,9 @@ def moments(x) -> Tensor:
 
 
 def psum_moments(x, group=None) -> Tensor:
-    """The moments summed over the processes of ``group``: one process's
-    own."""
-    _single_process('psum_moments')
-    return moments(x)
+    """The moments summed over the processes of ``group`` (all by
+    default)."""
+    return _all_reduce_sum(moments(x), group)
 
 
 _counters: Dict[str, np.ndarray] = {}
@@ -64,7 +57,7 @@ def report(name: str, value) -> None:
 
 def report0(name: str, value) -> None:
     """``report`` on process 0 only."""
-    if _rank() == 0:
+    if process_index() == 0:
         report(name, value)
 
 
@@ -82,11 +75,12 @@ class Collector:
 
     def update(self, cross_process: bool = False) -> None:
         """Take the current counters (a counter with no new values keeps
-        its previous snapshot) and reset them."""
-        if cross_process:
-            _single_process('Collector.update')
+        its previous snapshot) and reset them; ``cross_process`` sums each
+        over the processes (every process must hold the same names)."""
         for name in self.names():
             m = _counters.pop(name, np.zeros(3, np.float32))
+            if cross_process:
+                m = _all_reduce_sum(torch.from_numpy(m)).numpy()
             if m[0] > 0 or name not in self._moments:
                 self._moments[name] = m
 

@@ -275,9 +275,15 @@ def test_unported_options_raise():
     # online RoPE is ported (tests/test_torch_port_hr.py); it builds
     assert FiT(**dict(SMALL, online_rope=True, custom_freqs='ntk-aware',
                       ori_max_pe_len=4)).rope_config.online
-    for kw in (dict(save_attention=True), dict(add_rel_pe_to_v=True)):
-        with pytest.raises(NotImplementedError):
-            Attention(144, 2, **kw)
+    # the captures are ported (tests/test_torch_port_attention_viz.py): they
+    # build, and rel-PE on v takes the interleaved layout and no fused q/k
+    assert Attention(144, 2, save_attention=True).save_attention
+    attn = Attention(144, 2, q_norm='layernorm', k_norm='layernorm',
+                     add_rel_pe_to_v=True)
+    assert attn.rope_layout == 'interleaved' and not attn.fuse_qk
+    # JAX's XLA attention implementations have no counterpart
+    with pytest.raises(ValueError, match='attn_impl'):
+        Attention(144, 2, attn_impl='xla')
 
 
 def test_int8_and_fused_options_build():

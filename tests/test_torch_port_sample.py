@@ -328,11 +328,24 @@ def test_cli_samples_to_npz_on_cpu(models, tmp_path):
 
 @pytest.mark.parametrize('flags,slice_name', [
     (['--data-parallel'], 'slice 9'),
-    (['--sampler-mode', 'ddim', '--data-parallel'], 'slice 9'),
+    (['--global-seed', '3', '--data-parallel'], 'slice 9'),
 ])
-def test_cli_refuses_flags_of_later_slices(flags, slice_name):
-    with pytest.raises(NotImplementedError, match=slice_name):
-        cli.main(['--cfgdir', 'unused.yaml', '--ckpt', 'unused', *flags])
+def test_cli_refuses_flags_of_later_slices(models, tmp_path, flags,
+                                          slice_name):
+    """No flag of the CLI is refused any more: ``--data-parallel`` (slice
+    9a) in one process is the path without it, bit for bit (its runs
+    across processes: tests/test_torch_port_parallel.py)."""
+    cfg_path, ckpt = _write_cli_inputs(tmp_path, models[3])
+    common = ['--cfgdir', cfg_path, '--ckpt', ckpt, '--image-height', '64',
+              '--image-width', '48', '--num-sampling-steps', '3',
+              '--num-fid-samples', '3', '--per-device-batch', '2',
+              '--num-classes', '10', '--device', 'cpu']
+    outs = []
+    for extra in (flags, [f for f in flags if f != '--data-parallel']):
+        outs.append(str(tmp_path / f'{len(extra)}.npz'))
+        cli.main(common + extra + ['--out', outs[-1]])
+    a, b = (np.load(o)['arr_0'] for o in outs)
+    assert a.shape == (3, 4, 8, 6) and np.array_equal(a, b), slice_name
 
 
 def test_cli_interpolation_to_npz_on_cpu(models, tmp_path):
