@@ -151,17 +151,19 @@ Phases (any failure raises and exits non-zero; nothing is caught):
                 weights and draws: the loss, the gradient norm, every
                 updated master and first moment within 1e-4 relative L2;
                 (c) the main path, cli/train_lwd.py's build_trainer on
-                configs/fitv2_xl_lwd.yaml with a merged bf16 YAML (0.899 B
-                parameters, bf16 compute over fp32 masters, mu and EMA, a
-                constant lr, batch 32, the native loader over 128 square
-                synthetic shards; the model built on the CPU): 3 batches
-                of 3 segment updates with a checkpoint at 2 (the one 14.4
-                GB checkpoint the two runs write), then a new trainer
+                configs/fitv2_xl_lwd.yaml with a merged bf16 YAML (bf16
+                compute over fp32 masters, mu and EMA, a constant lr,
+                batch 32, the native loader over 128 square synthetic
+                shards; the model built on the CPU): cut to depth 12 (12
+                segments of 1 block, 12 REPA blocks; phase 18's time), 3
+                batches of 3 segment updates with a checkpoint at 2 (the
+                one checkpoint the two runs write), then a new trainer
                 resumed from it, in a child process with deterministic
-                algorithms on: exact launch counts (an update: K1 9, K2 4,
-                K4 4), the resumed run's segments, losses, parameters, EMA
+                algorithms on: exact launch counts (an update: K1 5, K2 2,
+                K4 2), the resumed run's segments, losses, parameters, EMA
                 and moments bit-identical; then the rate from a third run
-                (determinism off, a sync after each batch: the median of 3
+                at the config's depth (0.899 B parameters; determinism
+                off, a sync after each batch: the median of 3
                 batches after 2), images/s, segment updates/s and peak
                 memory; then cli/sample_lwd on that checkpoint; (d) one
                 multi-scale update per tier (segments 0, 2, 7: N 16, 64,
@@ -254,6 +256,34 @@ Phases (any failure raises and exits non-zero; nothing is caught):
                 reference-layout checkpoint, 16 images, 10 steps: each
                 rank's batches equal this process's sampler on that
                 rank's draws, bit for bit.
+ 18. model sharding - one torchrun call of SH_WORLD processes (gloo on
+                the one card, NCCL with a card each; `--shard-child all
+                DIR`) runs, through cli/train.py / cli/train_lwd.py: (a)
+                fsdp at FiTv2-3B widths (configs/fitv2_3b.yaml cut to
+                depth SH_DEPTH, 2 on one card: depth 4 took the phase
+                to 319 s; fp32, global batch SH_BATCH, remat dots);
+                (b) tensor (12 heads a rank); (c) sequence at HR-3B
+                widths (configs/fitv2_hr_3b.yaml, N 1024, depth
+                SH_HR_DEPTH); (d) stage with pp_microbatches 4; (e) the
+                LwDTrainer under fsdp at BFM-XL widths (K3, one segment
+                update); then (f) an fsdp run in bf16 interrupted and
+                resumed against its uninterrupted twin, whose steps 2-3
+                give (a)'s bf16 rate. This process runs (a)-(e) alone
+                first ((a), (b) and (d) share one run). The models'
+                all-zero parameters start random from one seed: at the
+                zero init the first gradient lies in the final layer's
+                linear alone, which the tensor and stage ranks compute
+                on the whole batch. Each sharded run's first reduced
+                gradient within 1e-5 relative L2 of one process's
+                (fp32), whole and in the trunk's blocks alone (a nonzero
+                share of its norm), the ranks agree on a checksum of
+                the gathered parameters, exact K1-K4 launches a rank at
+                the local shapes, each rank's peak memory and parameter
+                + state bytes against one process's (fsdp <= 0.55), ms a
+                step; the resume bit-identical; which path (device, or
+                the host under gloo) each collective took. (0): K1, K2,
+                K4 and K3 in their Functions at the per-rank shapes
+                against autograd of their plain versions.
 The deterministic trainer runs of 11 (c), 12 (d) and 14 (c) run in child
 processes of this script (`--child NAME DIR`) with
 CUBLAS_WORKSPACE_CONFIG=:4096:8, which deterministic algorithms require
@@ -365,7 +395,8 @@ V1_PARITY_INDEX = STEPS // 2
 V1_TRAIN_STEPS, V1_TRAIN_RESUME = 10, 6
 V1_TRAIN_DEPTH = 4  # the ddpm trainer's depth in the smoke (the config: 28)
 V1_FIRST_MSE = (0.9, 1.1)
-V1_RATE_CALLS = 3  # timed 250-step denoise calls a mode (the host's spread)
+V1_RATE_CALLS = 2  # timed 250-step denoise calls a mode (the host's spread;
+                   # 2, not 3, for phase 18's time)
 # phase 13 (the LwD family): FiTLwD-XL (K 12 segments of 3 blocks) and
 # BFM-XL (a 20-block shared encoder, K 6 decoders of 5 blocks); sub-steps a
 # segment such that each path makes 252 velocity evals, the main path's 250
@@ -387,6 +418,7 @@ LWD_TRAIN_GRIDS = (16, 64)
 LWD_PARITY_BATCH = 4
 LWD_SHARDS = 128
 LWD_TRAIN_BATCHES, LWD_TRAIN_RESUME = 3, 2
+LWD_DET_DEPTH = 12  # the deterministic resume run's trunk (the config: 36)
 LWD_TRAIN_WARM, LWD_TRAIN_TIMED = 2, 3
 LWD_MS_INDICES, LWD_MS_SEGMENTS = (2, 7), (0, 2, 7)
 LWD_TEACHER_DEPTH, LWD_SOLVER_STEPS = 2, 8
@@ -2510,14 +2542,16 @@ def phase_lwd(card, out_dir, vae_path):
 
 # -- phase 14: LwD training ---------------------------------------------------
 
-def _lwd_train_yaml(out_dir, resume_step):
+def _lwd_train_yaml(out_dir, resume_step, depth=None):
     """The YAML merged after configs/fitv2_xl_lwd.yaml on phase 14's main
     path: bf16 compute, the synthetic shards, a checkpoint at
-    `resume_step`."""
-    path = os.path.join(out_dir, 'lwd_train.yaml')
+    `resume_step`; with `depth`, the trunk cut to it (12 segments of
+    depth / 12 blocks)."""
+    path = os.path.join(out_dir, f'lwd_train_{depth}.yaml')
     with open(path, 'w') as f:
         f.write('diffusion:\n  network_config:\n    params:\n'
                 '      dtype: bfloat16\n'
+                + (f'      depth: {depth}\n' if depth else '') +
                 'data:\n  params:\n    train:\n'
                 f'      data_path: {os.path.join(out_dir, "lwd_latents")}\n'
                 f'accelerate:\n  checkpointing_steps: {resume_step}\n')
@@ -2760,7 +2794,8 @@ def _lwd_train_run(cli, cfg, args, resume, log_every=1, write=True,
 def phase_lwd_train_deterministic(card, out_dir):
     """Phase 14 (c), in a child process with DETERMINISTIC_ENV:
     cli/train_lwd.py's build_trainer on configs/fitv2_xl_lwd.yaml with a
-    merged bf16 YAML (FiTLwD-XL, 12 segments of 3 blocks, 12 REPA blocks,
+    merged bf16 YAML (FiTLwD-XL cut to LWD_DET_DEPTH: 12 segments of 1
+    block, 12 REPA blocks,
     batch 32, the native loader) on LWD_SHARDS synthetic square shards:
     LWD_TRAIN_BATCHES batches of 3 segment updates with a checkpoint at
     LWD_TRAIN_RESUME, then a new trainer resumed from it, deterministic
@@ -2774,7 +2809,8 @@ def phase_lwd_train_deterministic(card, out_dir):
     make_synthetic_latent_shards(os.path.join(out_dir, 'lwd_latents'),
                                  n=LWD_SHARDS, target_len=N, seed=SEED,
                                  square=True)
-    cfgdir = _lwd_train_yaml(out_dir, LWD_TRAIN_RESUME)
+    cfgdir = _lwd_train_yaml(out_dir, LWD_TRAIN_RESUME,
+                             depth=LWD_DET_DEPTH)
     run_dir = os.path.join(out_dir, 'lwd_train')
     args = cli.parse_args(['--cfgdir', *cfgdir, '--output-dir', run_dir,
                            '--max-steps', str(LWD_TRAIN_BATCHES),
@@ -2980,7 +3016,9 @@ def phase_lwd_train(card, out_dir):
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(buf), _clock(
             'phase 14 (c) cli/sample_lwd'):
-        sample_lwd.main(['--cfgdir', *cfgdir, '--ckpt', ckpt, '--sampler',
+        sample_lwd.main(['--cfgdir', *_lwd_train_yaml(
+                            out_dir, LWD_TRAIN_RESUME, depth=LWD_DET_DEPTH),
+                         '--ckpt', ckpt, '--sampler',
                          'cfg', '--cfg-scale', str(LWD_CFG_SCALE),
                          '--steps-per-flow', '1', '--num-fid-samples',
                          str(BATCH), '--per-device-batch', str(BATCH),
@@ -2992,7 +3030,8 @@ def phase_lwd_train(card, out_dir):
     say(f'[lwd-train] cli/sample_lwd on checkpoint-{LWD_TRAIN_RESUME} '
         f'(its ema_params, bf16, sample_cfg, one sub-step a segment): '
         f'latents {arr.shape}, finite, std {arr.std():.4f}, in '
-        f'{time.perf_counter() - t0:.1f} s with the 14 GB checkpoint read')
+        f'{time.perf_counter() - t0:.1f} s with the checkpoint read '
+        f'(depth {LWD_DET_DEPTH})')
 
     # (d) one multi-scale update per tier on the timed run's state
     loader = INLatentLoader(os.path.join(out_dir, 'lwd_latents'), N,
@@ -4058,16 +4097,20 @@ def phase_trajectory(model_cpu, card):
     return counts
 
 
-def _torchrun(argv, env=None, timeout=600):
-    """`python -m torch.distributed.run` with DP_WORLD processes on this
-    host (static rendezvous on a free localhost port) running argv; its
-    output is echoed, a failure raises."""
+TORCHRUN_ECHO = 40  # the lines of a torchrun call's output echoed
+
+
+def _torchrun(argv, env=None, timeout=600, nproc=None):
+    """`python -m torch.distributed.run` with `nproc` (DP_WORLD) processes
+    on this host (static rendezvous on a free localhost port) running
+    argv; its output is echoed, a failure raises."""
     import socket
     with socket.socket() as s:
         s.bind(('127.0.0.1', 0))
         port = s.getsockname()[1]
     cmd = [sys.executable, '-m', 'torch.distributed.run', '--nnodes', '1',
-           '--nproc_per_node', str(DP_WORLD), '--master_addr', '127.0.0.1',
+           '--nproc_per_node', str(nproc or DP_WORLD), '--master_addr',
+           '127.0.0.1',
            '--master_port', str(port), *argv]
     # gloo binds the loopback interface: the machine has no other network
     env = dict(os.environ, GLOO_SOCKET_IFNAME='lo', **(env or {}))
@@ -4076,7 +4119,7 @@ def _torchrun(argv, env=None, timeout=600):
                           stderr=subprocess.STDOUT, text=True,
                           timeout=timeout)
     secs = time.perf_counter() - t0
-    for line in proc.stdout.splitlines()[-40:]:
+    for line in proc.stdout.splitlines()[-TORCHRUN_ECHO:]:
         say(f'  | {line}')
     if proc.returncode != 0:
         raise AssertionError(f'torchrun {argv}: exited {proc.returncode}')
@@ -4315,6 +4358,525 @@ CHILD_PHASES = {'train': phase_train_deterministic,
                 'lwd_train': phase_lwd_train_deterministic}
 
 
+# phase 18 (model sharding): the processes of the torchrun call (gloo on
+# the one card, NCCL with a card each), the FiTv2-3B runs' depth, global
+# batch and steps, HR-3B's depth and batch, the pipeline's microbatches,
+# BFM-XL's depth and batch, the bf16 rate run's steps, the gradient bound
+# and the fsdp bytes bound against one process
+SH_WORLD = int(os.environ.get('CHIP_SMOKE_SHARD_WORLD', '2'))
+# depth 2 keeps the phase near 200 s on one card (depth 4: 319 s); the
+# stage run needs a block a stage at least
+SH_DEPTH, SH_BATCH, SH_STEPS = max(2, SH_WORLD), 8, 2
+SH_HR_DEPTH, SH_HR_BATCH = 2, max(2, SH_WORLD)  # a row a process at least
+SH_MICRO = 4
+SH_LWD_DEPTH, SH_LWD_BATCH = 6, 4
+SH_RESUME_DEPTH = SH_DEPTH  # (f) in bf16 also gives (a)'s rate
+TOL_SHARD_GRAD = TOL_DP_GRAD
+SH_FSDP_BYTES = 0.55
+SH_RUNS = {  # name -> (config, its mesh keys under SH_WORLD processes)
+    'fsdp': ('configs/fitv2_3b.yaml', dict(mesh_fsdp=SH_WORLD)),
+    'tensor': ('configs/fitv2_3b.yaml', dict(mesh_tensor=SH_WORLD)),
+    'sequence': ('configs/fitv2_hr_3b.yaml',
+                 dict(mesh_sequence=SH_WORLD)),
+    'stage': ('configs/fitv2_3b.yaml', dict(mesh_stage=SH_WORLD,
+                                            pp_microbatches=SH_MICRO)),
+    'lwd': ('configs/bfm_xl.yaml', dict(mesh_fsdp=SH_WORLD)),
+}
+
+
+def _shard_yaml(out_dir, name, world, precision='no', depth=None):
+    """The YAML merged after run `name`'s config: its depth cut, the
+    per-process batch of its global batch on `world` processes, the
+    synthetic shards, no warm-up, and its mesh keys (all 1 in one
+    process). `precision` names the file only: the CLI reads no
+    precision key (`_build_trainer` sets it)."""
+    import yaml
+    config, mesh = SH_RUNS[name]
+    keys = dict(mesh_fsdp=1, mesh_tensor=1, mesh_sequence=1, mesh_stage=1)
+    if world > 1:
+        keys.update(mesh)
+    if name == 'lwd':
+        params = dict(depth=SH_LWD_DEPTH,
+                      number_of_representation_blocks=SH_LWD_DEPTH)
+        batch, data = SH_LWD_BATCH, 'sh_lwd_latents'
+    elif name == 'sequence':
+        params, batch, data = dict(depth=SH_HR_DEPTH), SH_HR_BATCH, \
+            'sh_hr_latents'
+    else:
+        params, batch, data = dict(depth=depth or SH_DEPTH), SH_BATCH, \
+            'sh_latents'
+    # a file a process: the ranks write theirs at once
+    path = os.path.join(out_dir, f'shard_{name}_{world}_{precision}_'
+                        f'{os.environ.get("RANK", "0")}.yaml')
+    with open(path, 'w') as f:
+        yaml.safe_dump({
+            'diffusion': {'network_config': {'params': params}},
+            'data': {'params': {'train': {
+                'data_path': os.path.join(out_dir, data),
+                'loader': {'batch_size': batch // world,
+                           'num_workers': 2}}}},
+            'accelerate': dict(keys, lr_warmup_steps=0,
+                               checkpointing_steps=1000)}, f)
+    return [config, path]
+
+
+def _shard_expected(name, steps):
+    """Exact launches a rank of `steps` steps of run `name`: under
+    'dots' each block's K1 (twice), K2 and K4 run again in the backward's
+    recompute, the final layer's K1 once; a stage runs depth/S blocks on
+    each of SH_MICRO microbatches; an LwD step is one segment update."""
+    if name == 'lwd':
+        return None  # from the trainer's model (_lwd_update_counts)
+    L = SH_HR_DEPTH if name == 'sequence' else SH_DEPTH
+    per = L // SH_WORLD * SH_MICRO if name == 'stage' else L
+    k1 = (4 * per + 1) * steps
+    k2 = 2 * per * steps
+    return {'fused_adaln_norm': k1, 'fused_qk_rope': k2,
+            'flash_masked_attention': k2,
+            'flash_masked_attention_bounded': k2}
+
+
+@contextlib.contextmanager
+def _models_built(precision=None, randomise_zeros=False):
+    """While open, cli/train.py's trainer computes in `precision` ('no':
+    fp32; the CLI reads no such key) and, with `randomise_zeros`, every
+    model the CLIs build has its all-zero parameters (the adaLN-zero
+    layers, the final layer, the biases) drawn N(0, 0.02^2) from one
+    seed, the same in every process: at the zero init only the final
+    layer's linear has a gradient at step 1, which every rank of the
+    tensor and stage runs computes on the whole batch, so the gradient
+    check would not see the trunk's sharding."""
+    import torch
+    from fitv2_tpu_torch import utils
+    from fitv2_tpu_torch.train import trainer as tr
+    from fitv2_tpu_torch.utils import config as ucfg
+    build, config = ucfg.config_to_model, tr.TrainerConfig
+
+    def randomised(*a, **k):
+        model = build(*a, **k)
+        gen = torch.Generator().manual_seed(SEED + 18)
+        with torch.no_grad():
+            for p in model.parameters():
+                if not p.any():
+                    p.copy_(0.02 * torch.randn(p.shape, generator=gen))
+        return model
+    try:
+        if randomise_zeros:
+            utils.config_to_model = ucfg.config_to_model = randomised
+        if precision is not None:
+            tr.TrainerConfig = lambda **kw: config(
+                **kw, mixed_precision=precision)
+        yield
+    finally:
+        utils.config_to_model = ucfg.config_to_model = build
+        tr.TrainerConfig = config
+
+
+def _trunk(model):
+    """The names of `model`'s parameters that lie in its FiT blocks."""
+    from fitv2_tpu_torch.models.modules import FiTBlock
+    return {f'{bn}.{pn}' for bn, b in model.named_modules()
+            if isinstance(b, FiTBlock) for pn, _ in b.named_parameters()}
+
+
+def _state_bytes(state):
+    """This rank's parameter + state bytes: masters, EMA, Adam's moments."""
+    n = 0
+    for p in state.params.values():
+        n += 2 * p.numel() * p.element_size()  # the master and its EMA
+        for t in state.optimizer.state.get(p, {}).values():
+            n += t.numel() * t.element_size()
+    return n
+
+
+def _shard_ref(name):
+    """The tag of the one-process run that run `name` is held against."""
+    return f'{"fsdp" if name in ("tensor", "stage") else name}_1_no'
+
+
+def shard_train_run(out_dir, name, world, steps=SH_STEPS, precision='no',
+                    depth=None, tag=None):
+    """Run `name`'s CLI path on this process (one of `world` under
+    torchrun, or alone): init_distributed, build_trainer on _shard_yaml,
+    `steps` steps, the checkpoint writes skipped ((f) checks them; a 3B
+    state is GBs of the machine's disk). Writes, per rank, the ms a step,
+    the launches, the parameter + state bytes, the peak memory, the step
+    losses and whether the ranks' gathered parameters agree. The first
+    update's gradient (reduced and clipped, in the one-process layout):
+    alone, written to disk; sharded, rank 0 holds it against that file's
+    (relative L2, in its JSON), the whole and the trunk's blocks alone,
+    with the blocks' share of its norm. The all-zero parameters start
+    random (`_models_built`), so that the blocks have a gradient."""
+    import torch
+    from fitv2_tpu_torch.parallel import init_distributed, process_index
+    from fitv2_tpu_torch.utils import load_config
+    from fitv2_tpu_torch.utils.misc import check_cross_process_consistency
+    if name == 'lwd':
+        from fitv2_tpu_torch.cli import train_lwd as cli
+    else:
+        from fitv2_tpu_torch.cli import train as cli
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    tag = tag or f'{name}_{world}_{precision}'
+    args = cli.parse_args([
+        '--cfgdir', *_shard_yaml(out_dir, name, world, precision, depth),
+        '--output-dir', os.path.join(out_dir, f'shard_run_{tag}'),
+        '--max-steps', str(steps), '--no-resume', '--device', 'cuda'])
+    rank, got = init_distributed(args.device)
+    if got != world:
+        raise AssertionError(f'shard {name}: {got} processes, not {world}')
+    torch.manual_seed(SEED + 18)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with _models_built(None if name == 'lwd' else precision, True):
+        trainer = cli.build_trainer(load_config(args.cfgdir), args)
+    t_build = time.perf_counter() - t0
+    trainer.ckpt.save = lambda step, state_dict: None
+    if name == 'lwd':  # one segment update a batch (the config: 3)
+        trainer.cfg.segments_per_step = 1
+    layout = trainer.layout
+    names = layout.names if layout is not None else list(
+        dict(trainer.master_model.named_parameters()))
+    trunk = _trunk(trainer.master_model)
+    grads, times, losses = [], [], []
+    init_state = trainer.init_state
+
+    def capturing_init():
+        state = init_state()
+        step = state.optimizer.step
+
+        def capture_then_step():
+            if not grads:
+                if layout is None:
+                    full = [p.grad.reshape(-1) for p in state.params.values()]
+                else:
+                    full = [layout.to_full(n, state.params[n].grad if n in
+                                           state.params else None
+                                           ).reshape(-1)
+                            for n in layout.names]
+                grads.append(torch.cat(full).cpu())
+                grads.append(torch.cat([  # the trunk's blocks
+                    torch.full((f.numel(),), n in trunk, dtype=torch.bool)
+                    for n, f in zip(names, full)]))
+            step()
+        state.optimizer.step = capture_then_step
+        return state
+
+    inner = trainer._train_step
+
+    def timed_step(*a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = inner(*a, **k)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(out[1]['loss']))
+        return out
+
+    trainer.init_state, trainer._train_step = capturing_init, timed_step
+    _reset_counts()
+    t0 = time.perf_counter()
+    state = trainer.train(max_steps=steps, resume=False)
+    torch.cuda.synchronize()
+    t_train = time.perf_counter() - t0
+    counts = _lwd_read_counts()
+    want = _shard_expected(name, steps)
+    if want is None:
+        want = {k: v * steps for k, v in
+                _lwd_update_counts(trainer.model).items()}
+    full = torch.cat([(layout.to_full(n, state.params.get(n))
+                       if layout is not None else state.params[n]
+                       ).reshape(-1) for n in (layout.names if layout
+                                               else state.params)])
+    # the ranks compare a checksum of the gathered parameters' bits (the
+    # sum, and the sum weighted by position mod 8191), not 3B parameters
+    bits = full.view(torch.int32).long()
+    weight = torch.arange(bits.numel(), device=bits.device) % 8191 + 1
+    agree = check_cross_process_consistency(
+        torch.stack([bits.sum(), (bits * weight).sum()]).cpu(),
+        'parameters')
+    rel = rel_trunk = share = None
+    if world == 1:
+        torch.save(grads[0], os.path.join(out_dir, f'shard_grad_{tag}.pt'))
+    elif process_index() == 0:
+        ref = torch.load(os.path.join(
+            out_dir, f'shard_grad_{_shard_ref(name)}.pt'), mmap=True)
+        got, mask = grads
+        rel = ((got - ref).norm() / ref.norm()).item()
+        rel_trunk = ((got[mask] - ref[mask]).norm()
+                     / ref[mask].norm()).item()
+        share = (ref[mask].norm() / ref.norm()).item()
+    result = dict(ms=times, counts=counts, want=want, losses=losses,
+                  bytes=_state_bytes(state), agree=agree,
+                  peak=torch.cuda.max_memory_allocated(),
+                  batch=trainer.cfg.global_batch_size, grad_rel_l2=rel,
+                  grad_rel_l2_trunk=rel_trunk, trunk_share=share,
+                  build_s=t_build, train_s=t_train)
+    with open(os.path.join(out_dir, f'shard_{tag}_{rank}.json'), 'w') as f:
+        json.dump(result, f)
+    del trainer, state, full
+    torch.cuda.empty_cache()
+    return result
+
+
+def shard_resume_run(out_dir):
+    """(f): the fsdp run of (a) in bf16: 3 steps uninterrupted, writing
+    only its checkpoint at step 2 (its steps 2-3 give (a)'s bf16 rate),
+    then a new trainer resumed from it to 3; rank 0 writes whether the
+    two final one-process states are bit-identical, and the ms a step."""
+    import torch
+    from fitv2_tpu_torch.cli import train as cli
+    from fitv2_tpu_torch.parallel import process_index
+    from fitv2_tpu_torch.utils import load_config
+    torch.use_deterministic_algorithms(True)
+    states = []
+    for resume in (False, True):
+        cfg = _shard_yaml(out_dir, 'fsdp', SH_WORLD, 'bf16',
+                          depth=SH_RESUME_DEPTH)
+        args = cli.parse_args([
+            '--cfgdir', *cfg, '--output-dir',
+            os.path.join(out_dir, 'shard_resume'), '--max-steps', '3',
+            '--device', 'cuda'] + ([] if resume else ['--no-resume']))
+        torch.manual_seed(SEED + 18)
+        loaded = load_config(args.cfgdir)
+        loaded['accelerate']['checkpointing_steps'] = 2
+        trainer = cli.build_trainer(loaded, args)  # bf16, the default
+        save = trainer.ckpt.save
+        trainer.ckpt.save = (lambda step, state_dict, save=save:
+                             save(step, state_dict) if step == 2 else None)
+        if not resume:
+            inner, times = trainer._train_step, []
+
+            def timed(*a, inner=inner, times=times, **k):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = inner(*a, **k)
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+                return out
+            trainer._train_step = timed
+            _reset_counts()
+            torch.cuda.reset_peak_memory_stats()
+        state = trainer.train(max_steps=3, resume=resume)
+        if not resume:
+            counts, want = _lwd_read_counts(), _shard_expected('fsdp', 3)
+            peak = torch.cuda.max_memory_allocated()
+        states.append(trainer.layout.full_state_dict(state))
+        del trainer, state
+        torch.cuda.empty_cache()
+    if process_index() == 0:
+        a, b = states
+        same = (a['step'] == b['step'] == 3 and all(
+            torch.equal(a[k][n], b[k][n]) for k in ('params', 'ema_params')
+            for n in a[k]) and all(
+            torch.equal(a['optimizer']['state'][i][m],
+                        b['optimizer']['state'][i][m])
+            for i in a['optimizer']['state'] for m in ('mu', 'nu')))
+        with open(os.path.join(out_dir, 'shard_resume.json'), 'w') as f:
+            json.dump(dict(same=bool(same), step=b['step'], ms=times,
+                           counts=counts, want=want, peak=peak), f)
+
+
+def shard_child_main(out_dir):
+    """A process of phase 18's torchrun (`--shard-child all DIR`): the
+    runs (a)-(e), then (f), whose uninterrupted run gives (a)'s bf16
+    rate."""
+    import faulthandler
+    faulthandler.enable()  # a crash in a collective prints its stack
+    from fitv2_tpu_torch.parallel import comms, init_distributed
+    init_distributed('cuda')
+    for name in ('fsdp', 'tensor', 'sequence', 'stage', 'lwd'):
+        with _clock(f'phase 18 {name} (a rank)'):
+            shard_train_run(out_dir, name, SH_WORLD)
+    with _clock('phase 18 resume and rate (a rank)'):
+        shard_resume_run(out_dir)
+    import torch.distributed as dist
+    if dist.get_rank() == 0:
+        with open(os.path.join(out_dir, 'shard_paths.json'), 'w') as f:
+            json.dump({op: comms.collective_path(op) for op in (
+                'all_reduce', 'all_gather', 'reduce_scatter', 'all_to_all',
+                'send', 'recv', 'broadcast')} | {
+                'backend': dist.get_backend()}, f)
+    dist.destroy_process_group()
+
+
+def _shard_ranks(out_dir, tag):
+    out = []
+    for r in range(SH_WORLD):
+        with open(os.path.join(out_dir, f'shard_{tag}_{r}.json')) as f:
+            out.append(json.load(f))
+    return out
+
+
+def phase_shard_kernels():
+    """Phase 18 (0): K1, K2, K4 and K3 inside their Functions against
+    autograd of their plain versions at the per-rank shapes the axes make
+    (bf16 and fp32): K1 at D 2304 on a rank's batch (fsdp) and on N/S of
+    HR-3B's tokens (sequence); K2 at Dh 96 with 24/W heads (tensor) and on
+    N/S tokens with 24 (sequence); K4 over all 1024 keys with 24/W heads
+    after Ulysses' exchange (800 valid) and with 24/W heads at N 256
+    (tensor); K3 at BFM-XL's rank batch (fsdp). Returns the cases by
+    kernel, each marked `path: 'shard'`."""
+    import torch
+    from fitv2_tpu_torch import kernels as K
+    dev = torch.device('cuda')
+    gen = torch.Generator(device=dev).manual_seed(SEED + 18)
+    W, D3, DH3 = SH_WORLD, 2304, 96
+    H3 = 24 // W
+    hr_n = 1024
+    cases = {'adaln': [], 'qk_rope': [], 'attention': []}
+
+    def rand(*shape, dtype):
+        return torch.randn(*shape, device=dev, generator=gen).to(dtype)
+
+    for dtype in (torch.bfloat16, torch.float32):
+        for label, b, n in (('fsdp', SH_BATCH // W, N),
+                            ('sequence', SH_HR_BATCH, hr_n // W)):
+            x = rand(b, n, D3, dtype=dtype) * 2 + 3
+            mod = rand(b, 6 * D3, dtype=dtype) * 0.5
+            cases['adaln'].append(dict(_grad_case(
+                f'adaln {label} ({b},{n},{D3})', dtype,
+                lambda a, m: K.adaln_norm(a, *m.chunk(6, dim=-1)[:2]),
+                lambda a, m: K.adaln_norm_reference(
+                    a, *m.chunk(6, dim=-1)[:2]), [x, mod], 1, 'norm'),
+                path='shard'))
+        for label, b, n, h in (('tensor', SH_BATCH, N, H3),
+                               ('sequence', SH_HR_BATCH, hr_n // W, 24)):
+            qkv = rand(b, n, 3, h, DH3, dtype=dtype)
+            ang = torch.rand(b, n, DH3, device=dev, generator=gen) * 6.3
+            cos, sin = torch.cos(ang), torch.sin(ang)
+            cases['qk_rope'].append(dict(_grad_case(
+                f'qk_rope {label} ({b},{n},{h},{DH3})', dtype,
+                lambda a, c=cos, s=sin: K.qk_norm_rope(*a.unbind(2)[:2], c,
+                                                       s),
+                lambda a, c=cos, s=sin: K.qk_norm_rope_reference(
+                    *a.unbind(2)[:2], c, s), [qkv], 2, 'norm'),
+                path='shard'))
+        for label, b, n, h, valid in (
+                ('sequence, after the exchange', SH_HR_BATCH, hr_n, H3,
+                 800), ('tensor', SH_BATCH, N, H3, N_VALID)):
+            q, k, v = (rand(b, n, h, DH3, dtype=dtype) for _ in range(3))
+            q, k = K.qk_norm_rope_reference(
+                q, k, torch.ones(b, n, DH3, device=dev),
+                torch.zeros(b, n, DH3, device=dev))
+            mask = torch.zeros(b, n, device=dev)
+            mask[:, :valid] = 1.0
+            qkv = torch.stack([q, k, v], dim=2)
+            cases['attention'].append(dict(_grad_case(
+                f'attention[bounded] {label} ({b},{n},{h},{DH3}, '
+                f'{valid} valid)', dtype,
+                lambda a, m=mask: K.masked_attention(*a.unbind(2), m,
+                                                     bounded_logits=True),
+                lambda a, m=mask: K.attention_bounded_reference(
+                    *a.unbind(2), m), [qkv], 3, 'attention'),
+                variant='bounded', mask=True, path='shard'))
+        b = SH_LWD_BATCH // W
+        qkv = rand(b, N, 3, 16, 72, dtype=dtype)
+        cases['attention'].append(dict(_grad_case(
+            f'attention[online] BFM-XL fsdp ({b},{N},16,72)', dtype,
+            lambda a: K.masked_attention(*a.unbind(2), None,
+                                         bounded_logits=False),
+            lambda a: K.attention_reference(*a.unbind(2), None), [qkv], 3,
+            'attention'), variant='online', mask=False, path='shard'))
+    torch.cuda.synchronize()
+    return cases
+
+
+def phase_shard(card, out_dir):
+    """Phase 18: the sharded runs under torchrun (`shard_child_main`),
+    then the one-process runs here; the checks of each. Returns rank 0's
+    launches by run and the numbers PERF.md keeps."""
+    import torch
+    from fitv2_tpu_torch.data import make_synthetic_latent_shards
+    for sub, n, square in (('sh_latents', 256, False),
+                           ('sh_hr_latents', 1024, False),
+                           ('sh_lwd_latents', 256, True)):
+        make_synthetic_latent_shards(os.path.join(out_dir, sub), n=32,
+                                     target_len=n, n_classes=1000, seed=18,
+                                     square=square)
+    # one process first: (a), (b) and (d) share the 3B run; (c); (e)
+    with _clock('phase 18 one-process runs'):
+        one = {name: shard_train_run(out_dir, name, 1)
+               for name in ('fsdp', 'sequence', 'lwd')}
+    one.update(tensor=one['fsdp'], stage=one['fsdp'])
+    torch.cuda.empty_cache()
+    # (f)'s bit-identical resume: cuBLAS's deterministic workspace, which
+    # it reads once when it starts (so for the whole call)
+    secs = _torchrun([os.path.abspath(__file__), '--shard-child', 'all',
+                      out_dir], env={'CUBLAS_WORKSPACE_CONFIG': ':4096:8'},
+                     nproc=SH_WORLD, timeout=900)
+    with open(os.path.join(out_dir, 'shard_paths.json')) as f:
+        paths = json.load(f)
+    ok, report = True, {}
+    for name in ('fsdp', 'tensor', 'sequence', 'stage', 'lwd'):
+        ranks = _shard_ranks(out_dir, f'{name}_{SH_WORLD}_no')
+        rel, rel_trunk = ranks[0]['grad_rel_l2'], \
+            ranks[0]['grad_rel_l2_trunk']
+        share = ranks[0]['trunk_share']
+        ref = one[name]
+        bytes_ratio = [r['bytes'] / ref['bytes'] for r in ranks]
+        peak_ratio = [r['peak'] / ref['peak'] for r in ranks]
+        counts_ok = all(
+            all(r['counts'][k] == v for k, v in r['want'].items())
+            for r in ranks)
+        run_ok = (rel <= TOL_SHARD_GRAD and rel_trunk <= TOL_SHARD_GRAD
+                  and share > 0 and counts_ok
+                  and all(r['agree'] for r in ranks)
+                  and all(r['losses'] == ranks[0]['losses'] for r in ranks)
+                  and (name not in ('fsdp', 'lwd')
+                       or max(bytes_ratio) <= SH_FSDP_BYTES))
+        ok = ok and run_ok
+        ms = statistics.median(ranks[0]['ms'][1:] or ranks[0]['ms'])
+        ms1 = statistics.median(ref['ms'][1:] or ref['ms'])
+        report[name] = dict(grad_rel_l2=rel, grad_rel_l2_trunk=rel_trunk,
+                            trunk_share=share, ms=ms, ms_one=ms1,
+                            losses=ranks[0]['losses'],
+                            losses_one=ref['losses'],
+                            build_s=ranks[0]['build_s'],
+                            train_s=ranks[0]['train_s'],
+                            bytes_ratio=bytes_ratio, peak_ratio=peak_ratio,
+                            peak_gb=[r['peak'] / 1e9 for r in ranks],
+                            launches_rank=ranks[0]['counts'])
+        say(f'[shard {name}] {SH_RUNS[name][0]} {SH_RUNS[name][1]} on '
+            f'{SH_WORLD} processes ({paths["backend"]}), global batch '
+            f'{ranks[0]["batch"]}: the first reduced gradient vs one process '
+            f'relative L2 {rel:.3e}, the trunk\'s blocks {rel_trunk:.3e} '
+            f'(their share of its norm {share:.3e} > 0) <= '
+            f'{TOL_SHARD_GRAD}; ranks agree on '
+            f'the gathered parameters {[r["agree"] for r in ranks]} and '
+            f'the losses {ranks[0]["losses"]} (one process '
+            f'{ref["losses"]}); build {ranks[0]["build_s"]:.1f} s, train '
+            f'{ranks[0]["train_s"]:.1f} s; launches a rank '
+            f'{[r["counts"] for r in ranks]} == {ranks[0]["want"]}: '
+            f'{counts_ok}; parameter + state bytes a rank / one process '
+            f'{[f"{x:.3f}" for x in bytes_ratio]}, peak memory '
+            f'{[f"{r["peak"] / 1e9:.2f}" for r in ranks]} GB vs '
+            f'{ref["peak"] / 1e9:.2f} GB; ms a step {ms:.1f} (one process '
+            f'{ms1:.1f}): {"ok" if run_ok else "FAIL"} [{card}]')
+    with open(os.path.join(out_dir, 'shard_resume.json')) as f:
+        resume = json.load(f)
+    ms = statistics.median(resume['ms'][1:])
+    report['fsdp_bf16'] = dict(ms=ms, images_per_s=SH_BATCH / ms * 1e3,
+                               peak_gb=resume['peak'] / 1e9)
+    rate_ok = all(resume['counts'][k] == v
+                  for k, v in resume['want'].items())
+    ok = ok and rate_ok and resume['same']
+    say(f'[shard rate] (a) in bf16 (the uninterrupted run of (f)), steps '
+        f'2-3: {ms:.1f} ms a step, {SH_BATCH / ms * 1e3:.2f} images/s at '
+        f'depth {SH_DEPTH}, launches {resume["counts"]} == '
+        f'{resume["want"]}: {rate_ok}; [shard resume] (f) fsdp depth '
+        f'{SH_RESUME_DEPTH} bf16: '
+        f'resumed at step 2 to {resume["step"]}, bit-identical to the '
+        f'uninterrupted run: {resume["same"]}; the collectives\' paths '
+        f'{paths}; the torchrun call {secs:.1f} s [{card}]')
+    if not ok:
+        raise AssertionError(f'shard: {report}, resume {resume}')
+    counts = {f'shard_{k}_rank0': v['launches_rank']
+              for k, v in report.items() if 'launches_rank' in v}
+    report.update(paths=paths, torchrun_s=secs)
+    return counts, report
+
+
 def _run_child(argv, env):
     """`python3 argv...` in a child process with `env` added to this
     process's environment: its output is echoed, its result is the JSON
@@ -4452,6 +5014,12 @@ def main():
                 dp_train_counts, _ = phase_dp_train(card, out_dir)
             with _clock('phase 17 (e) data-parallel sampling'):
                 phase_dp_sample(card, out_dir)
+        # phase 18: model sharding under torchrun (fsdp, tensor, sequence,
+        # stage, the LwDTrainer under fsdp, the rate, the resume)
+        torch.cuda.empty_cache()
+        with _clock('phase 18 (model sharding)'):
+            shard_cases = phase_shard_kernels()
+            shard_counts, shard_report = phase_shard(card, out_dir)
     for name, cases in lwd_cases.items():
         results[name]['cases'] += cases
     for name, cases in hr_cases.items():
@@ -4473,6 +5041,15 @@ def main():
     # phase 14's Functions at the multi-scale tiers and BFM-XL's K3, phase
     # 16's at the GAN student's shapes (Dh 64)
     for name, cases in [*lwd_train_cases.items(), *gan_cases.items()]:
+        results[name]['train_cases'] += cases
+        results[name]['grad_max_abs_err'] = max(
+            results[name]['grad_max_abs_err'],
+            *(c['max_abs_err'] for c in cases))
+        results[name]['train_fwd_max_abs_err'] = max(
+            results[name]['train_fwd_max_abs_err'],
+            *(c['fwd_max_abs_err'] for c in cases))
+    # phase 18's Functions at the per-rank shapes of the sharded runs
+    for name, cases in shard_cases.items():
         results[name]['train_cases'] += cases
         results[name]['grad_max_abs_err'] = max(
             results[name]['grad_max_abs_err'],
@@ -4521,7 +5098,8 @@ def main():
                **hr_train_counts, 'came_train': came_counts,
                'int8_lwd': int8_lwd_counts, 'gan_train': gan_counts,
                'capture': capture_counts, 'rel_pe_v': rel_pe_counts,
-               'trajectory': traj_counts, 'dp_train_rank0': dp_train_counts}
+               'trajectory': traj_counts, 'dp_train_rank0': dp_train_counts,
+               **shard_counts}
     # the attention wrapper launches K4 (bounded) or K3 (online softmax):
     # K3's share on each path that counted K4 apart
     results['attention']['k3_launches_by_path'] = {
@@ -4565,4 +5143,6 @@ if __name__ == '__main__':
         sys.exit(child_main(sys.argv[2], sys.argv[3]))
     if len(sys.argv) == 4 and sys.argv[1] == '--dp-child':
         sys.exit(dp_child_main(sys.argv[2], sys.argv[3]))
+    if len(sys.argv) == 4 and sys.argv[1] == '--shard-child':
+        sys.exit(shard_child_main(sys.argv[3]))
     sys.exit(main())

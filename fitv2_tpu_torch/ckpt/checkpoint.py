@@ -8,6 +8,12 @@ temporary directory beside it and renamed into place, so a directory named
 ``total_limit`` saves plus every milestone step. A checkpoint that cannot
 be read raises: nothing re-initialises silently.
 
+Under model sharding the trainers write the one-process layout whatever
+the mesh (parallel/sharding.py ``ShardedLayout.full_state_dict``:
+process 0 gathers it), and every rank restores its shards from it
+(``restore(..., mmap=True)`` maps the file instead of reading it), so a
+checkpoint moves between meshes and to one process.
+
 ``async_save=True`` overlaps the write with training, as JAX's orbax
 async path does: ``save`` takes a host copy of the state dict on the
 calling thread, then writes it from one background thread; ``wait()``
@@ -132,10 +138,12 @@ class CheckpointManager:
             shutil.rmtree(self.path(s), ignore_errors=True)
 
     def restore(self, step: Optional[int] = None,
-                map_location: Any = None) -> Any:
+                map_location: Any = None, mmap: bool = False) -> Any:
         """The state_dict saved at ``step`` (default: the latest). Raises
         FileNotFoundError when there is none and the loader's error when
-        it cannot be read. A write in flight finishes first."""
+        it cannot be read. A write in flight finishes first. ``mmap``
+        maps the file instead of reading it (a sharded trainer's ranks
+        each take their shards of it)."""
         self.wait()
         if step is None:
             step = latest_checkpoint_step(self.ckpt_dir)
@@ -144,6 +152,6 @@ class CheckpointManager:
         path = os.path.join(self.path(step), STATE_FILE)
         try:
             return torch.load(path, map_location=map_location,
-                              weights_only=True)
+                              weights_only=True, mmap=mmap)
         except Exception as e:
             raise RuntimeError(f'unreadable checkpoint {path}: {e}') from e

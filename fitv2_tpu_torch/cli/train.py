@@ -18,7 +18,13 @@ with CAME (train/came.py), as in JAX.
 Data parallel: ``torchrun --nproc_per_node N -m fitv2_tpu_torch.cli.train
 ...`` runs N processes, one card each (gloo where they share a card); the
 YAML's batch is each process's, so the global batch is N times it, as
-JAX's per-host batch.
+JAX's per-host batch. The ``accelerate`` section's ``mesh_stage``,
+``mesh_fsdp``, ``mesh_tensor`` and ``pp_microbatches`` (JAX's keys) and
+``mesh_sequence`` (the port's addition: no config sets it; an override
+YAML sets it to split HR-3B's 1024 tokens, configs/fitv2_hr_3b.yaml)
+shard the model over those N processes (train/trainer.py); the data
+axis takes what they leave. Overrides come through a second
+``--cfgdir`` YAML, e.g. one holding ``accelerate: {mesh_fsdp: 2}``.
 """
 
 from __future__ import annotations
@@ -91,7 +97,9 @@ def build_trainer(cfg, args):
         milestone_steps=tuple(acc.get('checkpointing_steps_list', ()) or ()),
         mesh_stage=int(acc.get('mesh_stage', 1)),
         mesh_fsdp=int(acc.get('mesh_fsdp', 1)),
+        mesh_sequence=int(acc.get('mesh_sequence', 1)),
         mesh_tensor=int(acc.get('mesh_tensor', 1)),
+        pp_microbatches=int(acc.get('pp_microbatches', 4)),
         objective=objective,
         diffusion_steps=int(diff.get('diffusion_steps', 1000)),
         device=args.device,

@@ -22,6 +22,8 @@ from fitv2_tpu_torch.models import rope as rope_lib
 from fitv2_tpu_torch.models.modules import (
     AdaLNModulation, FiTBlock, FinalLayer, LabelEmbedder, PatchEmbedder,
     TimestepEmbedder)
+from fitv2_tpu_torch.parallel.comms import keep_grad
+from fitv2_tpu_torch.parallel.mesh import sequence_sharding
 
 Tensor = torch.Tensor
 RopeTables = Tuple[Tensor, Tensor]
@@ -91,6 +93,16 @@ class FiT(nn.Module):
     (eval/attention_viz.py); ``add_rel_pe_to_v`` rotates v too, and makes
     ``rope_layout`` 'interleaved' whatever was asked, as JAX's model does
     for its attention and its RoPE tables.
+
+    ``sequence_mesh`` (a ``parallel.Mesh``, or set later as an attribute)
+    splits the tokens over its sequence axis after the embedders: the
+    blocks run on this rank's N/S tokens (the tables cut alike, the mask
+    whole for the attention's keys), the final layer too, and the output
+    is gathered whole. Where the split does not apply (N or the heads not
+    divisible by S) every rank runs the whole sequence, and only sequence
+    rank 0 keeps the output's gradient, so that the step's sum over the
+    axis counts it once. ``pipeline`` (set by
+    ``parallel.make_pipelined_forward``) runs the blocks as a GPipe stage.
     """
 
     def __init__(self, context_size: int = 256, patch_size: int = 2,
@@ -115,7 +127,7 @@ class FiT(nn.Module):
                  dtype: torch.dtype = torch.float32, attn_impl: str = 'auto',
                  scan_blocks: bool = True, save_attention: bool = False,
                  remat_policy: str = 'full', rope_layout: str = 'split',
-                 gemm_precision: str = 'bf16'):
+                 gemm_precision: str = 'bf16', sequence_mesh=None):
         super().__init__()
         if gemm_precision not in ('bf16', 'int8'):
             raise ValueError(f'gemm_precision={gemm_precision!r}: use '
@@ -140,6 +152,8 @@ class FiT(nn.Module):
         self.use_checkpoint = use_checkpoint
         self.remat_policy = remat_policy
         self.scan_blocks = scan_blocks
+        self.sequence_mesh = sequence_mesh
+        self.pipeline = None
         self.rope_config = rope_lib.RopeConfig(
             head_dim=hidden_size // num_heads, mode=custom_freqs,
             theta=rope_theta, max_cached_len=max_cached_len,
@@ -269,14 +283,40 @@ class FiT(nn.Module):
         x, c, cos, sin, global_adaln = embed_pre_trunk(
             self, x, t, y, grid, size, rope, train, force_drop_ids,
             generator)
+        if self.pipeline is not None:
+            x = self.pipeline.run(self, x, c, mask, cos, sin, global_adaln)
+            return self.pipeline.output(finalize_post_trunk(self, x, c,
+                                                            mask))
+        seq = sequence_sharding(self.sequence_mesh, x.shape[1],
+                                self.num_heads // self.blocks[0].attn.tp_size)
+        if seq is None:
+            x = self.run_blocks(self.blocks, x, c, mask, cos, sin,
+                                global_adaln)
+            out = finalize_post_trunk(self, x, c, mask)
+            mesh = self.sequence_mesh
+            if mesh is not None and mesh.size('sequence') > 1:
+                out = keep_grad(out, mesh.coordinate('sequence') == 0)
+            return out
+        x = self.run_blocks(self.blocks, seq.split(x), c, mask,
+                            seq.split_const(cos), seq.split_const(sin),
+                            global_adaln, seq)
+        return seq.gather(finalize_post_trunk(self, x, c,
+                                              seq.split_const(mask)))
+
+    def run_blocks(self, blocks, x: Tensor, c: Tensor,
+                   mask: Optional[Tensor], cos: Optional[Tensor],
+                   sin: Optional[Tensor], global_adaln, seq=None) -> Tensor:
+        """``blocks`` in order, each checkpointed as ``remat_policy``
+        asks where autograd records."""
         context_fn = self._remat()
-        for block in self.blocks:
+        for block in blocks:
             if context_fn is not None:
                 x = checkpoint(block, x, c, mask, cos, sin, global_adaln,
-                               use_reentrant=False, context_fn=context_fn)
+                               seq, use_reentrant=False,
+                               context_fn=context_fn)
             else:
-                x = block(x, c, mask, cos, sin, global_adaln)
-        return finalize_post_trunk(self, x, c, mask)
+                x = block(x, c, mask, cos, sin, global_adaln, seq)
+        return x
 
     def unpatchify(self, x: Tensor, hw: Tuple[int, int],
                    channel_last: bool = False) -> Tensor:

@@ -41,6 +41,8 @@ from fitv2_tpu_torch.models.modules import (
     TimestepEmbedder)
 from fitv2_tpu_torch.models.modules_lwd import (
     SRN, TimestepDependentCoefficient)
+from fitv2_tpu_torch.parallel.comms import keep_grad
+from fitv2_tpu_torch.parallel.mesh import sequence_sharding
 
 Tensor = torch.Tensor
 Noise = Union[None, Callable[[Tuple[int, ...]], Tensor], Sequence[Tensor]]
@@ -86,9 +88,10 @@ class BlockStack(nn.ModuleList):
 
     def forward(self, x: Tensor, c: Tensor, mask: Optional[Tensor],
                 freqs_cos: Optional[Tensor], freqs_sin: Optional[Tensor],
-                global_adaln: Union[Tensor, float] = 0.0) -> Tensor:
+                global_adaln: Union[Tensor, float] = 0.0,
+                seq=None) -> Tensor:
         for block in self:
-            x = block(x, c, mask, freqs_cos, freqs_sin, global_adaln)
+            x = block(x, c, mask, freqs_cos, freqs_sin, global_adaln, seq)
         return x
 
 
@@ -122,9 +125,14 @@ class FiTLwD(nn.Module):
     ``kernels.quant.calibrate_quant_scales(model, [args])`` runs
     ``model(*args)`` (``init_all``) and binds each site's scale, then the
     serving GEMMs (K6, and K7 at the SwiGLU). ``add_rel_pe_to_v`` makes
-    ``rope_layout`` 'interleaved', as in JAX. ``sequence_mesh`` (slice
-    9b) is not ported and raises; ``use_checkpoint`` and ``use_sit`` do
-    not change a forward pass and are accepted for config compatibility.
+    ``rope_layout`` 'interleaved', as in JAX. ``sequence_mesh`` splits
+    each segment's and representation trunk's tokens over its sequence
+    axis after the patch embedder, as ``FiT``'s: the blocks, the final
+    layer and the REPA head run on this rank's tokens and their outputs
+    are gathered whole (unsplit where N or the heads do not divide, with
+    the gradient kept on sequence rank 0). ``use_checkpoint`` and
+    ``use_sit`` do not change a forward pass and are accepted for config
+    compatibility.
     """
 
     def __init__(self, context_size: int = 256, patch_size: int = 2,
@@ -160,10 +168,6 @@ class FiTLwD(nn.Module):
         super().__init__()
         if gemm_precision not in ('bf16', 'int8'):
             raise ValueError(f'gemm_precision={gemm_precision!r}')
-        if sequence_mesh is not None:
-            raise NotImplementedError(
-                'sequence_mesh: sequence parallelism (slice 9b) is not '
-                'ported')
         if depth % number_of_perflow:
             raise ValueError(f'depth {depth} does not split into '
                              f'{number_of_perflow} segments')
@@ -193,6 +197,7 @@ class FiTLwD(nn.Module):
         self.n_patch_h, self.n_patch_w = n_patch_h, n_patch_w
         self.rope_layout = rope_layout
         self.gemm_precision = gemm_precision
+        self.sequence_mesh = sequence_mesh
         self.rope_config = rope_lib.RopeConfig(
             head_dim=hidden_size // num_heads, mode=custom_freqs,
             theta=rope_theta, max_cached_len=max_cached_len,
@@ -348,10 +353,11 @@ class FiTLwD(nn.Module):
                       t_next: Optional[Tensor] = None) -> Tensor:
         """embed -> [shared trunk] -> segment blocks -> final layer."""
         h = self._emb(self.x_embedders, i)(x_tokens.to(self.dtype))
+        h, f_cos, f_sin, seq = self._split_tokens(h, f_cos, f_sin)
         if self.number_of_shared_blocks > 0:
             h = self.start_shared_blocks(h, c, mask, f_cos, f_sin,
-                                         global_adaln)
-        h = self.segments[i](h, c, mask, f_cos, f_sin, global_adaln)
+                                         global_adaln, seq)
+        h = self.segments[i](h, c, mask, f_cos, f_sin, global_adaln, seq)
         out = self._emb(self.final_layers, i)(h, c)
         if self.fourier_basis:
             if t_next is None:
@@ -361,14 +367,49 @@ class FiTLwD(nn.Module):
             coeff_cos, coeff_sin = out.chunk(2, dim=-1)
             out = coeff_cos * cos_b + coeff_sin * sin_b
         if mask is not None:
-            out = out * mask.to(out.dtype)[..., None]
-        return out
+            out = out * self._local(mask, seq).to(out.dtype)[..., None]
+        return self._gather_tokens(out, seq)
 
     def _rep_forward(self, i: int, x_tokens: Tensor, c: Tensor, mask,
                      f_cos, f_sin, global_adaln) -> Tensor:
         r = self.representation_x_embedder(x_tokens.to(self.dtype))
-        r = self.rep_segments[i](r, c, mask, f_cos, f_sin, global_adaln)
-        return self.linear_projection(r)
+        r, f_cos, f_sin, seq = self._split_tokens(r, f_cos, f_sin)
+        r = self.rep_segments[i](r, c, mask, f_cos, f_sin, global_adaln,
+                                 seq)
+        return self._gather_tokens(self.linear_projection(r), seq)
+
+    # -- the token split (sequence_mesh) --------------------------------------
+
+    def _sequence(self, n_tokens: int):
+        """The token split of an ``n_tokens`` trunk, or None
+        (``parallel.mesh.sequence_sharding``)."""
+        return sequence_sharding(self.sequence_mesh, n_tokens,
+                                 self.num_heads
+                                 // self.segments[0][0].attn.tp_size)
+
+    def _split_tokens(self, h: Tensor, f_cos, f_sin):
+        """(h, tables, split) of this rank's tokens where
+        ``sequence_mesh`` splits an N-token trunk, else as given with
+        split None."""
+        seq = self._sequence(h.shape[1])
+        if seq is None:
+            return h, f_cos, f_sin, None
+        return (seq.split(h), seq.split_const(f_cos), seq.split_const(f_sin),
+                seq)
+
+    @staticmethod
+    def _local(mask: Tensor, seq) -> Tensor:
+        return mask if seq is None else seq.split_const(mask)
+
+    def _gather_tokens(self, out: Tensor, seq) -> Tensor:
+        """A trunk's per-token output whole again; unsplit under a
+        sequence mesh, its gradient kept on sequence rank 0."""
+        if seq is not None:
+            return seq.gather(out)
+        mesh = self.sequence_mesh
+        if mesh is not None and mesh.size('sequence') > 1:
+            return keep_grad(out, mesh.coordinate('sequence') == 0)
+        return out
 
     def get_segment_index(self, t: float) -> int:
         """t in [0, 1] -> the segment id."""

@@ -13,6 +13,13 @@ The mid-block forecaster (``mid_blocks``, ``mid_coefficient``,
 ``mid_gate``) learns, in ``forward_run_layer_finetune``, to forecast the
 frozen encoder's representation (the finetune recipe of
 train/lwd_train_step.py); JAX's ``stop_gradient`` is ``.detach()`` there.
+
+Under ``sequence_mesh`` (``FiTLwD``'s) ``forward_run_layer`` splits the
+tokens after the encoder's and the decoder's patch embedders: the
+encoder's representation, the per-token conditioning and the decoder run
+on this rank's tokens, and the velocity and the REPA projection are
+gathered whole. The finetune forward runs unsplit (its outputs' gradient
+on sequence rank 0).
 """
 
 from __future__ import annotations
@@ -74,9 +81,13 @@ class FiTLwDSharedEncSepDec(FiTLwD):
     # -- the shared encoder ---------------------------------------------------
 
     def _encode_representation(self, x_tokens: Tensor, c: Tensor, mask,
-                               f_cos, f_sin, global_adaln) -> Tensor:
+                               f_cos, f_sin, global_adaln,
+                               seq=None) -> Tensor:
         r = self.representation_x_embedder2(x_tokens.to(self.dtype))
-        return self.shared_rep_blocks(r, c, mask, f_cos, f_sin, global_adaln)
+        if seq is not None:
+            r = seq.split(r)
+        return self.shared_rep_blocks(r, c, mask, f_cos, f_sin, global_adaln,
+                                      seq)
 
     def _token_cond(self, t_emb: Tensor, rep: Tensor):
         """c_repre = t_emb per token + the representation tokens, and its
@@ -87,13 +98,16 @@ class FiTLwDSharedEncSepDec(FiTLwD):
         return c_repre, 0.0
 
     def _decode(self, i: int, x_tokens: Tensor, c_repre: Tensor, g2, mask,
-                f_cos, f_sin) -> Tuple[Tensor, Tensor]:
-        """Segment i's decoder: (masked output, pre-final hidden)."""
+                f_cos, f_sin, seq=None) -> Tuple[Tensor, Tensor]:
+        """Segment i's decoder: (masked output, pre-final hidden); with
+        ``seq``, of this rank's tokens."""
         h = self._emb(self.x_embedders, i)(x_tokens.to(self.dtype))
-        h = self.segments[i](h, c_repre, mask, f_cos, f_sin, g2)
+        if seq is not None:
+            h = seq.split(h)
+        h = self.segments[i](h, c_repre, mask, f_cos, f_sin, g2, seq)
         out = self._emb(self.final_layers, i)(h, c_repre)
         if mask is not None:
-            out = out * mask.to(out.dtype)[..., None]
+            out = out * self._local(mask, seq).to(out.dtype)[..., None]
         return out, h
 
     def forward_run_layer(self, x: Tensor, t: Tensor, y: Tensor,
@@ -109,11 +123,15 @@ class FiTLwDSharedEncSepDec(FiTLwD):
         y_embed = self._emb(self.y_embedders, segment_idx)(
             y, train, force_drop_ids, generator)
         c, g, t_emb = self._cond(segment_idx, t, y_embed)
-        rep = self._encode_representation(x, c, mask, f_cos, f_sin, g)
+        seq = self._sequence(x.shape[1])
+        if seq is not None:
+            f_cos, f_sin = seq.split_const(f_cos), seq.split_const(f_sin)
+        rep = self._encode_representation(x, c, mask, f_cos, f_sin, g, seq)
         c_repre, g2 = self._token_cond(t_emb, rep)
         out, _ = self._decode(segment_idx, x, c_repre, g2, mask, f_cos,
-                              f_sin)
-        return out, self.rep_projection(rep)
+                              f_sin, seq)
+        return (self._gather_tokens(out, seq),
+                self._gather_tokens(self.rep_projection(rep), seq))
 
     def init_all(self, x: Tensor, t: Tensor, y: Tensor, grid: Tensor,
                  mask: Optional[Tensor], size: Optional[Tensor] = None,
@@ -179,8 +197,10 @@ class FiTLwDSharedEncSepDec(FiTLwD):
         rep_target = self.rep_projection(rep2).detach()
         c_repre2, g22 = self._token_cond(t_emb, rep2)
         x_target, _ = self._decode(i, x, c_repre2, g22, mask, f_cos, f_sin)
-        return {'x_pred': x_pred, 'x_target': x_target.detach(),
-                'rep_pred': rep_pred, 'rep_target': rep_target}
+        return {'x_pred': self._gather_tokens(x_pred, None),
+                'x_target': x_target.detach(),
+                'rep_pred': self._gather_tokens(rep_pred, None),
+                'rep_target': rep_target}
 
     def _segment_forward(self, i: int, x2: Tensor, t: Tensor, y2: Tensor,
                          mask, f_cos, f_sin, rep_transform=None

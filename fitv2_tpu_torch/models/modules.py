@@ -241,6 +241,14 @@ class Attention(nn.Module):
     The attention output still comes from the kernels. ``add_rel_pe_to_v``
     rotates v as well as q and k, with plain q/k norms and the interleaved
     layout (the split permutation does not preserve the value basis).
+
+    Under tensor parallelism (parallel/sharding.py) ``qkv`` yields this
+    rank's ``num_heads / tp_size`` heads and ``proj`` sums the ranks'
+    products. With ``seq`` (a ``parallel.mesh.SequenceShard``) x holds
+    this rank's block of the tokens and ``mask`` every token's: q, k and v
+    are normed and rotated on the local tokens, exchanged to every token
+    of 1/S of the heads (Ulysses), attended with the whole key mask, and
+    exchanged back.
     """
 
     def __init__(self, dim: int, num_heads: int, qkv_bias: bool = True,
@@ -256,6 +264,7 @@ class Attention(nn.Module):
                              "'fused'")
         self.num_heads = num_heads
         self.head_dim = dim // num_heads
+        self.tp_size = 1
         self.q_norm_type = q_norm
         self.k_norm_type = k_norm
         self.qk_norm_weight = qk_norm_weight
@@ -288,9 +297,9 @@ class Attention(nn.Module):
 
     def forward(self, x: Tensor, mask: Optional[Tensor] = None,
                 freqs_cos: Optional[Tensor] = None,
-                freqs_sin: Optional[Tensor] = None) -> Tensor:
+                freqs_sin: Optional[Tensor] = None, seq=None) -> Tensor:
         B, N, C = x.shape
-        H, Dh = self.num_heads, self.head_dim
+        H, Dh = self.num_heads // self.tp_size, self.head_dim
         qkv = self.qkv(x)
         if self.fused and self.use_rope and freqs_cos is not None:
             out = fused_attention.qkln_rope_attention(
@@ -320,11 +329,14 @@ class Attention(nn.Module):
                 logits = logits.masked_fill(
                     ~(mask > 0)[:, None, None, :], float('-inf'))
             self.attn_probs = torch.softmax(logits, dim=-1).detach()
+        if seq is not None:
+            q, k, v = seq.to_heads(q), seq.to_heads(k), seq.to_heads(v)
         out = masked_attention(q, k, v, mask, bounded_logits=self.bounded)
-        out = out.reshape(B, N, C)
-        if mask is not None:
-            out = out * mask.to(out.dtype)[..., None]  # zero padded queries
-        return self.proj(out)
+        if mask is not None:  # zero padded queries
+            out = out * mask.to(out.dtype)[..., None, None]
+        if seq is not None:
+            out = seq.to_tokens(out)
+        return self.proj(out.reshape(B, N, H * Dh))
 
 
 class AdaLNModulation(nn.Module):
@@ -401,13 +413,16 @@ class FiTBlock(nn.Module):
 
     def forward(self, x: Tensor, c: Tensor, mask: Optional[Tensor],
                 freqs_cos: Optional[Tensor], freqs_sin: Optional[Tensor],
-                global_adaln: Union[Tensor, float] = 0.0) -> Tensor:
+                global_adaln: Union[Tensor, float] = 0.0,
+                seq=None) -> Tensor:
+        """``seq``: the token split (``Attention``); x and the RoPE
+        tables then hold this rank's tokens, ``mask`` every token."""
         mod = self.adaLN_modulation(c) + global_adaln
         (shift_msa, scale_msa, gate_msa,
          shift_mlp, scale_mlp, gate_mlp) = mod.chunk(6, dim=-1)
         h = norm_modulate(x, shift_msa, scale_msa, self.norm1)
         x = x + _expand_mod(gate_msa, x) * self.attn(h, mask, freqs_cos,
-                                                      freqs_sin)
+                                                      freqs_sin, seq)
         h = norm_modulate(x, shift_mlp, scale_mlp, self.norm2)
         return x + _expand_mod(gate_mlp, x) * self.mlp(h)
 

@@ -1,13 +1,26 @@
-"""Data parallelism across processes: the mesh's data axis and the
-multi-process helpers.
+"""The mesh over the processes, and the multi-process helpers.
 
 Counterpart of fitv2_tpu/parallel/mesh.py. JAX lays one mesh over every
 chip and names its axes (data, stage, fsdp, sequence, tensor); the port
-runs one process a card (``torchrun``), each holding the whole model, and
-the mesh is its data axis only: gradients are averaged across the
-processes (train/train_step.make_step), each process loads its share of
-every global batch and samples its share of the FID images. The axes that
-shard the model (stage, fsdp, sequence, tensor) are slice 9b and raise.
+runs one process a card (``torchrun``) and lays a named
+``torch.distributed.device_mesh.DeviceMesh`` over the processes in JAX's
+order, data outermost and tensor innermost (``build_mesh``, which returns
+a ``Mesh``: JAX's ``mesh.shape`` dict, the DeviceMesh and the sub-groups
+of each axis). What each axis does:
+
+  - data: each process loads its share of every global batch; gradients
+    are averaged over the axis (train/train_step.make_step);
+  - fsdp: the batch is split over it too (``batch_sharding``: data x
+    fsdp shards), and FSDP2 shards every parameter over it
+    (parallel/sharding.py);
+  - sequence: the tokens are split over it (``sequence_sharding``,
+    ``constrain_sequence``; Ulysses attention, parallel/sharding.py);
+  - tensor: Megatron tensor parallelism of the blocks
+    (parallel/sharding.py);
+  - stage: GPipe over the block stack (parallel/pipeline.py).
+
+Ranks of one tensor, sequence or stage group hold the same batch shard:
+they load the same rows and draw the same t, noise and label drops.
 
 ``init_distributed`` reads torchrun's environment (RANK, WORLD_SIZE,
 LOCAL_RANK, LOCAL_WORLD_SIZE, MASTER_ADDR, MASTER_PORT) and starts the
@@ -28,6 +41,8 @@ import numpy as np
 import torch
 import torch.distributed as dist
 from torch.overrides import TorchFunctionMode
+
+from fitv2_tpu_torch.parallel import comms
 
 AXES = ('data', 'stage', 'fsdp', 'sequence', 'tensor')
 
@@ -55,21 +70,134 @@ class MeshConfig:
         return tuple(sizes)
 
 
+class Mesh:
+    """The (data, stage, fsdp, sequence, tensor) mesh over the processes.
+
+    ``shape``: JAX's ``Mesh.shape`` dict. ``device_mesh``: the named
+    DeviceMesh over the processes (None in one process). ``group(axis)``:
+    this rank's process group along ``axis`` (None where the axis has
+    extent 1); ``coordinate(axis)``: its index there. A model holds its
+    mesh as JAX's holds one (``sequence_mesh``): copies share it."""
+
+    def __init__(self, shape: Dict[str, int], device_mesh=None):
+        self.shape = dict(shape)
+        self.device_mesh = device_mesh
+
+    def __deepcopy__(self, memo):
+        return self
+
+    def __repr__(self) -> str:
+        return f'Mesh({self.shape})'
+
+    def size(self, axis: str) -> int:
+        return self.shape.get(axis, 1)
+
+    def group(self, axis: str):
+        if self.size(axis) == 1 or self.device_mesh is None:
+            return None
+        return self.device_mesh.get_group(axis)
+
+    def coordinate(self, axis: str) -> int:
+        if self.size(axis) == 1 or self.device_mesh is None:
+            return 0
+        return self.device_mesh.get_local_rank(axis)
+
+    @property
+    def shards_model(self) -> bool:
+        """Whether an axis other than data has extent above 1."""
+        return any(self.size(a) > 1 for a in AXES[1:])
+
+
 def build_mesh(config: Optional[MeshConfig] = None,
-               n_devices: Optional[int] = None) -> Dict[str, int]:
-    """The axis sizes (JAX's ``Mesh.shape``) of ``config`` over
-    ``n_devices`` (default: the processes). Only the data axis is ported:
-    an extent other than 1 on another axis raises NotImplementedError."""
+               n_devices: Optional[int] = None,
+               device_type: str = 'cpu') -> Mesh:
+    """The mesh of ``config`` over ``n_devices`` (default: the processes).
+    Where an axis other than data shards the model over more than one
+    process, it lays a DeviceMesh of ``device_type`` ('cuda' for a
+    trainer on the card) over them, data outermost: rank
+    ``(((d * stage + s) * fsdp + f) * sequence + q) * tensor + t`` (data
+    parallelism alone needs no process groups beyond the world's)."""
     config = config or MeshConfig()
-    sharded = {a: getattr(config, a) for a in AXES[1:]
-               if getattr(config, a) != 1}
-    if sharded:
-        raise NotImplementedError(
-            f'mesh axes {sharded}: model sharding (stage, fsdp, sequence, '
-            'tensor) is slice 9b, not ported; the port keeps the whole '
-            'model on one device a process and parallelises over data')
-    return dict(zip(AXES, config.resolve(
-        process_count() if n_devices is None else n_devices)))
+    world = process_count()
+    sizes = config.resolve(world if n_devices is None else n_devices)
+    device_mesh = None
+    if (world > 1 and int(np.prod(sizes)) == world
+            and any(s > 1 for s in sizes[1:])):
+        from torch.distributed.device_mesh import init_device_mesh
+        device_mesh = init_device_mesh(device_type, sizes,
+                                       mesh_dim_names=AXES)
+    return Mesh(dict(zip(AXES, sizes)), device_mesh)
+
+
+def batch_sharding(mesh: Optional[Mesh]) -> Tuple[int, int]:
+    """(index, count) of this rank's batch shard: the batch is split over
+    data x fsdp (JAX's ``P(('data', 'fsdp'))``); the ranks of a stage,
+    sequence or tensor group share one shard. Without a mesh: the
+    process's index and count."""
+    if mesh is None:
+        return process_index(), process_count()
+    f = mesh.size('fsdp')
+    return (mesh.coordinate('data') * f + mesh.coordinate('fsdp'),
+            mesh.size('data') * f)
+
+
+@dataclasses.dataclass(frozen=True)
+class SequenceShard:
+    """This rank's part of a token-split trunk: ``size`` contiguous token
+    blocks over ``group``, this rank's the ``rank``-th."""
+    group: Any
+    size: int
+    rank: int
+
+    def split(self, x: torch.Tensor, dim: int = 1) -> torch.Tensor:
+        return comms.split_dim(x, self.group, dim)
+
+    def split_const(self, x: Optional[torch.Tensor], dim: int = 1):
+        """This rank's block of a tensor that needs no gradient."""
+        if x is None:
+            return None
+        n = x.shape[dim] // self.size
+        return x.narrow(dim, self.rank * n, n).contiguous()
+
+    def gather(self, x: torch.Tensor, dim: int = 1) -> torch.Tensor:
+        return comms.gather_dim(x, self.group, dim)
+
+    def to_heads(self, x: torch.Tensor) -> torch.Tensor:
+        """(B, N/S, H, Dh) -> (B, N, H/S, Dh): Ulysses' first exchange."""
+        return comms.all_to_all_4d(x, self.group, 2, 1)
+
+    def to_tokens(self, x: torch.Tensor) -> torch.Tensor:
+        """(B, N, H/S, Dh) -> (B, N/S, H, Dh): the exchange back."""
+        return comms.all_to_all_4d(x, self.group, 1, 2)
+
+
+def sequence_sharding(mesh: Optional[Mesh], n_tokens: int,
+                      n_heads: Optional[int] = None
+                      ) -> Optional[SequenceShard]:
+    """The token split of an N-token trunk with ``n_heads`` heads a rank
+    under ``mesh``'s sequence axis, or None where the trunk runs unsplit:
+    no mesh or no sequence extent, a batch-only mesh (JAX pins its
+    activations to a device layout that has no torch counterpart), or N
+    or the heads not divisible by the extent (JAX then leaves the
+    activations unconstrained, mesh.py:126-129)."""
+    if mesh is None or mesh.size('sequence') == 1:
+        return None
+    s = mesh.size('sequence')
+    if n_tokens % s or (n_heads or s) % s or mesh.group('sequence') is None:
+        return None
+    return SequenceShard(mesh.group('sequence'), s,
+                         mesh.coordinate('sequence'))
+
+
+def constrain_sequence(x: torch.Tensor, mesh: Optional[Mesh],
+                       n_heads: Optional[int] = None) -> torch.Tensor:
+    """JAX's activation constraint, eagerly: (B, N, ...) ``x`` cut to
+    this rank's token block where ``sequence_sharding`` splits the trunk
+    (``n_heads``: the heads a rank, if the split must divide them too),
+    ``x`` itself everywhere else."""
+    shard = sequence_sharding(mesh, x.shape[1], n_heads) \
+        if x.dim() >= 2 else None
+    return x if shard is None else shard.split(x)
 
 
 def init_distributed(device: str = 'cuda') -> Tuple[int, int]:
@@ -198,13 +326,16 @@ class _RowShardDraws(TorchFunctionMode):
         return full[self.rank * b:(self.rank + 1) * b]
 
 
-def row_shard_draws(generator: Optional[torch.Generator]):
+def row_shard_draws(generator: Optional[torch.Generator],
+                    mesh: Optional[Mesh] = None):
     """A context in which each ``torch.rand`` / ``randn`` / ``randint``
     from ``generator`` is drawn at the global batch (its leading size
-    times the processes) and this process keeps its rows: with every
-    process's generator seeded alike, a data-parallel step draws what one
-    process draws for the whole batch, row for row. A no-op in one
-    process or without a generator."""
-    if generator is None or process_count() == 1:
+    times the batch shards) and this rank keeps its shard's rows: with
+    every rank's generator seeded alike, a parallel step draws what one
+    process draws for the whole batch, row for row. The shards are the
+    processes, or ``mesh``'s data x fsdp (``batch_sharding``). A no-op
+    with one shard or without a generator."""
+    index, count = batch_sharding(mesh)
+    if generator is None or count == 1:
         return contextlib.nullcontext()
-    return _RowShardDraws(generator, process_index(), process_count())
+    return _RowShardDraws(generator, index, count)

@@ -68,13 +68,14 @@ def ddpm_loss(model: nn.Module, diffusion: GaussianDiffusion,
 
 def make_ddpm_train_step(model: nn.Module, diffusion: GaussianDiffusion,
                          max_grad_norm: float = 1.0,
-                         ema_decay: float = 0.9999
+                         ema_decay: float = 0.9999, layout=None
                          ) -> Callable[..., Tuple[TrainState,
                                                   Dict[str, Tensor]]]:
     """``train_step(state, batch, generator=None, draws=None) -> (state,
     metrics)`` of a FiT (``learn_sigma=True`` for the learned-range
     variance) under ``diffusion``'s losses; metrics: loss, grad_norm, mse,
-    per_t_loss (B,) and t (B,)."""
+    per_t_loss (B,) and t (B,). ``layout``: as ``make_step``'s."""
     def loss_fn(model, batch, generator, draws):
         return ddpm_loss(model, diffusion, batch, generator, draws)
-    return make_step(model, loss_fn, max_grad_norm, ema_decay)
+    return make_step(model, loss_fn, max_grad_norm, ema_decay,
+                     layout=layout)

@@ -80,8 +80,9 @@ def _segment_params(model: nn.Module, extra: Sequence[str] = (),
 
 
 def _segment_step(model: nn.Module, loss_fn, max_grad_norm: float,
-                  ema_decay: float, required) -> SegmentStep:
-    step = make_step(model, loss_fn, max_grad_norm, ema_decay, required)
+                  ema_decay: float, required, layout=None) -> SegmentStep:
+    step = make_step(model, loss_fn, max_grad_norm, ema_decay, required,
+                     layout)
 
     def train_step(state: TrainState, batch: Dict[str, Tensor],
                    segment_idx: int,
@@ -134,8 +135,8 @@ def _forward(model, x, t, batch, k, generator, draws, grid=None, mask=None,
 
 
 def make_lwd_train_step(model: nn.Module, max_grad_norm: float = 1.0,
-                        ema_decay: float = 0.9999, repa_weight: float = 0.5
-                        ) -> SegmentStep:
+                        ema_decay: float = 0.9999, repa_weight: float = 0.5,
+                        layout=None) -> SegmentStep:
     """Random-segment reflow: the masked MSE of segment k's velocity
     against (xt - xt_in) / dsigma, plus ``repa_weight`` times the REPA
     alignment loss when the model has a REPA head and the batch a
@@ -162,14 +163,15 @@ def make_lwd_train_step(model: nn.Module, max_grad_norm: float = 1.0,
                                            'proj_loss': proj.detach()}
 
     return _segment_step(model, loss_fn, max_grad_norm, ema_decay,
-                         _segment_params(model))
+                         _segment_params(model), layout=layout)
 
 
 def make_lwd_distill_step(student: nn.Module,
                           teacher_apply: Callable[[Tensor, Tensor, Dict],
                                                   Tensor],
                           solver_steps: int = 8, max_grad_norm: float = 1.0,
-                          ema_decay: float = 0.9999) -> SegmentStep:
+                          ema_decay: float = 0.9999,
+                          layout=None) -> SegmentStep:
     """Teacher-trajectory distillation: the segment's end state is the
     frozen teacher's velocity field rolled from xt_in with
     ``solver_steps`` Euler sub-steps over the float64 sub-sigmas (no
@@ -200,12 +202,13 @@ def make_lwd_distill_step(student: nn.Module,
         return _masked_mse(pred, target, batch['mask']), {}
 
     return _segment_step(student, loss_fn, max_grad_norm, ema_decay,
-                         _segment_params(student))
+                         _segment_params(student), layout=layout)
 
 
 def make_lwd_finetune_step(model: nn.Module, max_grad_norm: float = 1.0,
                            ema_decay: float = 0.9999, mode: str = 'replace',
-                           rep_weight: float = 0.0) -> SegmentStep:
+                           rep_weight: float = 0.0,
+                           layout=None) -> SegmentStep:
     """The mid-block forecaster's finetune (a shared-encoder model's
     ``forward_run_layer_finetune``): the forecaster learns the frozen
     encoder's representation at the segment start (t_next = sigma_k,
@@ -241,7 +244,7 @@ def make_lwd_finetune_step(model: nn.Module, max_grad_norm: float = 1.0,
 
     return _segment_step(model, loss_fn, max_grad_norm, ema_decay,
                          _segment_params(model, ['mid_blocks'],
-                                         labels=False))
+                                         labels=False), layout=layout)
 
 
 def _tier_of(segment_idx: int, multi_scale_indices) -> int:
@@ -267,7 +270,8 @@ def make_lwd_multiscale_train_step(model: nn.Module,
                                    max_grad_norm: float = 1.0,
                                    ema_decay: float = 0.9999,
                                    multi_scale_indices=(2, 7),
-                                   gamma: float = 1.0 / 3.0) -> SegmentStep:
+                                   gamma: float = 1.0 / 3.0,
+                                   layout=None) -> SegmentStep:
     """Multi-scale segment training: ``multi_scale_indices`` group the
     segments into T resolution tiers; tier k trains at 1/2^(T-1-k) of the
     full grid on bilinear-downsampled data and noise (the noise scaled by
@@ -332,4 +336,4 @@ def make_lwd_multiscale_train_step(model: nn.Module,
         return loss, {'tier': torch.tensor(float(tier), device=x.device)}
 
     return _segment_step(model, loss_fn, max_grad_norm, ema_decay,
-                         _segment_params(model))
+                         _segment_params(model), layout=layout)

@@ -28,8 +28,12 @@ Differences from the JAX trainer, by design:
   a batch already taken and starts the loader at the resume step, so it
   equals the uninterrupted run; JAX rebuilds both streams from their start
   and repeats its first segments and batches;
-- a checkpoint that cannot be read raises; the mesh axes that shard the
-  model (fsdp, tensor: slice 9b) raise.
+- a checkpoint that cannot be read raises.
+
+``mesh_fsdp`` and ``mesh_tensor`` shard the model as ``Trainer``'s axes do
+(parallel/sharding.py ``shard_model``; FSDP2 also hooks
+``forward_run_layer`` and the finetune forward); the segment updates'
+``required`` zero gradients go into FSDP2's reduce-scatter with the rest.
 """
 
 from __future__ import annotations
@@ -42,7 +46,9 @@ from typing import Any, Callable, Dict, Optional
 import torch
 
 from fitv2_tpu_torch.ckpt.checkpoint import CheckpointManager
-from fitv2_tpu_torch.parallel.mesh import MeshConfig, build_mesh
+from fitv2_tpu_torch.parallel.mesh import (
+    MeshConfig, broadcast_, build_mesh)
+from fitv2_tpu_torch.parallel.sharding import shard_model
 from fitv2_tpu_torch.train import lwd_train_step as steps
 from fitv2_tpu_torch.train.train_step import (
     OptimizerConfig, TrainState, create_train_state)
@@ -73,7 +79,7 @@ class LwDTrainerConfig:
     checkpoints_total_limit: Optional[int] = 4
     log_every: int = 100
     # the JAX trainer's mesh axes: data spans the processes (-1: all of
-    # them); fsdp and tensor shard the model (slice 9b) and must be 1
+    # them); fsdp and tensor shard the model
     mesh_data: int = -1
     mesh_fsdp: int = 1
     mesh_tensor: int = 1
@@ -101,8 +107,6 @@ class LwDTrainer:
         ``loader``: an object with ``train_dataloader(batch_size,
         max_steps, resume_step, seed)``; default the shards at
         ``data_path``."""
-        build_mesh(MeshConfig(data=config.mesh_data, fsdp=config.mesh_fsdp,
-                              tensor=config.mesh_tensor))
         if recipe not in RECIPES:
             raise ValueError(f'unknown LwD recipe: {recipe!r}')
         self.cfg = config
@@ -110,11 +114,21 @@ class LwDTrainer:
         if self.device.type == 'cuda' and not torch.cuda.is_available():
             raise RuntimeError(f'device {config.device!r}: no CUDA card; '
                                "pass device='cpu' to train on the CPU")
+        self.mesh = build_mesh(MeshConfig(
+            data=config.mesh_data, fsdp=config.mesh_fsdp,
+            tensor=config.mesh_tensor), device_type=self.device.type)
         self.preempted = False
         self.master_model = model.to(self.device, torch.float32)
         dtype = getattr(torch, config.dtype)
-        self.model = (self.master_model if dtype == torch.float32
-                      else copy.deepcopy(self.master_model).to(dtype))
+        self.layout = None
+        if self.mesh.shards_model:
+            broadcast_(list(self.master_model.parameters()))
+            self.model, self.layout = shard_model(
+                self.master_model, self.mesh, dtype, forward_methods=(
+                    'forward_run_layer', 'forward_run_layer_finetune'))
+        else:
+            self.model = (self.master_model if dtype == torch.float32
+                          else copy.deepcopy(self.master_model).to(dtype))
         self.loader = loader
         self.ckpt = CheckpointManager(
             os.path.join(config.output_dir, 'checkpoints'),
@@ -125,7 +139,7 @@ class LwDTrainer:
             max_grad_norm=config.max_grad_norm,
             weight_decay=config.weight_decay)
         common = dict(max_grad_norm=config.max_grad_norm,
-                      ema_decay=config.ema_decay)
+                      ema_decay=config.ema_decay, layout=self.layout)
         if teacher_apply is not None:
             self._train_step = steps.make_lwd_distill_step(
                 self.model, teacher_apply, distill_solver_steps, **common)

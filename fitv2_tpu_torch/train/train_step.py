@@ -39,6 +39,13 @@ the norm and the clip, and the scalar metrics are averaged too. Every loss
 here is a mean over the batch of per-sample means, so with equal shards
 the average of the processes' gradients is the whole batch's: a run's
 result depends on the process count only through the order of that sum.
+
+Model sharding (``make_step(..., layout=...)``, parallel/sharding.py):
+the model's parameters are this rank's shards (FSDP2's local tensors,
+tensor-parallel slices, a pipeline stage's blocks); the draws keep the
+rows of the rank's data x fsdp batch shard; the layout reduces the local
+gradients over the groups that share them and takes the global norm over
+every shard; AdamW and the EMA run on the local shards.
 """
 
 from __future__ import annotations
@@ -54,6 +61,7 @@ from torch import nn
 from fitv2_tpu_torch.flow.transport import Transport
 from fitv2_tpu_torch.parallel.mesh import (
     all_reduce_mean_, process_count, row_shard_draws)
+from fitv2_tpu_torch.parallel.sharding import local
 from fitv2_tpu_torch.train.came import CAME
 
 Tensor = torch.Tensor
@@ -400,7 +408,8 @@ def create_train_state(model: nn.Module, cfg: OptimizerConfig,
     the model's device. The optimizer is ``cfg``'s (``build_optimizer``)
     unless ``optimizer_fn(masters)`` builds another (a grouped or finetune
     optimizer; the clip is then each group's)."""
-    named = dict(model.named_parameters())
+    named = {n: local(p) for n, p in model.named_parameters()
+             if p.device.type != 'meta'}
     params = {n: p if p.dtype == torch.float32
               else p.detach().float().clone() for n, p in named.items()}
     ema = {n: p.detach().clone() for n, p in params.items()}
@@ -437,7 +446,8 @@ def flow_loss(model: nn.Module, transport: Transport,
 
 def make_step(model: nn.Module, loss_fn: LossFn, max_grad_norm: float = 1.0,
               ema_decay: float = 0.9999,
-              required: Optional[Callable[..., Set[str]]] = None
+              required: Optional[Callable[..., Set[str]]] = None,
+              layout=None
               ) -> Callable[..., Tuple[TrainState, Dict[str, Tensor]]]:
     """The train step of ``model`` (the compute-dtype FiT) under
     ``loss_fn(model, batch, generator, draws, **kwargs) -> (loss,
@@ -454,21 +464,28 @@ def make_step(model: nn.Module, loss_fn: LossFn, max_grad_norm: float = 1.0,
     that must get one), a step may use a part of the model (an LwD
     segment): a parameter outside ``required`` that gets no gradient gets
     a zero one, as ``jax.grad`` gives it, so the norm, the clip and AdamW
-    cover every parameter (Adam moves it by its momentum) as optax does."""
-    names, model_params = zip(*model.named_parameters())
+    cover every parameter (Adam moves it by its momentum) as optax does.
+
+    ``layout`` (a ``parallel.sharding.ShardedLayout``): ``model`` is
+    sharded over its mesh; the step covers this rank's parameters (a
+    pipeline stage's blocks; the local tensors of FSDP2's shards)."""
+    names, model_params = zip(*(
+        (n, p) for n, p in model.named_parameters()
+        if p.device.type != 'meta'))
+    mesh = None if layout is None else layout.mesh
 
     def train_step(state: TrainState, batch: Dict[str, Tensor],
                    generator: Optional[torch.Generator] = None,
                    draws: Optional[Dict[str, Tensor]] = None, **kwargs):
         masters = list(state.params.values())
-        copies = [p for p, m in zip(model_params, masters) if p is not m]
-        if copies:
+        pairs = [(p, m) for p, m in zip(model_params, masters)
+                 if local(p) is not m]
+        if pairs:
             with torch.no_grad():
-                torch._foreach_copy_(
-                    copies, [m for p, m in zip(model_params, masters)
-                             if p is not m])
+                torch._foreach_copy_([p for p, _ in pairs],
+                                     [m for _, m in pairs])
         model.zero_grad(set_to_none=True)
-        with row_shard_draws(generator):
+        with row_shard_draws(generator, mesh):
             loss, metrics = loss_fn(model, batch, generator, draws, **kwargs)
         loss.backward()
         need = set(names) if required is None else required(**kwargs)
@@ -478,17 +495,24 @@ def make_step(model: nn.Module, loss_fn: LossFn, max_grad_norm: float = 1.0,
             raise RuntimeError(
                 f'no gradient for {len(missing)} parameters ({missing[:5]}'
                 '...): an output upstream of them has no grad_fn')
-        grads = [torch.zeros_like(p, dtype=torch.float32) if p.grad is None
-                 else p.grad.float() for p in model_params]
+        grads = [torch.zeros_like(local(p), dtype=torch.float32)
+                 if p.grad is None else local(p.grad).float()
+                 for p in model_params]
         model.zero_grad(set_to_none=True)
         world = process_count()
-        if world > 1:
-            grads = _all_reduce_mean(grads)
-        norm = global_norm(grads)
+        if layout is not None:
+            grads = layout.reduce_grads(names, grads)
+            norm = layout.global_norm(names, grads)
+        else:
+            if world > 1:
+                grads = _all_reduce_mean(grads)
+            norm = global_norm(grads)
         clip_norm = norm
         if state.accumulator is not None:
             grads = state.accumulator.update(grads)
             clip_norm = None
+            if grads is not None and layout is not None:
+                clip_norm = layout.global_norm(names, grads)
         if grads is not None:
             if not isinstance(state.optimizer, MultiTransform):
                 clip_by_global_norm(grads, max_grad_norm, clip_norm)
@@ -521,11 +545,13 @@ def _all_reduce_mean(grads: List[Tensor]) -> List[Tensor]:
 
 
 def make_train_step(model: nn.Module, transport: Transport,
-                    max_grad_norm: float = 1.0, ema_decay: float = 0.9999
+                    max_grad_norm: float = 1.0, ema_decay: float = 0.9999,
+                    layout=None
                     ) -> Callable[..., Tuple[TrainState, Dict[str, Tensor]]]:
     """The flow-matching train step (``make_step`` over ``flow_loss``);
     metrics: ``loss`` and ``grad_norm``."""
     def loss_fn(model, batch, generator, draws):
         loss, _ = flow_loss(model, transport, batch, generator, draws)
         return loss, {}
-    return make_step(model, loss_fn, max_grad_norm, ema_decay)
+    return make_step(model, loss_fn, max_grad_norm, ema_decay,
+                     layout=layout)

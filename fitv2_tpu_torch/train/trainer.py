@@ -11,8 +11,15 @@ and the preemption guard, in one loop. Each process runs on one device,
 every global batch (``shard_indices``), the gradients are averaged
 (train/train_step.make_step), process 0 writes the checkpoints and every
 process restores them, and a preemption signal on any process stops all
-after the same step. The pipeline, FSDP, sequence and tensor axes (slice
-9b) raise.
+after the same step. The mesh's other axes shard the model
+(parallel/sharding.py ``shard_model``: FSDP2, tensor, sequence, and the
+GPipe stages with ``pp_microbatches`` a data shard): the batch is split
+over data x fsdp, the ranks of a batch shard load the same rows and draw
+alike, and the checkpoint holds the one-process layout whatever the mesh
+(process 0 gathers it; every rank restores its shards from it). JAX's
+refusals hold: the pipeline takes the flow objective only, composes with
+the data axis only, and needs a batch that splits into the data shards x
+``pp_microbatches``; CAME under model sharding is not ported.
 
 Differences from the JAX trainer, by design:
 - the initial parameters are the given model's own (the port initialises
@@ -42,8 +49,9 @@ from fitv2_tpu_torch.ckpt.checkpoint import (
 from fitv2_tpu_torch.data.latent_dataset import INLatentLoader
 from fitv2_tpu_torch.flow.transport import Transport, create_transport
 from fitv2_tpu_torch.parallel.mesh import (
-    MeshConfig, broadcast_, build_mesh, process_count, process_index,
-    sync_global_devices)
+    MeshConfig, batch_sharding, broadcast_, build_mesh, process_count,
+    process_index, sync_global_devices)
+from fitv2_tpu_torch.parallel.sharding import check_axes, shard_model
 from fitv2_tpu_torch.sched.gaussian_diffusion import create_diffusion
 from fitv2_tpu_torch.train.ddpm_train_step import make_ddpm_train_step
 from fitv2_tpu_torch.train.lr_scheduler import get_scheduler
@@ -92,12 +100,13 @@ class TrainerConfig:
     mixed_precision: str = 'bf16'
     device: str = 'cuda'
     # the JAX trainer's mesh axes: data spans the processes (-1: all of
-    # them); the axes that shard the model (slice 9b) must be 1
+    # them); stage > 1 runs GPipe with pp_microbatches a data shard
     mesh_data: int = -1
     mesh_stage: int = 1
     mesh_fsdp: int = 1
     mesh_sequence: int = 1
     mesh_tensor: int = 1
+    pp_microbatches: int = 4
     # checkpoints and logging
     output_dir: str = 'runs/fitv2'
     checkpointing_steps: int = 4000
@@ -112,9 +121,7 @@ class TrainerConfig:
     log_every: int = 100
 
 
-def _refuse_unported(cfg: TrainerConfig) -> None:
-    build_mesh(MeshConfig(cfg.mesh_data, cfg.mesh_stage, cfg.mesh_fsdp,
-                          cfg.mesh_sequence, cfg.mesh_tensor))
+def _check_config(cfg: TrainerConfig) -> None:
     if cfg.objective not in ('flow', 'ddpm'):
         raise ValueError(f"objective={cfg.objective!r}: 'flow' or 'ddpm'")
     if cfg.optimizer not in ('adamw', 'came'):
@@ -122,6 +129,9 @@ def _refuse_unported(cfg: TrainerConfig) -> None:
     if cfg.mixed_precision not in _DTYPES:
         raise ValueError(f'mixed_precision={cfg.mixed_precision!r}: one of '
                          f'{sorted(_DTYPES)}')
+    if cfg.mesh_stage > 1 and cfg.objective == 'ddpm':
+        raise ValueError('pipeline parallelism supports the flow '
+                         'objective only')
 
 
 def batch_to_device(batch_np: Dict[str, np.ndarray], device: torch.device
@@ -145,20 +155,47 @@ class Trainer:
             # int8 rounding has no gradient: W8A8 is a serving mode only
             raise ValueError("gemm_precision='int8' is inference-only; "
                              'train in bf16 and quantize for serving')
-        _refuse_unported(config)
+        _check_config(config)
         self.cfg = config
         self.device = torch.device(config.device)
         if self.device.type == 'cuda' and not torch.cuda.is_available():
             raise RuntimeError(f'device {config.device!r}: no CUDA card; '
                                "pass device='cpu' to train on the CPU")
+        self.mesh = build_mesh(MeshConfig(
+            config.mesh_data, config.mesh_stage, config.mesh_fsdp,
+            config.mesh_sequence, config.mesh_tensor),
+            device_type=self.device.type)
+        check_axes(self.mesh)
+        if config.mesh_stage > 1:
+            shards = batch_sharding(self.mesh)[1]
+            if (config.global_batch_size % shards or
+                    (config.global_batch_size // shards)
+                    % config.pp_microbatches):
+                raise ValueError(
+                    f'global_batch_size={config.global_batch_size} must '
+                    f'split into {shards} data shard(s) x '
+                    f'pp_microbatches={config.pp_microbatches}')
         self.preempted = False
         self.transport = transport or create_transport(
             config.path_type, config.prediction, snr_type=config.snr_type)
         # the fp32 model holds the master parameters; a bf16 copy computes
+        # (under fsdp: FSDP2's bf16 gathers of the fp32 shards)
         self.master_model = model.to(self.device, torch.float32)
         dtype = _DTYPES[config.mixed_precision]
-        self.model = (self.master_model if dtype == torch.float32
-                      else copy.deepcopy(self.master_model).to(dtype))
+        self.layout = None
+        if self.mesh.shards_model:
+            if config.optimizer != 'adamw':
+                raise NotImplementedError(
+                    f'optimizer={config.optimizer!r} under model sharding '
+                    'is not ported (slice 9c); use adamw')
+            # every rank starts from process 0's weights, then shards them
+            broadcast_(list(self.master_model.parameters()))
+            self.model, self.layout = shard_model(
+                self.master_model, self.mesh, dtype,
+                pp_microbatches=config.pp_microbatches)
+        else:
+            self.model = (self.master_model if dtype == torch.float32
+                          else copy.deepcopy(self.master_model).to(dtype))
         self.loader = loader
         self.ckpt = CheckpointManager(
             os.path.join(config.output_dir, 'checkpoints'),
@@ -185,11 +222,11 @@ class Trainer:
                 learn_sigma=model.learn_sigma)
             self._train_step = make_ddpm_train_step(
                 self.model, self.diffusion, config.max_grad_norm,
-                config.ema_decay)
+                config.ema_decay, layout=self.layout)
         else:
             self._train_step = make_train_step(
                 self.model, self.transport, config.max_grad_norm,
-                config.ema_decay)
+                config.ema_decay, layout=self.layout)
 
     def init_state(self) -> TrainState:
         """A fresh state from the master model's current parameters."""
@@ -241,13 +278,19 @@ def train_loop(trainer, run_batch: Callable[[TrainState, Dict], Any],
     EMA there). Data parallel, each process takes its share of every
     global batch (its loader gets ``process_index`` and
     ``process_count``), a fresh run starts from process 0's parameters,
-    process 0 writes the checkpoints and a barrier follows each save."""
+    process 0 writes the checkpoints and a barrier follows each save.
+    Under model sharding (``trainer.layout``) the shards are data x fsdp,
+    the checkpoint is gathered into the one-process layout, and every rank
+    restores its shards from it."""
     cfg = trainer.cfg
     max_steps = max_steps or cfg.max_steps
+    layout = getattr(trainer, 'layout', None)
     rank, world = process_index(), process_count()
-    if cfg.global_batch_size % world:
+    shard_index, shards = batch_sharding(
+        None if layout is None else layout.mesh)
+    if cfg.global_batch_size % shards:
         raise ValueError(f'global_batch_size={cfg.global_batch_size} does '
-                         f'not split into {world} processes')
+                         f'not split into {shards} batch shards')
     if trainer.loader is None:
         trainer.loader = INLatentLoader(
             cfg.data_path, cfg.target_len, cfg.random_mode,
@@ -256,19 +299,25 @@ def train_loop(trainer, run_batch: Callable[[TrainState, Dict], Any],
     step = (latest_checkpoint_step(trainer.ckpt.ckpt_dir) or 0) if resume \
         else 0
     state = trainer.state = trainer.init_state()
-    if step:
+    if step and layout is not None:
+        layout.load_full_state_dict(state, trainer.ckpt.restore(
+            step, map_location='cpu', mmap=True))
+        logger.info('resumed from step %d', step)
+    elif step:
         state.load_state_dict(trainer.ckpt.restore(
             step, map_location=trainer.device))
         logger.info('resumed from step %d', step)
-    elif world > 1:  # every process starts from process 0's parameters
+    elif world > 1 and layout is None:
+        # every process starts from process 0's parameters (a sharded
+        # trainer broadcast them before sharding)
         broadcast_(list(state.params.values()))
         with torch.no_grad():
             torch._foreach_copy_(list(state.ema_params.values()),
                                  list(state.params.values()))
     if on_start is not None:
         on_start(step)
-    shard = (dict(process_index=rank, process_count=world) if world > 1
-             else {})
+    shard = (dict(process_index=shard_index, process_count=shards)
+             if shards > 1 else {})
     it = iter(trainer.loader.train_dataloader(
         cfg.global_batch_size, max_steps, step, cfg.seed, **shard))
     guard = PreemptionGuard(enabled=cfg.handle_preemption,
@@ -294,8 +343,11 @@ def train_loop(trainer, run_batch: Callable[[TrainState, Dict], Any],
             preempted = guard.should_stop(step)
             if (step % cfg.checkpointing_steps == 0 or step >= max_steps
                     or preempted):
+                sd = (state.state_dict() if layout is None
+                      else layout.full_state_dict(state))
                 if rank == 0:
-                    trainer.ckpt.save(step, state.state_dict())
+                    trainer.ckpt.save(step, sd)
+                del sd
                 sync_global_devices('checkpoint')
             if preempted:
                 trainer.ckpt.wait()

@@ -396,8 +396,11 @@ def test_unported_options_raise():
         4 * SMALL['depth']
     with pytest.raises(ValueError, match='gemm_precision'):
         FiTLwD(**SMALL, gemm_precision='fp8')
-    with pytest.raises(NotImplementedError, match='slice 9'):
-        FiTLwD(**SMALL, sequence_mesh=object())
+    # sequence parallelism is ported (test_torch_port_sharding.py): in one
+    # process the mesh's sequence axis has extent 1 and nothing splits
+    from fitv2_tpu_torch.parallel import build_mesh
+    mesh = build_mesh()
+    assert FiTLwD(**SMALL, sequence_mesh=mesh).sequence_mesh is mesh
     with pytest.raises(ValueError, match='segments'):
         FiTLwD(**dict(SMALL, depth=5))
 

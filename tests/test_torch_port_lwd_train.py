@@ -66,6 +66,9 @@ SHARED = dict(KW, number_of_representation_blocks=1, repa_dim=16)
 MULTI = dict(KW, context_size=64, n_patch_h=8, n_patch_w=8, depth=3,
              number_of_perflow=3)
 MULTI_INDICES = (1, 2)
+# BFM-XL's weighted RMSNorm q/k (one (Dh,) weight that every head shares):
+# the tensor axis sums its gradient over the head split
+RMS = dict(KW, q_norm='rmsnorm', k_norm='rmsnorm')
 
 
 @pytest.fixture(autouse=True, scope='module')
@@ -97,7 +100,8 @@ def variant(name):
         specs = {'plain': (JFiTLwD, FiTLwD, KW),
                  'repa': (JFiTLwD, FiTLwD, REPA),
                  'shared': (JShared, FiTLwDSharedEncSepDec, SHARED),
-                 'multi': (JFiTLwD, FiTLwD, MULTI)}
+                 'multi': (JFiTLwD, FiTLwD, MULTI),
+                 'rms': (JFiTLwD, FiTLwD, RMS)}
         jcls, pcls, kw = specs[name]
         jm, params, _ = jax_and_port(jcls(**kw), pcls(**kw),
                                      seed=list(specs).index(name))

@@ -314,12 +314,15 @@ def test_mesh_resolve_matches_jax(kw, n):
 
 
 def test_build_mesh_takes_the_data_axis_only():
-    assert pmesh.build_mesh() == dict(data=1, stage=1, fsdp=1, sequence=1,
-                                      tensor=1)
-    assert pmesh.build_mesh(pmesh.MeshConfig(data=4), 4)['data'] == 4
+    # every axis is ported: the sizes resolve as JAX's (the sharded runs
+    # are test_torch_port_sharding.py's)
+    assert pmesh.build_mesh().shape == dict(data=1, stage=1, fsdp=1,
+                                            sequence=1, tensor=1)
+    assert pmesh.build_mesh(pmesh.MeshConfig(data=4), 4).shape['data'] == 4
     for axis in ('stage', 'fsdp', 'sequence', 'tensor'):
-        with pytest.raises(NotImplementedError, match='slice 9b'):
-            pmesh.build_mesh(pmesh.MeshConfig(**{axis: 2}), 2)
+        mesh = pmesh.build_mesh(pmesh.MeshConfig(data=1, **{axis: 2}), 2)
+        assert mesh.shape[axis] == 2 and mesh.shards_model
+        assert mesh.device_mesh is None  # one process: no process groups
     with pytest.raises(AssertionError):
         pmesh.build_mesh(pmesh.MeshConfig(data=2))  # one process
     # one process: every helper acts on it alone

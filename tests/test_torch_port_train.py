@@ -838,7 +838,8 @@ def test_trainer_preemption_writes_a_checkpoint_and_returns(shard_dir,
 
 def test_trainer_refuses_what_is_not_ported(shard_dir, tmp_path):
     out = str(tmp_path / 'run')
-    for kw, err in ((dict(mesh_fsdp=2), NotImplementedError),
+    # a 2-way fsdp axis does not resolve over one process (JAX's assert)
+    for kw, err in ((dict(mesh_fsdp=2), AssertionError),
                     (dict(objective='vae'), ValueError),
                     (dict(mixed_precision='fp16'), ValueError)):
         with pytest.raises(err):
