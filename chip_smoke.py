@@ -105,7 +105,8 @@ Phases (any failure raises and exits non-zero; nothing is caught):
                 each: the denoise rate (the median of V1_RATE_CALLS calls,
                 with their range), then VAE, uint8, npz with exact
                 launch counts (a forward: K1 57, K2 28, K3 28; K4-K7 0);
-                (d) cli/train.py's build_trainer on the config with its
+                (d) (in 11 (c)'s child process, for phase 18's CAME run)
+                cli/train.py's build_trainer on the config with its
                 depth cut to 4 (batch 32, the ddpm objective) on phase
                 11's shards: 10 steps with a checkpoint at 6, a new
                 trainer resumed from 6, deterministic algorithms on;
@@ -146,7 +147,8 @@ Phases (any failure raises and exits non-zero; nothing is caught):
                 grids (N 16 and 64, batch 32, XL widths) and K3's at
                 BFM-XL's shape (RMSNorm'd q/k, batch 32, N 256), bf16 and
                 fp32, at phase 11's gates; (b) one fp32 FiTLwD-XL reflow
-                segment update (configs/fitv2_xl_lwd.yaml as it stands,
+                segment update (configs/fitv2_xl_lwd.yaml cut to depth
+                LWD_DET_DEPTH as (c)'s run, for phase 18's CAME run,
                 batch 4, label drops) on CUDA against the CPU on the same
                 weights and draws: the loss, the gradient norm, every
                 updated master and first moment within 1e-4 relative L2;
@@ -266,10 +268,21 @@ Phases (any failure raises and exits non-zero; nothing is caught):
                 widths (configs/fitv2_hr_3b.yaml, N 1024, depth
                 SH_HR_DEPTH); (d) stage with pp_microbatches 4; (e) the
                 LwDTrainer under fsdp at BFM-XL widths (K3, one segment
-                update); then (f) an fsdp run in bf16 interrupted and
+                update); (g) cli/train.py --came under tensor (fp32, 2
+                steps from the seeded weights, weight decay 0), with an
+                InlineEvalHook at step 2 (batch 2, 4 Euler steps, CFG
+                1.5, no VAE; sampling Trainer.one_process_model from the
+                gathered EMA, each rank under its own folder); then (f)
+                an fsdp run in bf16 interrupted and
                 resumed against its uninterrupted twin, whose steps 2-3
-                give (a)'s bf16 rate. This process runs (a)-(e) alone
-                first ((a), (b) and (d) share one run). The models'
+                give (a)'s bf16 rate. This process runs (a)-(e) and (g)
+                alone first ((a), (b) and (d) share one run). (g) holds
+                the sharded run's parameters and its checkpoint's CAME
+                state (the one-process layout) against one process's
+                after 2 steps, and its preview against a one-process
+                hook's on that checkpoint's EMA, each within
+                TOL_SHARD_CAME relative L2, process 0 alone writing it;
+                its hook's launches are counted apart. The models'
                 all-zero parameters start random from one seed: at the
                 zero init the first gradient lies in the final layer's
                 linear alone, which the tensor and stage ranks compute
@@ -284,8 +297,9 @@ Phases (any failure raises and exits non-zero; nothing is caught):
                 the host under gloo) each collective took. (0): K1, K2,
                 K4 and K3 in their Functions at the per-rank shapes
                 against autograd of their plain versions.
-The deterministic trainer runs of 11 (c), 12 (d) and 14 (c) run in child
-processes of this script (`--child NAME DIR`) with
+The deterministic trainer runs of 11 (c) and 12 (d) (one child process)
+and of 14 (c) (another) run in child processes of this script (`--child
+NAMES DIR`) with
 CUBLAS_WORKSPACE_CONFIG=:4096:8, which deterministic algorithms require
 and which cuBLAS reads once when it starts: set for the whole process, it
 made every sampler step's host side 2.0-2.4x slower. Everything else runs
@@ -1914,7 +1928,9 @@ def phase_train(card, out_dir):
     import torch
     from fitv2_tpu_torch.cli import train as cli
     torch.cuda.empty_cache()  # the child's trainer gets the card's memory
-    det = _run_child_phase('train', out_dir)
+    # 12 (d) runs in the same child: one process start less
+    both = _run_child_phase(('train', 'fitv1_train'), out_dir)
+    det = both['train']
     batch = det['batch']
     timed = 2 * TRAIN_TIMED
     cfg = _train_config('configs/fitv2_xl.yaml', out_dir, TRAIN_RESUME)
@@ -1939,7 +1955,8 @@ def phase_train(card, out_dir):
         f'{peak_t / 2 ** 30:.2f} GiB; launches {counts_t} == '
         f'expected [{card}]')
     return det['counts'], det['counts_resumed'], dict(
-        det, ms_per_step=ms, images_per_s=batch / ms * 1e3,
+        det, fitv1_train=both['fitv1_train'], ms_per_step=ms,
+        images_per_s=batch / ms * 1e3,
         peak_gib=peak_t / 2 ** 30)
 
 
@@ -2658,7 +2675,8 @@ def phase_lwd_train_kernels():
 
 def phase_lwd_train_parity():
     """Phase 14 (b): one fp32 FiTLwD-XL reflow segment update
-    (configs/fitv2_xl_lwd.yaml as it stands, perturbed seeded weights,
+    (configs/fitv2_xl_lwd.yaml cut to LWD_DET_DEPTH, 12 segments of one
+    block, as (c)'s deterministic run; perturbed seeded weights,
     batch LWD_PARITY_BATCH on the 16 x 16 grid, the middle segment, label
     drops) on CUDA (kernels, their Functions' backward, the update over
     every parameter) and on the CPU (plain versions) with the same draws:
@@ -2669,7 +2687,7 @@ def phase_lwd_train_parity():
     from fitv2_tpu_torch.train import (
         OptimizerConfig, create_train_state, make_lwd_train_step)
     with _clock('phase 14 (b) FiTLwD-XL built'):
-        model = _lwd_model_fp32(LWD_CONFIG)
+        model = _lwd_model_fp32(LWD_CONFIG, depth=LWD_DET_DEPTH)
     seg = model.number_of_perflow // 2
     b = LWD_PARITY_BATCH
     gen = torch.Generator().manual_seed(SEED + 31)
@@ -2719,7 +2737,9 @@ def phase_lwd_train_parity():
           and all(v <= TOL_SLICE_REL_L2 for v, _ in worst.values()))
     touched = sum(1 for p in s_cpu.params.values()
                   if s_cpu.optimizer.state[p]['mu'].any())
-    say(f'[lwd-train] FiTLwD-XL fp32 (0.899 B parameters), one reflow '
+    n_params = sum(p.numel() for p in s_cpu.params.values())
+    say(f'[lwd-train] FiTLwD-XL fp32 (depth {model.depth}, '
+        f'{n_params / 1e9:.3f} B parameters), one reflow '
         f'update of segment {seg}, batch {b}, CUDA vs CPU: loss '
         f'{m_gpu["loss"].item():.6f} vs {m_cpu["loss"].item():.6f} '
         f'(relative {rels["loss"]:.3e}), grad norm relative '
@@ -2977,7 +2997,7 @@ def phase_lwd_train(card, out_dir):
         parity = phase_lwd_train_parity()
     torch.cuda.empty_cache()
     with _clock('phase 14 (c) the deterministic child'):
-        det = _run_child_phase('lwd_train', out_dir)
+        det = _run_child_phase(('lwd_train',), out_dir)['lwd_train']
     counts = {'lwd_train': det['counts'],
               'lwd_train_resumed': det['counts_resumed']}
 
@@ -4373,9 +4393,13 @@ SH_LWD_DEPTH, SH_LWD_BATCH = 6, 4
 SH_RESUME_DEPTH = SH_DEPTH  # (f) in bf16 also gives (a)'s rate
 TOL_SHARD_GRAD = TOL_DP_GRAD
 SH_FSDP_BYTES = 0.55
+TOL_SHARD_CAME = 1e-5
+SH_HOOK = dict(image_height=256, image_width=256, num_sampling_steps=4,
+               cfg_scale=1.5, per_device_batch=2)
 SH_RUNS = {  # name -> (config, its mesh keys under SH_WORLD processes)
     'fsdp': ('configs/fitv2_3b.yaml', dict(mesh_fsdp=SH_WORLD)),
     'tensor': ('configs/fitv2_3b.yaml', dict(mesh_tensor=SH_WORLD)),
+    'came': ('configs/fitv2_3b.yaml', dict(mesh_tensor=SH_WORLD)),
     'sequence': ('configs/fitv2_hr_3b.yaml',
                  dict(mesh_sequence=SH_WORLD)),
     'stage': ('configs/fitv2_3b.yaml', dict(mesh_stage=SH_WORLD,
@@ -4480,12 +4504,13 @@ def _trunk(model):
 
 
 def _state_bytes(state):
-    """This rank's parameter + state bytes: masters, EMA, Adam's moments."""
-    n = 0
-    for p in state.params.values():
-        n += 2 * p.numel() * p.element_size()  # the master and its EMA
-        for t in state.optimizer.state.get(p, {}).values():
-            n += t.numel() * t.element_size()
+    """This rank's parameter + state bytes: masters, EMA, the optimizer's
+    state (Adam's moments; CAME's m and statistics)."""
+    n = sum(2 * p.numel() * p.element_size()  # the master and its EMA
+            for p in state.params.values())
+    for st in state.optimizer.state.values():
+        n += sum(t.numel() * t.element_size() for t in st.values()
+                 if hasattr(t, 'numel'))
     return n
 
 
@@ -4518,10 +4543,12 @@ def shard_train_run(out_dir, name, world, steps=SH_STEPS, precision='no',
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     tag = tag or f'{name}_{world}_{precision}'
+    came = name == 'came'
     args = cli.parse_args([
         '--cfgdir', *_shard_yaml(out_dir, name, world, precision, depth),
         '--output-dir', os.path.join(out_dir, f'shard_run_{tag}'),
-        '--max-steps', str(steps), '--no-resume', '--device', 'cuda'])
+        '--max-steps', str(steps), '--no-resume', '--device', 'cuda']
+        + (['--came'] if came else []))
     rank, got = init_distributed(args.device)
     if got != world:
         raise AssertionError(f'shard {name}: {got} processes, not {world}')
@@ -4531,9 +4558,24 @@ def shard_train_run(out_dir, name, world, steps=SH_STEPS, precision='no',
     with _models_built(None if name == 'lwd' else precision, True):
         trainer = cli.build_trainer(load_config(args.cfgdir), args)
     t_build = time.perf_counter() - t0
-    trainer.ckpt.save = lambda step, state_dict: None
+    saved = {}
+
+    def save(step, state_dict):  # (g) keeps its checkpoint in memory
+        if came:
+            saved['sd'] = state_dict
+    trainer.ckpt.save = save
     if name == 'lwd':  # one segment update a batch (the config: 3)
         trainer.cfg.segments_per_step = 1
+    metric_hook, hook_counts = None, {}
+    if came and world > 1:
+        hook = _shard_hook(trainer, out_dir, f'shard_previews_{rank}')
+        hook.attach(trainer.gathered_ema)
+        trainer.cfg.log_every = 1  # the metric hook runs at logged steps
+
+        def metric_hook(step, metrics):
+            before = _counts_now()
+            hook(step, metrics)
+            hook_counts[step] = _counts_minus(_counts_now(), before)
     layout = trainer.layout
     names = layout.names if layout is not None else list(
         dict(trainer.master_model.named_parameters()))
@@ -4576,10 +4618,13 @@ def shard_train_run(out_dir, name, world, steps=SH_STEPS, precision='no',
     trainer.init_state, trainer._train_step = capturing_init, timed_step
     _reset_counts()
     t0 = time.perf_counter()
-    state = trainer.train(max_steps=steps, resume=False)
+    state = trainer.train(max_steps=steps, resume=False,
+                          metric_hook=metric_hook)
     torch.cuda.synchronize()
     t_train = time.perf_counter() - t0
     counts = _lwd_read_counts()
+    for hc in hook_counts.values():  # the preview's launches apart
+        counts = _counts_minus(counts, hc)
     want = _shard_expected(name, steps)
     if want is None:
         want = {k: v * steps for k, v in
@@ -4612,11 +4657,74 @@ def shard_train_run(out_dir, name, world, steps=SH_STEPS, precision='no',
                   batch=trainer.cfg.global_batch_size, grad_rel_l2=rel,
                   grad_rel_l2_trunk=rel_trunk, trunk_share=share,
                   build_s=t_build, train_s=t_train)
+    if came and world == 1:  # what (g) is held against
+        sd = saved['sd']
+        torch.save({'params': {n: t.cpu() for n, t in sd['params'].items()},
+                    'state': {i: {k: v.cpu() for k, v in st.items()}
+                              for i, st in
+                              sd['optimizer']['state'].items()}},
+                   os.path.join(out_dir, 'shard_came_one.pt'))
+    elif came and process_index() == 0:
+        result['came'] = _shard_came_check(trainer, saved['sd'], out_dir,
+                                           steps, hook_counts)
     with open(os.path.join(out_dir, f'shard_{tag}_{rank}.json'), 'w') as f:
         json.dump(result, f)
     del trainer, state, full
     torch.cuda.empty_cache()
     return result
+
+
+def _shard_hook(trainer, out_dir, folder):
+    """(g)'s InlineEvalHook: SH_HOOK's sampling in fp32 (no VAE: latents)
+    with a one-process copy of the trainer's model, at step SH_STEPS."""
+    import torch
+    from fitv2_tpu_torch.sample import SamplingConfig
+    from fitv2_tpu_torch.train.eval_hook import InlineEvalHook
+    return InlineEvalHook(trainer.one_process_model, SamplingConfig(
+        **SH_HOOK, dtype=torch.float32), every=SH_STEPS, seed=SEED + 18,
+        device=trainer.device, out_dir=os.path.join(out_dir, folder))
+
+
+def _shard_came_check(trainer, sd, out_dir, steps, hook_counts):
+    """(g) on process 0: the checkpoint `sd` (the one-process layout)
+    against the one-process CAME run's parameters and state, then a
+    one-process hook on `sd`'s EMA against the sharded run's preview;
+    relative L2 each, whether another rank wrote a preview, the hook's
+    launches."""
+    import numpy as np
+    import torch
+    one = torch.load(os.path.join(out_dir, 'shard_came_one.pt'), mmap=True)
+
+    def rel(a, b):
+        a, b = a.double(), b.double()
+        return ((a - b).norm() / b.norm()).item()
+
+    def flat(ts):  # on the card: 0.2 B parameters and their moments
+        return torch.cat([t.reshape(-1).to('cuda', torch.float32)
+                          for t in ts])
+    names = list(one['params'])
+    params = rel(flat(sd['params'][n] for n in names),
+                 flat(one['params'][n] for n in names))
+    got, want = sd['optimizer']['state'], one['state']
+    if got.keys() != want.keys():
+        raise AssertionError(f'came state: leaves {sorted(got)} != '
+                             f'{sorted(want)}')
+    state = {k: rel(flat(got[i][k] for i in sorted(got) if k in got[i]),
+                    flat(want[i][k] for i in sorted(want) if k in want[i]))
+             for k in ('m', 'r_row', 'r_col', 's_row', 's_col', 'r_full')}
+    hook = _shard_hook(trainer, out_dir, 'shard_previews_one')
+    hook.attach(lambda: sd['ema_params'])
+    hook(steps, {})
+    preview = [np.load(os.path.join(out_dir, d, f'preview_{steps}.npz'))[
+        'arr_0'] for d in ('shard_previews_0', 'shard_previews_one')]
+    return dict(params_rel=params, state_rel=state,
+                preview_rel=rel(*(torch.from_numpy(p) for p in preview)),
+                preview_shape=list(preview[0].shape),
+                others_wrote=sorted(
+                    d for d in os.listdir(out_dir)
+                    if d.startswith('shard_previews_')
+                    and d not in ('shard_previews_0', 'shard_previews_one')),
+                hook_counts=hook_counts.get(steps))
 
 
 def shard_resume_run(out_dir):
@@ -4685,7 +4793,7 @@ def shard_child_main(out_dir):
     faulthandler.enable()  # a crash in a collective prints its stack
     from fitv2_tpu_torch.parallel import comms, init_distributed
     init_distributed('cuda')
-    for name in ('fsdp', 'tensor', 'sequence', 'stage', 'lwd'):
+    for name in ('fsdp', 'tensor', 'came', 'sequence', 'stage', 'lwd'):
         with _clock(f'phase 18 {name} (a rank)'):
             shard_train_run(out_dir, name, SH_WORLD)
     with _clock('phase 18 resume and rate (a rank)'):
@@ -4797,7 +4905,7 @@ def phase_shard(card, out_dir):
     # one process first: (a), (b) and (d) share the 3B run; (c); (e)
     with _clock('phase 18 one-process runs'):
         one = {name: shard_train_run(out_dir, name, 1)
-               for name in ('fsdp', 'sequence', 'lwd')}
+               for name in ('fsdp', 'sequence', 'lwd', 'came')}
     one.update(tensor=one['fsdp'], stage=one['fsdp'])
     torch.cuda.empty_cache()
     # (f)'s bit-identical resume: cuBLAS's deterministic workspace, which
@@ -4808,7 +4916,7 @@ def phase_shard(card, out_dir):
     with open(os.path.join(out_dir, 'shard_paths.json')) as f:
         paths = json.load(f)
     ok, report = True, {}
-    for name in ('fsdp', 'tensor', 'sequence', 'stage', 'lwd'):
+    for name in ('fsdp', 'tensor', 'came', 'sequence', 'stage', 'lwd'):
         ranks = _shard_ranks(out_dir, f'{name}_{SH_WORLD}_no')
         rel, rel_trunk = ranks[0]['grad_rel_l2'], \
             ranks[0]['grad_rel_l2_trunk']
@@ -4825,6 +4933,24 @@ def phase_shard(card, out_dir):
                   and all(r['losses'] == ranks[0]['losses'] for r in ranks)
                   and (name not in ('fsdp', 'lwd')
                        or max(bytes_ratio) <= SH_FSDP_BYTES))
+        came = ranks[0].get('came')
+        if came is not None:
+            run_ok = run_ok and (
+                came['params_rel'] <= TOL_SHARD_CAME
+                and max(came['state_rel'].values()) <= TOL_SHARD_CAME
+                and came['preview_rel'] <= TOL_SHARD_CAME
+                and came['preview_shape'] == [SH_HOOK['per_device_batch'],
+                                              4, 32, 32]
+                and not came['others_wrote'])
+            say(f'[shard came] (g) cli/train --came under tensor, '
+                f'{SH_STEPS} steps: parameters vs one process relative '
+                f'L2 {came["params_rel"]:.3e}, the checkpoint\'s CAME '
+                f'state {came["state_rel"]} <= {TOL_SHARD_CAME}; the '
+                f'InlineEvalHook at step {SH_STEPS} ({SH_HOOK}): preview '
+                f'{came["preview_shape"]} vs a one-process hook on the '
+                f'checkpoint\'s EMA {came["preview_rel"]:.3e}, other '
+                f'ranks\' previews {came["others_wrote"]}, its launches '
+                f'{came["hook_counts"]} (counted apart) [{card}]')
         ok = ok and run_ok
         ms = statistics.median(ranks[0]['ms'][1:] or ranks[0]['ms'])
         ms1 = statistics.median(ref['ms'][1:] or ref['ms'])
@@ -4836,7 +4962,7 @@ def phase_shard(card, out_dir):
                             train_s=ranks[0]['train_s'],
                             bytes_ratio=bytes_ratio, peak_ratio=peak_ratio,
                             peak_gb=[r['peak'] / 1e9 for r in ranks],
-                            launches_rank=ranks[0]['counts'])
+                            launches_rank=ranks[0]['counts'], came=came)
         say(f'[shard {name}] {SH_RUNS[name][0]} {SH_RUNS[name][1]} on '
             f'{SH_WORLD} processes ({paths["backend"]}), global batch '
             f'{ranks[0]["batch"]}: the first reduced gradient vs one process '
@@ -4893,21 +5019,28 @@ def _run_child(argv, env):
     return json.loads(lines[-1])
 
 
-def _run_child_phase(name, out_dir):
-    """CHILD_PHASES[name](card, out_dir) in a child process of this script
-    with DETERMINISTIC_ENV (_run_child)."""
-    return _run_child([os.path.abspath(__file__), '--child', name, out_dir],
-                      DETERMINISTIC_ENV)
+def _run_child_phase(names, out_dir):
+    """CHILD_PHASES[name](card, out_dir) for each of `names`, in order, in
+    one child process of this script with DETERMINISTIC_ENV (_run_child):
+    their results by name."""
+    return _run_child([os.path.abspath(__file__), '--child', ','.join(names),
+                       out_dir], DETERMINISTIC_ENV)
 
 
-def child_main(name, out_dir):
-    """The child process of _run_child_phase: one phase of CHILD_PHASES, its
-    result printed as the last line."""
+def child_main(names, out_dir):
+    """The child process of _run_child_phase: the phases of CHILD_PHASES
+    named in `names` (comma-separated), their results by name printed as
+    the last line."""
+    import torch
     if os.environ.get('CUBLAS_WORKSPACE_CONFIG') != \
             DETERMINISTIC_ENV['CUBLAS_WORKSPACE_CONFIG']:
         raise SystemExit('chip_smoke --child: needs DETERMINISTIC_ENV')
     card = phase_device()
-    print(json.dumps(CHILD_PHASES[name](card, out_dir)), flush=True)
+    out = {}
+    for name in names.split(','):
+        out[name] = CHILD_PHASES[name](card, out_dir)
+        torch.cuda.empty_cache()
+    print(json.dumps(out), flush=True)
 
 
 def main():
@@ -4959,7 +5092,7 @@ def main():
             v1_counts, _ = phase_fitv1_sampling(v1_model, vae, card, out_dir)
             del v1_model, vae
             torch.cuda.empty_cache()
-            v1_train = _run_child_phase('fitv1_train', out_dir)
+            v1_train = adamw['fitv1_train']  # 11 (c)'s child ran it
         v1_train_counts = v1_train['counts']
         v1_resumed_counts = v1_train['counts_resumed']
         # phase 13: the LwD family, sampled through cli/sample_lwd with

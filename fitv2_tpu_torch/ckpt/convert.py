@@ -32,7 +32,9 @@ OpenAI names).
 ``jax_leaves`` maps the other way, from a port model's parameters to the
 JAX tree's leaves (a depth-stacked leaf holds one port parameter a block):
 what the optimizers need to do per JAX leaf what optax does per leaf
-(CAME's factored moments and RMS clip, the decay labels).
+(CAME's factored moments and RMS clip, the decay labels). Under model
+sharding ``JaxLeaf.part`` is the piece of a leaf that one rank holds, and
+which mesh axes split which of its axes.
 ``came_state_from_jax`` carries a JAX CAME state onto the port's ``CAME``.
 
 ``quant_state_from_jax`` carries the int8 serving mode's collections
@@ -50,7 +52,7 @@ from __future__ import annotations
 
 import dataclasses
 import re
-from typing import Any, Dict, List, Mapping, Sequence, Tuple
+from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -164,6 +166,95 @@ class JaxLeaf:
         parts = t.unbind(0) if self.stacked else [t]
         return [p.t() if self.transpose else p for p in parts]
 
+    def part(self, shapes: Mapping[str, Sequence[int]], layout=None
+             ) -> 'LeafPart':
+        """The part of this leaf, in JAX's layout, that this rank holds
+        (``shapes``: the port parameters' one-process shapes by name).
+        Without ``layout`` the whole leaf; under one (a
+        ``parallel.sharding.ShardedLayout``): FSDP2's chunk of the port
+        tensor's dim 0 (JAX's last axis of a Dense kernel), the tensor
+        split's rows or columns (``layout.tp``, inside which FSDP2
+        chunks), and a stage's blocks of a stack."""
+        first = self.names[0]
+        shape = list(shapes[first])
+        index: List[Optional[torch.Tensor]] = [None] * len(shape)
+        axes: List[Tuple[str, ...]] = [()] * len(shape)
+        if layout is None:
+            if self.transpose:
+                shape = shape[::-1]
+            if self.stacked:
+                shape, index, axes = [len(self.names)] + shape, \
+                    [None] + index, [()] + axes
+            return LeafPart(self.names, tuple(shape), tuple(index),
+                            tuple(axes), ())
+        split = layout.tp.get(first)
+        if split is not None:
+            index[split.dim] = split.index[layout.mesh.coordinate('tensor')]
+            axes[split.dim] = ('tensor',)
+        if layout.fsdp:
+            rows = torch.arange(shape[0]) if index[0] is None else index[0]
+            chunks = rows.chunk(layout.mesh.size('fsdp'))
+            f = layout.mesh.coordinate('fsdp')
+            index[0] = chunks[f] if f < len(chunks) else rows[:0]
+            axes[0] += ('fsdp',)
+        if self.transpose:
+            shape, index, axes = shape[::-1], index[::-1], axes[::-1]
+        held = tuple(n for n in self.names if layout.holds(n))
+        if self.stacked:
+            staged = any(layout.stage_owner.get(n) is not None
+                         for n in self.names)
+            shape = [len(self.names)] + shape
+            index = [torch.tensor([i for i, n in enumerate(self.names)
+                                   if n in held], dtype=torch.long)
+                     if staged else None] + index
+            axes = [('stage',) if staged else ()] + axes
+        split_by = {a for n in self.names for a in layout.axes(n)}
+        return LeafPart(held, tuple(shape), tuple(index), tuple(axes),
+                        tuple(a for a in ('fsdp', 'tensor', 'stage')
+                              if a in split_by))
+
+
+@dataclasses.dataclass(frozen=True)
+class LeafPart:
+    """What one rank holds of a ``JaxLeaf``, in JAX's layout.
+
+    names: the leaf's parameters it holds (a pipeline stage: its blocks;
+    none where another stage owns an unstacked block's leaf); shape: the
+    whole leaf's; index[a]: the positions along axis ``a`` of its part
+    (None: the whole axis); axes[a]: the mesh axes that split axis ``a``;
+    split: every mesh axis over which the ranks' parts tile the leaf.
+    Data and sequence split no leaf: their ranks hold the same parts."""
+    names: Tuple[str, ...]
+    shape: Tuple[int, ...]
+    index: Tuple[Optional[torch.Tensor], ...]
+    axes: Tuple[Tuple[str, ...], ...]
+    split: Tuple[str, ...]
+
+    def place(self, t: torch.Tensor, axes: Sequence[int],
+              local: Optional[torch.Tensor]) -> torch.Tensor:
+        """A zero tensor over the leaf's axes ``axes`` whose entries at
+        this part's positions are ``local`` (None: all zero)."""
+        shape = [self.shape[a] for a in axes]
+        if local is None:
+            return t.new_zeros(shape)
+        for i, a in enumerate(axes):
+            idx = self.index[a]
+            if idx is not None:
+                whole = local.new_zeros(local.shape[:i] + (shape[i],)
+                                        + local.shape[i + 1:])
+                local = whole.index_copy_(i, idx.to(local.device), local)
+        return local
+
+    def take(self, whole: torch.Tensor, axes: Sequence[int]
+             ) -> torch.Tensor:
+        """This part's entries of ``whole``, a tensor over the leaf's
+        axes ``axes``."""
+        for i, a in enumerate(axes):
+            idx = self.index[a]
+            if idx is not None:
+                whole = whole.index_select(i, idx.to(whole.device))
+        return whole
+
 
 def jax_leaves(model: torch.nn.Module) -> List[JaxLeaf]:
     """The leaves of the JAX counterpart of ``model`` (a FiT, whose blocks
@@ -184,8 +275,11 @@ def jax_leaves(model: torch.nn.Module) -> List[JaxLeaf]:
               if isinstance(m, BlockStack)}
     if isinstance(model, FiT) and model.scan_blocks:
         stacks['blocks'] = 'blocks/block'
+    from fitv2_tpu_torch.parallel.sharding import (
+        ColumnParallelLinear, RowParallelLinear)
     linear = {id(m.weight) for m in model.modules()
-              if isinstance(m, torch.nn.Linear)}
+              if isinstance(m, (torch.nn.Linear, ColumnParallelLinear,
+                                RowParallelLinear))}
     leaves: Dict[str, list] = {}
     for name, p in model.named_parameters():
         stack = next((s for s in stacks if name.startswith(s + '.')), None)
@@ -397,11 +491,12 @@ def _came_tree(node: Any) -> Any:
     """The params-shaped tree of CAME leaf states in an optax state."""
     def is_came(x):
         return hasattr(x, 'r_row') and hasattr(x, 'm')
-    if isinstance(node, Mapping):
-        leaf = node
-        while isinstance(leaf, Mapping) and leaf:
-            leaf = next(iter(leaf.values()))
-        return node if is_came(leaf) else None
+
+    def leaves(tree):
+        for v in tree.values():
+            yield from leaves(v) if isinstance(v, Mapping) else [v]
+    if isinstance(node, Mapping):  # a multi_transform group masks the rest
+        return node if any(map(is_came, leaves(node))) else None
     if isinstance(node, (tuple, list)) and not is_came(node):
         for child in node:
             found = _came_tree(child)

@@ -38,8 +38,11 @@ the parameters and issues the collectives itself:
   applies to its own heads only.
 
 ``ShardedLayout`` also gives the global gradient norm over every shard
-and converts a train state to and from the one-process layout (process 0
-writes it; every rank restores its shards from it).
+(of the whole model, or of one group of a ``MultiTransform``) and
+converts a train state to and from the one-process layout (process 0
+writes it; every rank restores its shards from it): the masters, the EMA,
+and AdamW's, CAME's or a ``MultiTransform``'s state (train/came.py keeps
+CAME's factored statistics whole on every rank).
 """
 
 from __future__ import annotations
@@ -230,6 +233,17 @@ def local(t: Optional[Tensor]) -> Optional[Tensor]:
     return t._local_tensor if isinstance(t, DTensor) else t
 
 
+def is_sharded(model: nn.Module) -> bool:
+    """Whether ``shard_model`` placed ``model`` over a mesh: a pipeline's
+    stage, a sequence mesh, tensor-parallel layers or FSDP2's DTensors."""
+    from torch.distributed.tensor import DTensor
+    return (getattr(model, 'pipeline', None) is not None
+            or getattr(model, 'sequence_mesh', None) is not None
+            or any(isinstance(m, (ColumnParallelLinear, RowParallelLinear))
+                   for m in model.modules())
+            or any(isinstance(p, DTensor) for p in model.parameters()))
+
+
 class ShardedLayout:
     """How a model's parameters lie over ``mesh``, and the train step's
     reductions and the checkpoint's conversions that follow from it.
@@ -270,19 +284,21 @@ class ShardedLayout:
         tensor; in place."""
         mesh = self.mesh
         if mesh.size('tensor') > 1:
-            _flat_sum([g for n, g in zip(names, grads)
+            flat_sum([g for n, g in zip(names, grads)
                        if n in self.tp_partial], mesh.group('tensor'))
         if mesh.size('data') > 1:
-            _flat_sum(grads, mesh.group('data'), 1.0 / mesh.size('data'))
+            flat_sum(grads, mesh.group('data'), 1.0 / mesh.size('data'))
         if mesh.size('sequence') > 1:
-            _flat_sum(grads, mesh.group('sequence'))
+            flat_sum(grads, mesh.group('sequence'))
         if mesh.size('stage') > 1:
             whole = [g for n, g in zip(names, grads)
                      if self.stage_owner.get(n) is None]
-            _flat_sum(whole, mesh.group('stage'))
+            flat_sum(whole, mesh.group('stage'))
         return grads
 
-    def _axes(self, name: str) -> Tuple[str, ...]:
+    def axes(self, name: str) -> Tuple[str, ...]:
+        """The mesh axes over which the ranks' parts of parameter
+        ``name`` tile it (a stage holds all or nothing of a block's)."""
         axes = []
         if self.fsdp:
             axes.append('fsdp')
@@ -294,22 +310,27 @@ class ShardedLayout:
 
     def global_norm(self, names: Sequence[str], grads: List[Tensor]
                     ) -> Tensor:
-        """The L2 norm of the whole gradient: each parameter's local
-        squares summed over the axes that split it, and once for the
-        axes that replicate it. Every rank that holds the same gradients
-        gets the same bits (no atomic adds: the clip factor must not
-        differ between replicas)."""
-        axes = [self._axes(n) for n in names]
-        keys = sorted(set(axes))
-        device = grads[0].device
-        sq = torch.stack(torch._foreach_norm([g.float() for g in grads])) ** 2
+        """The L2 norm of the whole gradient of the parameters ``names``
+        (``grads``: this rank's of them, maybe none), on the masters'
+        device: each parameter's local squares summed over the axes that
+        split it, and once for the axes that replicate it. Every rank
+        makes the same collectives, whichever of ``names`` it holds, and
+        every rank that holds the same gradients gets the same bits (no
+        atomic adds: the clip factor must not differ between replicas)."""
+        device = self._device()
+        split = [a for a in ('fsdp', 'tensor', 'stage')
+                 if self.mesh.size(a) > 1]
+        keys = [tuple(a for i, a in enumerate(split) if bits >> i & 1)
+                for bits in range(2 ** len(split))]
+        axes = [self.axes(n) for n in names]
+        sq = (torch.stack(torch._foreach_norm([g.float() for g in grads]))
+              ** 2 if grads else torch.zeros(0, device=device))
         pick = torch.tensor([[a == k for a in axes] for k in keys],
-                            device=device)
+                            dtype=torch.bool, device=device).reshape(
+                                len(keys), len(axes))
         sums = torch.where(pick, sq, torch.zeros_like(sq)).sum(dim=1)
-        for axis in ('fsdp', 'tensor', 'stage'):
+        for axis in split:
             hit = torch.tensor([axis in k for k in keys], device=device)
-            if not bool(hit.any()) or self.mesh.size(axis) == 1:
-                continue
             part = torch.where(hit, sums, torch.zeros_like(sums))
             comms.all_reduce_(part, self.mesh.group(axis))
             sums = torch.where(hit, part, sums)
@@ -373,51 +394,76 @@ class ShardedLayout:
                     if p.device.type != 'meta').device
 
     @torch.no_grad()
-    def full_state_dict(self, state) -> Dict[str, Any]:
+    def full_state_dict(self, state) -> Optional[Dict[str, Any]]:
         """``state`` (a train state over the local parameters) in the
         one-process layout, whole on process 0 (on the host there, None
-        elsewhere): a collective over every rank."""
-        from fitv2_tpu_torch.train.train_step import AdamW
-        opt = state.optimizer
-        if not isinstance(opt, AdamW):
-            raise NotImplementedError(
-                f'{type(opt).__name__} under model sharding: only AdamW '
-                'is ported (CAME and grouped optimizers under sharding are '
-                'slice 9c)')
+        elsewhere): a collective over every rank. The optimizer's state is
+        the one-process optimizer's: AdamW's moments by parameter, CAME's
+        by its leaves' first parameters in JAX's layout, a
+        ``MultiTransform``'s by label."""
         main = dist.get_rank() == 0
-        local_names = list(state.params)
-        index = {n: i for i, n in enumerate(local_names)}
-        masters = list(state.params.values())
 
         def full(name, t, dtype=torch.float32):
             out = self.to_full(name, t, dtype)
             return out.cpu() if main else None
 
-        def moment(name, key):
-            p = masters[index[name]] if name in index else None
-            st = opt.state.get(p) if p is not None else None
-            dtype = opt.mu_dtype if key == 'mu' and opt.mu_dtype \
-                else torch.float32
-            return full(name, None if st is None else st[key], dtype)
-
-        has_moments = _agree(len(opt.state) > 0, self._device())
         sd = dict(step=state.step,
                   params={n: full(n, state.params.get(n)) for n in self.names},
                   ema_params={n: full(n, state.ema_params.get(n))
-                              for n in self.names})
-        moments = {}
-        if has_moments:
-            for j, n in enumerate(self.names):
-                moments[j] = {k: moment(n, k) for k in ('mu', 'nu')}
-        group = dict(opt.param_groups[0])
-        group['params'] = list(range(len(self.names)))
-        sd['optimizer'] = dict(state=moments, param_groups=[group])
+                              for n in self.names},
+                  optimizer=self._full_optimizer(state.optimizer, self.names,
+                                                 state.params, full))
         acc = state.accumulator
+        index = {n: i for i, n in enumerate(state.params)}
         sd['accumulator'] = None if acc is None else dict(
             mini_step=acc.mini_step, gradient_step=acc.gradient_step,
             acc=[full(n, acc.acc[index[n]] if n in index else None)
                  for n in self.names])
         return sd if main else None
+
+    def _full_optimizer(self, opt, names: Sequence[str],
+                        masters: Dict[str, Tensor], full) -> Dict[str, Any]:
+        """The one-process state dict of ``opt``, the optimizer over the
+        parameters ``names`` (in its one-process order)."""
+        from fitv2_tpu_torch.train.came import CAME
+        from fitv2_tpu_torch.train.train_step import MultiTransform
+        if isinstance(opt, MultiTransform):
+            return {label: self._full_optimizer(o, opt.members[label],
+                                                masters, full)
+                    for label, o in opt.optimizers.items() if o is not None}
+        group = dict(opt.param_groups[0])
+        group['params'] = list(range(len(names)))
+        out: Dict[int, Dict[str, Any]] = {}
+        main = dist.get_rank() == 0
+        stepped = _agree(len(opt.state) > 0, self._device())
+        if stepped and isinstance(opt, CAME):
+            pos = {n: j for j, n in enumerate(names)}
+            for leaf, part in zip(opt.leaves, opt.parts):
+                st = opt.leaf_state(leaf)
+                keys = (('m', 'r_row', 'r_col', 's_row', 's_col')
+                        if len(part.shape) >= 2 else ('m', 'r_full'))
+                entry = {}
+                for k in keys:
+                    if k in ('m', 'r_full'):  # sharded as the parameter
+                        mine = {} if k not in st else dict(zip(
+                            part.names, leaf.from_jax(st[k])))
+                        whole = [full(n, None if n not in mine
+                                      else mine[n].contiguous())
+                                 for n in leaf.names]
+                        entry[k] = leaf.to_jax(whole).clone() if main \
+                            else None
+                    else:  # whole on every rank
+                        entry[k] = st[k].to('cpu', copy=True) if main \
+                            else None
+                out[pos[leaf.names[0]]] = entry
+        elif stepped:
+            for j, n in enumerate(names):
+                p = masters.get(n)
+                st = opt.state.get(p) if p is not None else None
+                out[j] = {k: full(n, None if st is None else st[k],
+                                  opt.mu_dtype if k == 'mu' and opt.mu_dtype
+                                  else torch.float32) for k in ('mu', 'nu')}
+        return dict(state=out, param_groups=[group])
 
     @torch.no_grad()
     def load_full_state_dict(self, state, sd: Dict[str, Any]) -> None:
@@ -429,19 +475,52 @@ class ShardedLayout:
             step=sd['step'],
             params={n: self.from_full(n, sd['params'][n]) for n in names},
             ema_params={n: self.from_full(n, sd['ema_params'][n])
-                        for n in names})
-        opt = sd['optimizer']
-        group = dict(opt['param_groups'][0])
-        group['params'] = list(range(len(names)))
-        local_sd['optimizer'] = dict(
-            state={i: {k: self.from_full(n, v) for k, v in
-                       opt['state'][pos[n]].items()}
-                   for i, n in enumerate(names) if pos[n] in opt['state']},
-            param_groups=[group])
+                        for n in names},
+            optimizer=self._local_optimizer(state.optimizer, self.names,
+                                            sd['optimizer'], state.params))
         acc = sd['accumulator']
         local_sd['accumulator'] = None if acc is None else dict(
             acc, acc=[self.from_full(n, acc['acc'][pos[n]]) for n in names])
         state.load_state_dict(local_sd)
+
+    def _local_optimizer(self, opt, names: Sequence[str],
+                         saved: Dict[str, Any], masters: Dict[str, Tensor]
+                         ) -> Dict[str, Any]:
+        """This rank's state dict of ``opt`` (over ``names``) from its
+        one-process state dict ``saved``."""
+        from fitv2_tpu_torch.train.came import CAME
+        from fitv2_tpu_torch.train.train_step import MultiTransform
+        if isinstance(opt, MultiTransform):
+            return {label: self._local_optimizer(o, opt.members[label],
+                                                 saved[label], masters)
+                    for label, o in opt.optimizers.items() if o is not None}
+        pos = {n: j for j, n in enumerate(names)}
+        group = dict(saved['param_groups'][0])
+        group['params'] = list(range(len(opt.param_groups[0]['params'])))
+        state: Dict[Any, Dict[str, Tensor]] = {}
+        if isinstance(opt, CAME):
+            device = self._device()
+            for leaf, part in zip(opt.leaves, opt.parts):
+                entry = saved['state'].get(pos[leaf.names[0]])
+                if entry is None:
+                    continue
+                st = state[leaf.path] = {}
+                for k, v in entry.items():
+                    if k not in ('m', 'r_full'):
+                        st[k] = v.to(device, torch.float32, copy=True)
+                    elif part.names:
+                        mine = [self.from_full(n, t) for n, t in
+                                zip(leaf.names, leaf.from_jax(v))
+                                if n in part.names]
+                        st[k] = leaf.to_jax(mine).to(device, torch.float32,
+                                                     copy=True)
+        else:
+            local = [n for n in names if n in masters]
+            state = {i: {k: self.from_full(n, v) for k, v in
+                         saved['state'][pos[n]].items()}
+                     for i, n in enumerate(local)
+                     if pos[n] in saved['state']}
+        return dict(state=state, param_groups=[group])
 
 
 def _agree(flag: bool, device: torch.device) -> bool:
@@ -454,7 +533,7 @@ def _agree(flag: bool, device: torch.device) -> bool:
     return bool(t.item())
 
 
-def _flat_sum(tensors: List[Tensor], group, scale: float = 1.0) -> None:
+def flat_sum(tensors: List[Tensor], group, scale: float = 1.0) -> None:
     """In place, each tensor's sum over ``group`` times ``scale``,
     through one flat buffer."""
     if not tensors:

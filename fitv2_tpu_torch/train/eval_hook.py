@@ -3,16 +3,25 @@
 Counterpart of fitv2_tpu/train/eval_hook.py: every ``every`` steps, the
 EMA weights are copied into the hook's own sampling model (a copy of the
 model it is given: it writes no weight of the run), a preview batch is sampled
-with the port's ``build_sampler`` and written as ``preview_{step}.npz``,
-and, with a reference npz and a VAE, the batch's FID and Inception score
-against it join the step's metrics (``inline_fid``, ``inline_is``), all
-without leaving the training process.
+with the port's ``build_sampler`` and written as ``preview_{step}.npz``
+by process 0, and, with a reference npz and a VAE, the batch's FID and
+Inception score against it join the step's metrics (``inline_fid``,
+``inline_is``), all without leaving the training process.
 
 Usage:
-    hook = InlineEvalHook(sample_model, sample_cfg, every=5000,
-                          ref_images='ref.npz', vae=vae, out_dir='previews')
-    hook.attach(lambda: trainer.state.ema_params)
+    hook = InlineEvalHook(trainer.one_process_model, sample_cfg,
+                          every=5000, ref_images='ref.npz', vae=vae,
+                          out_dir='previews', device=trainer.device)
+    hook.attach(trainer.gathered_ema)
     trainer.train(metric_hook=hook)  # the hook also receives the metrics
+
+Under data parallelism or model sharding every process runs the hook at
+the same steps (``gathered_ema`` is a collective there) and samples the
+same images from the same draws; process 0 alone writes the preview and
+computes the FID and the Inception score (it alone loads the Inception
+network and the reference), so only its metrics carry them. The sampling
+model is never a sharded module: ``Trainer.one_process_model`` is the
+model's structure taken before the trainer shards it.
 
 The labels and the noise come from a CPU generator seeded from (seed,
 step) (``trainer.step_generator``), so a preview does not depend on the
@@ -25,11 +34,12 @@ import copy
 import dataclasses
 import logging
 import os
-from typing import Any, Callable, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
+from fitv2_tpu_torch.parallel.mesh import process_index
 from fitv2_tpu_torch.sample.pipeline import SamplingConfig, build_sampler
 from fitv2_tpu_torch.train.trainer import step_generator
 
@@ -39,9 +49,12 @@ logger = logging.getLogger('fitv2_tpu_torch.eval_hook')
 @dataclasses.dataclass
 class InlineEvalHook:
     """``model``: the FiT whose structure, dtype and device the preview
-    samples with. ``attach`` copies it once, and each evaluation copies the
-    EMA weights into that copy: ``model`` itself is never written (an fp32
-    trainer's model holds the master parameters); ``vae``: the port's
+    samples with (one process's; its parameters may lie on the meta
+    device, as ``Trainer.one_process_model``'s do, and ``device`` then
+    says where to sample). ``attach`` copies it once, and each evaluation
+    copies the EMA weights into that copy: ``model`` itself is never
+    written (an fp32 trainer's model holds the master parameters);
+    ``vae``: the port's
     AutoencoderKL (the preview is then uint8 images, else latents);
     ``ref_images``: an npz (arr_0 uint8) the FID is taken against;
     ``inception_weights``, ``weights_are_adm``: the Evaluator's."""
@@ -54,6 +67,7 @@ class InlineEvalHook:
     vae: Any = None
     out_dir: Optional[str] = None
     seed: int = 0
+    device: Optional[Union[str, torch.device]] = None
 
     def __post_init__(self):
         self._evaluator = None
@@ -66,11 +80,17 @@ class InlineEvalHook:
                ) -> 'InlineEvalHook':
         """``get_ema_params()`` -> the current EMA parameters by name
         (called at each evaluation). Makes the hook's sampling model, a
-        copy of ``model`` without gradients."""
+        copy of ``model`` with parameters of its own, uninitialised and
+        without gradients."""
+        from fitv2_tpu_torch.parallel.sharding import is_sharded
+        if is_sharded(self.model):
+            raise ValueError('InlineEvalHook: the model is sharded; give '
+                             'the hook Trainer.one_process_model')
+        memo = {id(p): torch.nn.Parameter(torch.empty(
+            p.shape, dtype=p.dtype, device=self.device or p.device),
+            requires_grad=False) for p in self.model.parameters()}
         self._get_ema = get_ema_params
-        self._sample_model = copy.deepcopy(self.model).requires_grad_(False)
-        for p in self._sample_model.parameters():
-            p.grad = None
+        self._sample_model = copy.deepcopy(self.model, memo)
         self._sampler = None
         return self
 
@@ -88,7 +108,7 @@ class InlineEvalHook:
     def _ensure_eval(self) -> None:
         if self._evaluator is None and self.ref_images is not None:
             from fitv2_tpu_torch.eval.evaluator import Evaluator
-            device = next(self.model.parameters()).device
+            device = next(self._sample_model.parameters()).device
             self._evaluator = Evaluator(
                 self.inception_weights, weights_are_adm=self.weights_are_adm,
                 device=device)
@@ -108,6 +128,8 @@ class InlineEvalHook:
                                           self.vae)
         labels, z = self.draw(step)
         images = self._sampler(labels, z=z).cpu().numpy()
+        if process_index() != 0:
+            return
         if self.out_dir is not None:
             os.makedirs(self.out_dir, exist_ok=True)
             np.savez(os.path.join(self.out_dir, f'preview_{step}.npz'),

@@ -18,8 +18,9 @@ The port's pieces follow optax's arithmetic:
 - ``update_ema`` runs after every micro-step, as in JAX;
 - ``MultiTransform`` (``optax.multi_transform``): each group's chain sees
   only its own parameters, so its clip takes the global norm of the
-  group's gradients; a frozen group (``set_to_zero``) keeps its bits and
-  holds no state. CAME is train/came.py.
+  group's gradients (over every shard under model sharding); a frozen
+  group (``set_to_zero``) keeps its bits and holds no state. CAME is
+  train/came.py.
 
 ``make_step`` takes the loss as a function: the flow loss here
 (``make_train_step``), the improved-diffusion loss in
@@ -45,7 +46,8 @@ the model's parameters are this rank's shards (FSDP2's local tensors,
 tensor-parallel slices, a pipeline stage's blocks); the draws keep the
 rows of the rank's data x fsdp batch shard; the layout reduces the local
 gradients over the groups that share them and takes the global norm over
-every shard; AdamW and the EMA run on the local shards.
+every shard; AdamW, CAME (train/came.py: its statistics summed over
+the axes that split each JAX leaf) and the EMA run on the local shards.
 """
 
 from __future__ import annotations
@@ -149,6 +151,8 @@ class AdamW(torch.optim.Optimizer):
         for group in self.param_groups:
             params = [p for p in group['params'] if p.grad is not None]
             if not params:
+                if not group['params']:  # a rank that holds none of a
+                    group['count'] += 1  # sharded group's: count along
                 continue
             lr = self.schedule(group['count'])
             group['count'] += 1
@@ -254,26 +258,44 @@ class MultiTransform:
     """``optax.multi_transform`` over named parameters: ``labels`` (name ->
     label) sends each parameter to ``optimizers[label]``, which clips its
     group's gradients by ``max_grad_norms[label]`` (the group's own global
-    norm) and steps; a label whose optimizer is None is frozen
-    (``optax.set_to_zero``: the parameters keep their bits)."""
+    norm, kept in ``norms``) and steps; a label whose optimizer is None is
+    frozen (``optax.set_to_zero``: the parameters keep their bits).
+    ``params``: the parameters by name; ``members``: each label's names in
+    order. Under model sharding (``layout``) ``params`` are this rank's
+    local tensors and ``members`` every parameter of the mesh; each group's
+    norm is then taken over every shard (``layout.global_norm``), by every
+    rank in the same order, whichever of the group's parameters it
+    holds."""
 
     def __init__(self, labels: Dict[str, str],
                  optimizers: Dict[str, Optional[torch.optim.Optimizer]],
-                 max_grad_norms: Dict[str, float]):
+                 max_grad_norms: Dict[str, float],
+                 params: Dict[str, Tensor], members: Dict[str, List[str]],
+                 layout=None):
         self.labels = labels
         self.optimizers = optimizers
         self.max_grad_norms = max_grad_norms
+        self.params = params
+        self.members = members
+        self.layout = layout
+        self.norms: Dict[str, Tensor] = {}
 
     def step(self) -> None:
         for label, opt in self.optimizers.items():
             if opt is None:
                 continue
-            params = [p for g in opt.param_groups for p in g['params']
-                      if p.grad is not None]
-            if params:
-                clip_by_global_norm([p.grad for p in params],
-                                    self.max_grad_norms[label])
-                opt.step()
+            names = [n for n in self.members[label] if n in self.params
+                     and self.params[n].grad is not None]
+            grads = [self.params[n].grad for n in names]
+            if self.layout is not None:
+                norm = self.layout.global_norm(names, grads)
+            elif grads:
+                norm = global_norm(grads)
+            else:
+                continue
+            self.norms[label] = clip_by_global_norm(
+                grads, self.max_grad_norms[label], norm)
+            opt.step()
 
     def state_dict(self) -> Dict[str, Any]:
         return {label: opt.state_dict()
@@ -289,21 +311,26 @@ Optimizer = Union[AdamW, CAME, MultiTransform]
 
 
 def build_optimizer(params: Dict[str, Tensor], cfg: OptimizerConfig,
-                    model: nn.Module) -> Union[AdamW, CAME]:
+                    model: nn.Module, layout=None,
+                    names: Optional[Sequence[str]] = None
+                    ) -> Union[AdamW, CAME]:
     """``cfg``'s optimizer over ``params`` (name -> master of ``model``'s
     parameter of that name), without the clip (``make_step`` clips). CAME
     runs over the leaves of ``model``'s JAX counterpart
-    (``ckpt.jax_leaves``)."""
+    (``ckpt.jax_leaves``); under model sharding (``layout``) over this
+    rank's parts of them, ``names`` being every parameter it updates over
+    the mesh (default: all)."""
     lr = cfg.lr_schedule or cfg.learning_rate
     if cfg.optimizer == 'adamw':
-        return AdamW(list(params.values()), lr=lr, betas=cfg.betas,
-                     eps=cfg.eps, weight_decay=cfg.weight_decay,
-                     mu_dtype=cfg.mu_dtype)
+        return AdamW([{'params': list(params.values())}], lr=lr,
+                     betas=cfg.betas, eps=cfg.eps,
+                     weight_decay=cfg.weight_decay, mu_dtype=cfg.mu_dtype)
     if cfg.optimizer == 'came':
         from fitv2_tpu_torch.ckpt.convert import jax_leaves
         return CAME(params, jax_leaves(model), lr=lr,
                     betas=(cfg.betas[0], cfg.betas[1], 0.9999),
-                    weight_decay=cfg.weight_decay)
+                    weight_decay=cfg.weight_decay, layout=layout,
+                    names=names)
     raise ValueError(f'unknown optimizer {cfg.optimizer!r} '
                      "(expected 'adamw' or 'came')")
 
@@ -311,45 +338,55 @@ def build_optimizer(params: Dict[str, Tensor], cfg: OptimizerConfig,
 def make_grouped_optimizer(params: Dict[str, Tensor],
                            group_fn: Callable[[str, Tensor], str],
                            group_configs: Dict[str, Optional[OptimizerConfig]],
-                           model: nn.Module) -> MultiTransform:
+                           model: nn.Module, layout=None) -> MultiTransform:
     """Per-group optimizers: ``group_fn(name, param) -> label`` sends each
     parameter to ``group_configs[label]``, an ``OptimizerConfig`` (JAX's
     ``make_optimizer``: its clip, then AdamW or CAME) or None (frozen).
-    ``model``: as ``build_optimizer``'s."""
+    ``model``: as ``build_optimizer``'s. Under model sharding (``layout``)
+    every parameter of the mesh is labelled, each given to ``group_fn`` as
+    a meta tensor of its one-process shape, so that every rank makes the
+    same groups."""
+    if layout is None:
+        every = params
+    else:
+        every = {n: torch.empty(layout.shapes[n], device='meta')
+                 for n in layout.names}
     labels = {}
-    for name, p in params.items():
+    for name, p in every.items():
         label = group_fn(name, p)
         if label not in group_configs:
             raise KeyError(f'{name}: label {label!r} not in '
                            f'{sorted(group_configs)}')
         labels[name] = label
-    optimizers = {}
+    optimizers, members = {}, {}
     for label, cfg in group_configs.items():
-        members = {n: p for n, p in params.items() if labels[n] == label}
-        optimizers[label] = (None if cfg is None or not members
-                             else build_optimizer(members, cfg, model))
+        members[label] = [n for n in every if labels[n] == label]
+        mine = {n: params[n] for n in members[label] if n in params}
+        optimizers[label] = (
+            None if cfg is None or not members[label] else build_optimizer(
+                mine, cfg, model, layout, members[label]))
     return MultiTransform(labels, optimizers, {
         label: cfg.max_grad_norm for label, cfg in group_configs.items()
-        if cfg is not None})
+        if cfg is not None}, params, members, layout)
 
 
 def make_finetune_optimizer(params: Dict[str, Tensor], cfg: OptimizerConfig,
                             unfreeze: Sequence[str],
                             finetune_type: str = 'partial', *,
-                            model: nn.Module
+                            model: nn.Module, layout=None
                             ) -> Union[AdamW, CAME, MultiTransform]:
     """Freeze by name: with ``finetune_type='full'`` every parameter trains
     (``cfg``'s optimizer); otherwise only those whose name contains a
     substring of ``unfreeze`` ('adaLN', 'norm' ...) train, under ``cfg``'s
-    clip and optimizer, and the rest are frozen. ``model``: as
-    ``build_optimizer``'s."""
+    clip and optimizer, and the rest are frozen. ``model`` and ``layout``:
+    as ``build_optimizer``'s."""
     if finetune_type == 'full':
-        return build_optimizer(params, cfg, model)
+        return build_optimizer(params, cfg, model, layout)
     unfreeze = tuple(unfreeze)
     return make_grouped_optimizer(
         params, lambda name, _: ('train' if any(u in name for u in unfreeze)
                                  else 'frozen'),
-        {'train': cfg, 'frozen': None}, model)
+        {'train': cfg, 'frozen': None}, model, layout)
 
 
 @dataclasses.dataclass
@@ -401,12 +438,13 @@ class TrainState:
 
 def create_train_state(model: nn.Module, cfg: OptimizerConfig,
                        optimizer_fn: Optional[Callable[
-                           [Dict[str, Tensor]], Optimizer]] = None
-                       ) -> TrainState:
+                           [Dict[str, Tensor]], Optimizer]] = None,
+                       layout=None) -> TrainState:
     """Masters, EMA, optimizer and accumulator for ``model``. An fp32
     model's parameters are the masters; any other dtype gets fp32 copies on
-    the model's device. The optimizer is ``cfg``'s (``build_optimizer``)
-    unless ``optimizer_fn(masters)`` builds another (a grouped or finetune
+    the model's device. The optimizer is ``cfg``'s (``build_optimizer``,
+    over ``layout``'s shards when the model is sharded) unless
+    ``optimizer_fn(masters)`` builds another (a grouped or finetune
     optimizer; the clip is then each group's)."""
     named = {n: local(p) for n, p in model.named_parameters()
              if p.device.type != 'meta'}
@@ -414,7 +452,7 @@ def create_train_state(model: nn.Module, cfg: OptimizerConfig,
               else p.detach().float().clone() for n, p in named.items()}
     ema = {n: p.detach().clone() for n, p in params.items()}
     optimizer = (optimizer_fn(params) if optimizer_fn is not None
-                 else build_optimizer(params, cfg, model))
+                 else build_optimizer(params, cfg, model, layout))
     accumulator = (GradAccumulator(cfg.grad_accum_steps,
                                    list(params.values()))
                    if cfg.grad_accum_steps > 1 else None)

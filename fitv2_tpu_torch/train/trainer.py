@@ -16,10 +16,13 @@ after the same step. The mesh's other axes shard the model
 GPipe stages with ``pp_microbatches`` a data shard): the batch is split
 over data x fsdp, the ranks of a batch shard load the same rows and draw
 alike, and the checkpoint holds the one-process layout whatever the mesh
-(process 0 gathers it; every rank restores its shards from it). JAX's
-refusals hold: the pipeline takes the flow objective only, composes with
-the data axis only, and needs a batch that splits into the data shards x
-``pp_microbatches``; CAME under model sharding is not ported.
+(process 0 gathers it; every rank restores its shards from it), AdamW's
+or CAME's state included. JAX's refusals hold: the pipeline takes the
+flow objective only, composes with the data axis only, and needs a batch
+that splits into the data shards x ``pp_microbatches``. An
+``InlineEvalHook`` samples with ``one_process_model`` (a copy of the
+model's structure taken before it is sharded) filled from
+``gathered_ema()``.
 
 Differences from the JAX trainer, by design:
 - the initial parameters are the given model's own (the port initialises
@@ -134,6 +137,16 @@ def _check_config(cfg: TrainerConfig) -> None:
                          'objective only')
 
 
+def skeleton(model: torch.nn.Module) -> torch.nn.Module:
+    """A copy of ``model`` whose parameters lie on the meta device (it
+    holds no memory for them): the one-process structure that a sampling
+    copy is made from (``InlineEvalHook``)."""
+    memo = {id(p): torch.nn.Parameter(torch.empty_like(p, device='meta'),
+                                      requires_grad=False)
+            for p in model.parameters()}
+    return copy.deepcopy(model, memo)
+
+
 def batch_to_device(batch_np: Dict[str, np.ndarray], device: torch.device
                     ) -> Dict[str, torch.Tensor]:
     """A loader's numpy batch as tensors on ``device``."""
@@ -181,13 +194,10 @@ class Trainer:
         # the fp32 model holds the master parameters; a bf16 copy computes
         # (under fsdp: FSDP2's bf16 gathers of the fp32 shards)
         self.master_model = model.to(self.device, torch.float32)
+        self.one_process_model = skeleton(self.master_model)
         dtype = _DTYPES[config.mixed_precision]
         self.layout = None
         if self.mesh.shards_model:
-            if config.optimizer != 'adamw':
-                raise NotImplementedError(
-                    f'optimizer={config.optimizer!r} under model sharding '
-                    'is not ported (slice 9c); use adamw')
             # every rank starts from process 0's weights, then shards them
             broadcast_(list(self.master_model.parameters()))
             self.model, self.layout = shard_model(
@@ -230,7 +240,18 @@ class Trainer:
 
     def init_state(self) -> TrainState:
         """A fresh state from the master model's current parameters."""
-        return create_train_state(self.master_model, self.optimizer_config)
+        return create_train_state(self.master_model, self.optimizer_config,
+                                  layout=self.layout)
+
+    def gathered_ema(self) -> Dict[str, torch.Tensor]:
+        """The EMA of ``self.state`` in the one-process layout, by
+        parameter name, whole on every rank: under model sharding a
+        collective that every rank makes at the same steps."""
+        ema = self.state.ema_params
+        if self.layout is None:
+            return ema
+        return {n: self.layout.to_full(n, ema.get(n))
+                for n in self.layout.names}
 
     def train(self, max_steps: Optional[int] = None, resume: bool = True,
               metric_hook: Optional[Callable[[int, Dict], None]] = None

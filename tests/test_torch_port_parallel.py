@@ -17,6 +17,9 @@ held against one process and against JAX:
   - Trainer checkpoints: process 0 writes them, every rank restores, and a
     run resumed across two trainers is bit-identical to an uninterrupted
     one;
+  - the inline eval hook at step 2 of a Trainer (``one_process_model``,
+    ``gathered_ema``): both ranks hold the same EMA, rank 0 alone writes
+    the preview, which one process's hook on that EMA gives bit for bit;
   - a preemption signal on rank 1 stops both ranks after the same step
     (the next one that the agreement cadence divides),
     and ranks that initialise their own weights train from rank 0's;
@@ -48,6 +51,7 @@ from fitv2_tpu_torch.sample import SamplingConfig, build_sampler
 from fitv2_tpu_torch.sample.pipeline import (
     _batch_inputs, generate_fid_samples)
 from fitv2_tpu_torch.train import train_step as tts
+from fitv2_tpu_torch.train.eval_hook import InlineEvalHook
 from fitv2_tpu_torch.train.lwd_trainer import LwDTrainer, LwDTrainerConfig
 from fitv2_tpu_torch.train.trainer import (
     Trainer, TrainerConfig, step_generator)
@@ -66,6 +70,7 @@ LWD = dict(context_size=16, patch_size=2, in_channels=4, hidden_size=64,
 # the CLI's sampler for its flags below (bf16 model inputs)
 SAMPLE = dict(image_height=32, image_width=32, num_sampling_steps=3,
               num_classes=10, per_device_batch=2)
+HOOK = dict(SAMPLE, dtype=torch.float32)
 N_FID = 10
 DEADLINE_S = 240
 
@@ -188,6 +193,15 @@ def _worker(rank, port, root, inputs):
     out['resumed'] = _summary(resumed.train(resume=True))
     out['resumed_consistent'] = misc.check_cross_process_consistency(
         out['resumed']['params'], 'resumed')
+
+    # the inline eval hook at step 2: each rank samples, rank 0 writes
+    hooked = _trainer(shards, os.path.join(root, 'hooked'), max_steps=2)
+    hook = InlineEvalHook(
+        hooked.one_process_model, SamplingConfig(**HOOK), every=2, seed=3,
+        device='cpu', out_dir=os.path.join(root, 'preview', f'rank{rank}'))
+    hook.attach(hooked.gathered_ema)
+    out['hook_ema'] = dict(hooked.train(resume=False,
+                                        metric_hook=hook).ema_params)
 
     def hook(step, metrics):
         if rank == 1 and step == 2:
@@ -437,6 +451,24 @@ def test_cross_process_stats_and_consistency(dp):
             res['psum'], training_stats.moments(torch.from_numpy(values)),
             rtol=1e-6)
         assert res['consistent_same'] and not res['consistent_differs']
+
+
+def test_inline_eval_hook_writes_on_process_0_only(dp, tmp_path):
+    """Data parallel, both ranks run the hook at step 2 on the same EMA;
+    only rank 0 writes the preview, which equals one process's hook on
+    that EMA bit for bit."""
+    r0, r1 = dp['ranks']
+    for n, t in r0['hook_ema'].items():
+        assert torch.equal(t, r1['hook_ema'][n]), n
+    hook = InlineEvalHook(FiT(**TINY), SamplingConfig(**HOOK), every=2,
+                          seed=3, out_dir=str(tmp_path))
+    hook.attach(lambda: r0['hook_ema'])
+    hook(2, {})
+    preview = os.path.join(dp['root'], 'preview')
+    assert sorted(os.listdir(preview)) == ['rank0']
+    np.testing.assert_array_equal(
+        np.load(os.path.join(preview, 'rank0', 'preview_2.npz'))['arr_0'],
+        np.load(tmp_path / 'preview_2.npz')['arr_0'])
 
 
 def test_fid_generation_per_rank_and_the_cli(dp):

@@ -25,14 +25,27 @@ devices (weights through ``ckpt.state_dict_from_jax`` /
     sequence four all-to-alls a block each way; stage one send or recv a
     microbatch each way. FSDP2 on the root alone (one gather of the whole
     model) fails the check;
+  - CAME (two steps, weight decay 0.1, from a randomised init) within
+    1e-5 of JAX's sharded CAME under fsdp 2 x tensor 2 (TINY with an
+    adaLN-LoRA rank of 1) and data 2 x stage 2 (TINY): the parameters'
+    change, m and the factored row/column state; under sequence 4 within
+    1e-5 of one process. Under fsdp 2 the label table's 11 rows split 6 / 5 and
+    each block's adaLN-LoRA fc1 (one row: JAX's (64, 1) kernel, its (1,)
+    bias) leaves fsdp rank 1 an empty chunk;
+  - the grouped optimizer (CAME with decay, AdamW without, split by the
+    JAX leaf's rank) under fsdp 2 x tensor 2 against JAX's
+    ``multi_transform``: each group's clip norm at both steps, the
+    parameters and the CAME group's state;
   - checkpoints: a sharded run resumed under its mesh is bit-identical to
     the uninterrupted one; process 0 writes the one-process layout, which
     a one-process Trainer loads and whose one-process counterpart loads
-    into the sharded trainer, bit for bit;
+    into the sharded trainer, bit for bit, with AdamW and with CAME;
+  - the inline eval hook under fsdp 2 x tensor 2, from a one-process
+    checkpoint's EMA: process 0's preview equals the one-process hook's
+    bit for bit, and no other rank writes one;
   - JAX's refusals: the pipeline with ddpm, int8 or a sequence mesh, a
     stage axis beside another model axis, a batch that does not split
-    into the data shards x pp_microbatches; CAME under sharding (not
-    ported).
+    into the data shards x pp_microbatches; CAME under fsdp 4 trains.
 """
 
 import os
@@ -46,16 +59,19 @@ import torch.multiprocessing as mp
 
 from fitv2_tpu_torch.flow import create_transport
 from fitv2_tpu_torch.models import FiT, FiTLwD
+from fitv2_tpu_torch.models.bfm import split_decay_param_labels
 from fitv2_tpu_torch.parallel import comms, mesh as pmesh
 from fitv2_tpu_torch.parallel.pipeline import make_pipelined_forward
 from fitv2_tpu_torch.parallel.sharding import ShardedLayout, shard_model
 from fitv2_tpu_torch.train import lwd_train_step as lts
+from fitv2_tpu_torch.sample import SamplingConfig
 from fitv2_tpu_torch.train import train_step as tts
+from fitv2_tpu_torch.train.eval_hook import InlineEvalHook
 from fitv2_tpu_torch.train.lwd_trainer import LwDTrainer, LwDTrainerConfig
 from fitv2_tpu_torch.train.trainer import Trainer, TrainerConfig
 
 from test_torch_port_parallel import (
-    GB, TINY, _first_batch, _flat, _free_port, rel_l2)
+    GB, SAMPLE, TINY, _first_batch, _flat, _free_port, rel_l2)
 
 WORLD, LR, EMA, M = 4, 1e-4, 0.9, 2
 TOL = 1e-5
@@ -67,6 +83,17 @@ CASES = {'fsdp4': dict(data=1, fsdp=4),
          'dp2_pp2': dict(data=2, stage=2)}
 NORMAL = dict(TINY, adaln_type='normal', adaln_lora_dim=None)
 HEADS2 = dict(TINY, num_heads=2)  # sequence 4 does not divide 2 heads
+# CAME's runs: TINY with an adaLN-LoRA rank of 1 (one row: fsdp rank 1
+# holds an empty chunk of it), two steps with weight decay
+CAME_KW = dict(TINY, adaln_lora_dim=1)
+CAME = dict(optimizer='came', learning_rate=LR, weight_decay=0.1)
+ADAM_GROUP = dict(learning_rate=2e-3, max_grad_norm=0.5)
+# name -> (mesh, model, its init); under stage JAX's pipeline_opt_shardings
+# splits a stacked bias' (D,) r_col over the stages, which D = 1 refuses
+CAME_CASES = {'came_fsdp2_tp2': (CASES['fsdp2_tp2'], CAME_KW, 'came'),
+              'came_dp2_pp2': (CASES['dp2_pp2'], TINY, 'lora'),
+              'came_seq4': (CASES['seq4'], CAME_KW, 'came')}
+HOOK = dict(SAMPLE, dtype=torch.float32)
 # the LwD model: test_torch_port_lwd_train.py's 'plain' variant, its
 # seed (the segment stream's and JAX's step key) and learning rate
 LWD_SEGMENT, LWD_SEED, LWD_LR = 1, 3, 1e-3
@@ -98,14 +125,27 @@ def _fsdp_root_only(model, mesh):
     return model, ShardedLayout(mesh, model, {}, {}, shapes)
 
 
+def _grouped(model, layout=None):
+    """The decay grouping's optimizer (of the masters): CAME with decay, AdamW
+    without, labelled by the JAX leaf's rank (``model``: one process's)."""
+    labels = split_decay_param_labels(FiT(**CAME_KW))
+    return lambda masters: tts.make_grouped_optimizer(
+        masters, lambda n, _: labels[n],
+        {'decay': tts.OptimizerConfig(**CAME),
+         'no_decay': tts.OptimizerConfig(**ADAM_GROUP)}, model, layout)
+
+
 def fit_case(inputs, case, kw=TINY, accum=1, mask=True, root_only=False,
-             microbatches=M, step=True):
-    """Forward and ``accum`` train micro-steps of the FiT under ``case``
-    (``root_only``: FSDP2 on the root alone): this rank's output rows, the
-    step's metrics and collectives, the one-process state (process 0) and
-    the local parameter bytes."""
+             microbatches=M, step=True, init=None, opt=None, steps=1,
+             grouped=False):
+    """Forward and ``accum`` train micro-steps (``steps`` times) of the FiT
+    (from ``inputs['init'][init]``) under ``case`` (``root_only``: FSDP2
+    on the root alone; ``opt``: the OptimizerConfig's fields; ``grouped``:
+    ``_grouped``'s optimizer): this rank's output rows, the step's metrics
+    and collectives, each grouped step's clip norms, the one-process state
+    (process 0) and the local parameter bytes."""
     mesh = pmesh.build_mesh(pmesh.MeshConfig(**case))
-    model = _model(FiT, kw, inputs['init'][kw['adaln_type']])
+    model = _model(FiT, kw, inputs['init'][init or kw['adaln_type']])
     compute, layout = _fsdp_root_only(model, mesh) if root_only else \
         shard_model(model, mesh, pp_microbatches=microbatches)
     rows = _rows(mesh)
@@ -122,17 +162,24 @@ def fit_case(inputs, case, kw=TINY, accum=1, mask=True, root_only=False,
     res = dict(out=out, rows=(rows.start, rows.stop))
     if not step:
         return res
-    state = tts.create_train_state(layout.model, tts.OptimizerConfig(
-        learning_rate=LR, grad_accum_steps=accum))
+    state = tts.create_train_state(
+        layout.model, tts.OptimizerConfig(**{
+            **dict(learning_rate=LR, grad_accum_steps=accum), **(opt or {})}),
+        _grouped(layout.model, layout) if grouped else None, layout)
     train_step = tts.make_train_step(compute, create_transport(),
                                      ema_decay=EMA, layout=layout)
+    norms = []
     with comms.CollectiveLog() as log:
-        for _ in range(accum):
-            _, metrics = train_step(state, batch, draws=draws)
+        for _ in range(steps):
+            for _ in range(accum):
+                _, metrics = train_step(state, batch, draws=draws)
+            if grouped:
+                norms.append({k: float(v) for k, v in
+                              state.optimizer.norms.items()})
     res.update(loss=float(metrics['loss']),
                grad_norm=float(metrics['grad_norm']),
                counts=dict(log.counts()), bytes=_local_bytes(state),
-               full=layout.full_state_dict(state))
+               norms=norms, full=layout.full_state_dict(state))
     return res
 
 
@@ -263,12 +310,38 @@ def checkpoint_runs(inputs, root, rank):
     tr.layout.load_full_state_dict(state, torch.load(
         _wait_for(inputs['one_ckpt']), weights_only=True, mmap=True))
     out['from_one'] = tr.layout.full_state_dict(state)
+    # CAME: this mesh's checkpoint, and the one-process one restored here
+    came = dict(mesh, optimizer='came')
+    tr = _trainer(inputs, os.path.join(root, 'came'), max_steps=2, **came)
+    out['came'] = tr.layout.full_state_dict(tr.train(resume=False))
+    tr = _trainer(inputs, os.path.join(root, f'came_restore{rank}'), **came)
+    state = tr.init_state()
+    tr.layout.load_full_state_dict(state, torch.load(
+        _wait_for(inputs['one_came_ckpt']), weights_only=True, mmap=True))
+    out['came_from_one'] = tr.layout.full_state_dict(state)
     return out
 
 
-def cli_run(inputs, root):
+def hook_run(inputs, root, rank):
+    """The inline eval hook of a trainer under fsdp 2 x tensor 2 whose
+    state is the one-process checkpoint's: an evaluation at step 2, each
+    rank writing under its own folder."""
+    tr = _trainer(inputs, os.path.join(root, f'hook_run{rank}'),
+                  mesh_data=1, mesh_fsdp=2, mesh_tensor=2)
+    tr.state = tr.init_state()
+    tr.layout.load_full_state_dict(tr.state, torch.load(
+        inputs['one_ckpt'], weights_only=True, mmap=True))
+    hook = InlineEvalHook(tr.one_process_model, SamplingConfig(**HOOK),
+                          every=2, seed=3, device='cpu',
+                          out_dir=os.path.join(root, 'hook', f'rank{rank}'))
+    hook.attach(tr.gathered_ema)
+    hook(2, {})
+
+
+def cli_run(inputs, root, came=False):
     """cli/train.py under fsdp 2 x tensor 2 (the YAML's accelerate keys)
-    for 2 steps from a TINY config: the trainer's mesh, and the losses."""
+    for 2 steps from a TINY config (``came``: with ``--came``): the
+    trainer's mesh and optimizer, and the losses."""
     import yaml
     from fitv2_tpu_torch.cli import train as cli
     cfg = os.path.join(root, 'cli.yaml')
@@ -285,8 +358,10 @@ def cli_run(inputs, root):
                                'lr_warmup_steps': 0}}, f)
         os.replace(cfg + '.tmp', cfg)
     args = cli.parse_args(['--cfgdir', _wait_for(cfg), '--output-dir',
-                           os.path.join(root, 'cli_run'), '--max-steps',
-                           '2', '--no-resume', '--device', 'cpu'])
+                           os.path.join(root, 'cli_came' if came
+                                        else 'cli_run'), '--max-steps',
+                           '2', '--no-resume', '--device', 'cpu']
+                          + (['--came'] if came else []))
     from fitv2_tpu_torch.utils.config import load_config
     torch.manual_seed(0)
     tr = cli.build_trainer(load_config(args.cfgdir), args)
@@ -298,9 +373,10 @@ def cli_run(inputs, root):
         losses.append(float(out[1]['loss']))
         return out
     tr._train_step = step
-    tr.train(max_steps=2, resume=False)
+    state = tr.train(max_steps=2, resume=False)
     return dict(mesh=tr.mesh.shape, batch=tr.cfg.global_batch_size,
-                losses=losses, precision=tr.cfg.mixed_precision)
+                losses=losses, precision=tr.cfg.mixed_precision,
+                optimizer=type(state.optimizer).__name__)
 
 
 def refusals(inputs, root):
@@ -309,14 +385,17 @@ def refusals(inputs, root):
     for name, kw in (('stage_fsdp', dict(mesh_data=1, mesh_stage=2,
                                          mesh_fsdp=2)),
                      ('microbatches', dict(mesh_data=2, mesh_stage=2,
-                                           pp_microbatches=3)),
-                     ('came', dict(mesh_data=1, mesh_fsdp=4,
-                                   optimizer='came'))):
+                                           pp_microbatches=3))):
         try:
             _trainer(inputs, os.path.join(root, 'refuse'), **kw)
             out[name] = None
         except (ValueError, NotImplementedError) as e:
             out[name] = f'{type(e).__name__}: {e}'
+    # CAME under fsdp 4, once refused, trains
+    tr = _trainer(inputs, os.path.join(root, 'came_fsdp4'), mesh_data=1,
+                  mesh_fsdp=4, optimizer='came')
+    out['came'] = tr.layout.full_state_dict(tr.train(max_steps=2,
+                                                     resume=False))
     return out
 
 
@@ -333,6 +412,12 @@ def _worker(rank, port, root, inputs):
                                      mask=False, microbatches=4, step=False)
     out['pp_accum'] = fit_case(inputs, CASES['dp2_pp2'], accum=2)
     out['fsdp_root'] = fit_case(inputs, CASES['fsdp4'], root_only=True)
+    for name, (case, kw, init) in CAME_CASES.items():
+        out[name] = fit_case(inputs, case, kw=kw, init=init, opt=CAME,
+                             steps=2)
+    out['grouped_fsdp2_tp2'] = fit_case(inputs, CASES['fsdp2_tp2'],
+                                        kw=CAME_KW, init='came', steps=2,
+                                        grouped=True)
     out['seq_unsplit'] = fit_case(inputs, CASES['seq4'], kw=HEADS2)
     data4 = pmesh.build_mesh(pmesh.MeshConfig(data=4))
     x = torch.zeros(2, 16, 8)
@@ -354,7 +439,9 @@ def _worker(rank, port, root, inputs):
     out['lwd_rms'], out['lwd_rms_here'] = lwd_trainer_run(
         inputs, os.path.join(root, 'lwd_rms'), jax_draws=True, kind='rms')
     out['ckpt'] = checkpoint_runs(inputs, root, rank)
+    hook_run(inputs, root, rank)
     out['cli'] = cli_run(inputs, root)
+    out['cli_came'] = cli_run(inputs, root, came=True)
     out['refusals'] = refusals(inputs, root)
     torch.save(out, os.path.join(root, f'rank{rank}.pt'))
     dist.destroy_process_group()
@@ -398,13 +485,39 @@ def _state_shardings(mesh, state):
     return JTrainer.state_shardings(fake, state)
 
 
+def _norm_recorder():
+    """An optax transformation that passes the updates on and keeps their
+    global norm as its state: first in a group's chain, the norm that the
+    group's clip takes."""
+    import optax
+
+    def init(params):
+        import jax.numpy as jnp
+        return jnp.zeros((), jnp.float32)
+
+    def update(updates, state, params=None):
+        return updates, optax.global_norm(updates)
+    return optax.GradientTransformation(init, update)
+
+
+def _recorded(opt_state, label):
+    """The norm ``_norm_recorder`` kept in group ``label`` of a
+    ``multi_transform`` state."""
+    inner = opt_state.inner_states[label]
+    return getattr(inner, 'inner_state', inner)[0]
+
+
 def jax_fit_run(case, params, batch, draws, kw=TINY, accum=1, mask=True,
-                microbatches=M, step=True):
-    """JAX's sharded forward and ``accum`` train steps (make_train_step
-    with the pipelined forward under stage), jitted over the 4-device
-    mesh as its Trainer lays the state out."""
+                microbatches=M, step=True, opt=None, steps=1,
+                grouped=False):
+    """JAX's sharded forward and ``steps`` x ``accum`` train steps
+    (make_train_step with the pipelined forward under stage), jitted over
+    the 4-device mesh as its Trainer lays the state out; ``grouped``: a
+    ``multi_transform`` of CAME with decay and AdamW without, split by
+    ``split_decay_param_labels``, each group's clip norm recorded."""
     import jax
     import jax.numpy as jnp
+    import optax
     from fitv2_tpu.flow import transport as jtransport
     from fitv2_tpu.models.fit import FiT as JFiT
     from fitv2_tpu.parallel.pipeline import make_pipelined_forward as jpp
@@ -432,8 +545,16 @@ def jax_fit_run(case, params, batch, draws, kw=TINY, accum=1, mask=True,
         def sample(self, rng_key, x):
             return t, x0, x
 
-    tx = jts.make_optimizer(jts.OptimizerConfig(
-        learning_rate=LR, grad_accum_steps=accum))
+    if grouped:
+        from fitv2_tpu.models import bfm as jbfm
+        tx = optax.multi_transform({
+            label: optax.chain(_norm_recorder(), jts.make_optimizer(
+                jts.OptimizerConfig(**cfg)))
+            for label, cfg in (('decay', CAME), ('no_decay', ADAM_GROUP))},
+            jbfm.split_decay_param_labels(params))
+    else:
+        tx = jts.make_optimizer(jts.OptimizerConfig(**{
+            **dict(learning_rate=LR, grad_accum_steps=accum), **(opt or {})}))
     state = jts.create_train_state(params, tx)
     state = jax.device_put(state, _state_shardings(mesh, state))
     train_step = jts.make_train_step(jm, Given(), tx, ema_decay=EMA,
@@ -444,11 +565,15 @@ def jax_fit_run(case, params, batch, draws, kw=TINY, accum=1, mask=True,
                        jb['grid'], jb['mask'], jb['size'])
         if not step:
             return out, state, {}
-        metrics = []
-        for _ in range(accum):
-            state, m = train_step(state, jb, jax.random.PRNGKey(0))
-            metrics.append(m)
-        return out, state, metrics[-1]
+        metrics, norms = [], []
+        for _ in range(steps):
+            for _ in range(accum):
+                state, m = train_step(state, jb, jax.random.PRNGKey(0))
+                metrics.append(m)
+            if grouped:
+                norms.append({label: _recorded(state.opt_state, label)
+                              for label in ('decay', 'no_decay')})
+        return out, state, dict(metrics[-1], norms=norms)
 
     from test_torch_port_lwd_train import NO_OPT
     with mesh:
@@ -535,12 +660,12 @@ def sharded(tmp_path_factory):
                                  seed=1)
     params = {}
     init = {}
-    for adaln, kw in (('lora', TINY), ('normal', NORMAL)):
-        params[adaln] = jax.tree_util.tree_map(
+    for key, kw in (('lora', TINY), ('normal', NORMAL), ('came', CAME_KW)):
+        params[key] = jax.tree_util.tree_map(
             np.asarray, jax_tree(FiT(**kw), seed=3))
-        init[adaln] = state_dict_from_jax(
-            {'params': params[adaln]}, depth=2, num_heads=4,
-            adaln_type=adaln)
+        init[key] = state_dict_from_jax(
+            {'params': params[key]}, depth=2, num_heads=4,
+            adaln_type=kw['adaln_type'])
     rng = np.random.default_rng(4)
     draws = dict(t=rng.uniform(0.05, 0.95, GB).astype(np.float32),
                  x0=rng.standard_normal((GB, 16, 16)).astype(np.float32),
@@ -555,11 +680,21 @@ def sharded(tmp_path_factory):
         common, case=CASES['dp2_pp2'], params=params['normal'], kw=NORMAL,
         mask=False, microbatches=4, step=False)),
         ('pp_accum', 'fit', dict(common, case=CASES['dp2_pp2'], accum=2))]
+    for name in ('came_fsdp2_tp2', 'came_dp2_pp2'):
+        case, kw, key = CAME_CASES[name]
+        jobs.append((name, 'fit', dict(common, params=params[key], kw=kw,
+                                       case=case, opt=CAME, steps=2)))
+    jobs.append(('grouped_fsdp2_tp2', 'fit', dict(
+        common, params=params['came'], kw=CAME_KW, steps=2,
+        case=CASES['fsdp2_tp2'], grouped=True)))
     pool = ProcessPoolExecutor(3, mp_context=mp.get_context('spawn'))
     futures = [pool.submit(_jax_job, job) for job in jobs]
     inputs = dict(shards=shards, init=init, draws=draws, batch=batch,
                   one_ckpt=os.path.join(root, 'one', 'checkpoints',
-                                        'checkpoint-2', 'train_state.pt'))
+                                        'checkpoint-2', 'train_state.pt'),
+                  one_came_ckpt=os.path.join(root, 'one_came', 'checkpoints',
+                                             'checkpoint-2',
+                                             'train_state.pt'))
     ctx = _spawn(root, inputs)
     # while the ranks run the FiT cases: the LwD model, its batches and
     # JAX's draws of segment LWD_SEGMENT, then the one-process checkpoint
@@ -595,13 +730,15 @@ def sharded(tmp_path_factory):
     inputs.update(late)
     _trainer(inputs, os.path.join(root, 'one'), checkpointing_steps=2
              ).train(max_steps=2, resume=False)
+    _trainer(inputs, os.path.join(root, 'one_came'), checkpointing_steps=2,
+             optimizer='came').train(max_steps=2, resume=False)
     jax_runs = dict(f.result() for f in futures)
     pool.shutdown()
     _join(ctx)
     ranks = [torch.load(os.path.join(root, f'rank{r}.pt'),
                         weights_only=False) for r in range(WORLD)]
     yield dict(root=root, inputs=inputs, ranks=ranks, jax=jax_runs,
-               lwd_model=(jm, lkw), rms_kw=rms_kw)
+               lwd_model=(jm, lkw), rms_kw=rms_kw, params=params)
     torch.set_num_threads(prev)
 
 
@@ -837,6 +974,8 @@ def test_collective_check_fails_on_fsdp_at_the_root_only(sharded):
 
 
 def _equal_states(a, b):
+    """Two one-process train states bit for bit: the weights, the EMA and
+    every tensor of the optimizer's state (AdamW's moments, CAME's)."""
     assert a['step'] == b['step']
     for key in ('params', 'ema_params'):
         assert a[key].keys() == b[key].keys()
@@ -845,7 +984,8 @@ def _equal_states(a, b):
     sa, sb = a['optimizer']['state'], b['optimizer']['state']
     assert sa.keys() == sb.keys()
     for i in sa:
-        for k in ('mu', 'nu'):
+        assert sa[i].keys() == sb[i].keys(), i
+        for k in sa[i]:
             assert torch.equal(sa[i][k], sb[i][k]), (i, k)
     assert a['optimizer']['param_groups'][0]['count'] == \
         b['optimizer']['param_groups'][0]['count']
@@ -874,6 +1014,135 @@ def test_checkpoints_cross_meshes(sharded):
                                              weights_only=True))
 
 
+def test_came_checkpoints_cross_meshes(sharded):
+    """CAME's state in a checkpoint written under fsdp 2 x tensor 2 is the
+    one-process CAME's layout, which a one-process CAME Trainer loads bit
+    for bit; and a one-process CAME checkpoint restored under the mesh
+    gathers back bit for bit."""
+    root, inputs = sharded['root'], sharded['inputs']
+    ck = sharded['ranks'][0]['ckpt']
+    assert set(ck['came']['optimizer']['state'][0]) == {
+        'm', 'r_row', 'r_col', 's_row', 's_col'}
+    path = os.path.join(root, 'came', 'checkpoints', 'checkpoint-2',
+                        'train_state.pt')
+    one = _trainer(inputs, os.path.join(root, 'one_came_loads'),
+                   optimizer='came')
+    state = one.init_state()
+    state.load_state_dict(torch.load(path, weights_only=True))
+    _equal_states(state.state_dict(), ck['came'])
+    _equal_states(ck['came_from_one'], torch.load(inputs['one_came_ckpt'],
+                                                  weights_only=True))
+
+
+CAME_KEYS = ('m', 'r_row', 'r_col', 's_row', 's_col', 'r_full')
+
+
+def _came_from_jax(opt_state, kw=CAME_KW, grouped=False):
+    """JAX's CAME state of a FiT(**kw) (of the decay group under
+    ``grouped``) in the one-process CAME's state-dict layout."""
+    from fitv2_tpu_torch.ckpt import came_state_from_jax
+    model = FiT(**kw)
+    masters = dict(model.named_parameters())
+    opt = (_grouped(model)(masters).optimizers['decay'] if grouped else
+           tts.build_optimizer(masters, tts.OptimizerConfig(**CAME), model))
+    came_state_from_jax(opt_state, model, opt)
+    return opt.state_dict()['state']
+
+
+def _came_close(got, want):
+    """Each of CAME's statistics, over every leaf, within TOL."""
+    assert got.keys() == want.keys()
+    for k in CAME_KEYS:
+        a = [got[i][k] for i in sorted(got) if k in got[i]]
+        b = [want[i][k] for i in sorted(want) if k in want[i]]
+        assert len(a) == len(b), k
+        if b or k in CAME_KEYS[:5]:  # a group may hold no 1-D leaf
+            assert rel_l2(_flat(a), _flat(b)) <= TOL, k
+
+
+def _moved(sd, init):
+    names = list(init)
+    return _flat(sd[n] - init[n] for n in names)
+
+
+@pytest.mark.parametrize('name', ['came_fsdp2_tp2', 'came_dp2_pp2'])
+def test_came_matches_jax_sharded(sharded, name):
+    """Two CAME steps (decay 0.1) under the mesh against JAX's CAME on the
+    same mesh: the loss, the parameters' change, and m, r_row, r_col,
+    s_row, s_col, r_full in the one-process layout."""
+    _, jstate, jmetrics = sharded['jax'][name]
+    _, kw, key = CAME_CASES[name]
+    res = sharded['ranks'][0][name]
+    full, init = _full(res), sharded['inputs']['init'][key]
+    assert full['step'] == 2
+    assert full['optimizer']['param_groups'][0]['count'] == 2
+    np.testing.assert_allclose(res['loss'], float(jmetrics['loss']),
+                               rtol=TOL)
+    jp = _port_names(jstate.params, kw)
+    assert rel_l2(_moved(full['params'], init), _moved(jp, init)) <= TOL
+    _came_close(full['optimizer']['state'],
+                _came_from_jax(jstate.opt_state, kw))
+
+
+def test_came_sequence_parallel_equals_one_process(sharded):
+    inputs = sharded['inputs']
+    init = inputs['init']['came']
+    model = _model(FiT, CAME_KW, init)
+    state = tts.create_train_state(model, tts.OptimizerConfig(**CAME))
+    step = tts.make_train_step(model, create_transport(), ema_decay=EMA)
+    draws = {k: torch.from_numpy(v) for k, v in inputs['draws'].items()}
+    for _ in range(2):
+        step(state, inputs['batch'], draws=draws)
+    one = state.state_dict()
+    full = _full(sharded['ranks'][0]['came_seq4'])
+    assert rel_l2(_moved(full['params'], init),
+                  _moved(one['params'], init)) <= TOL
+    _came_close(full['optimizer']['state'], one['optimizer']['state'])
+
+
+def test_grouped_optimizer_matches_jax_sharded(sharded):
+    """make_grouped_optimizer under fsdp 2 x tensor 2 against JAX's
+    multi_transform on that mesh: each group's clip norm at both steps
+    (the same bits on every rank), the parameters' change and the CAME
+    group's state."""
+    _, jstate, jmetrics = sharded['jax']['grouped_fsdp2_tp2']
+    ranks = sharded['ranks']
+    res = ranks[0]['grouped_fsdp2_tp2']
+    assert len(res['norms']) == len(jmetrics['norms']) == 2
+    for ours, theirs in zip(res['norms'], jmetrics['norms']):
+        assert ours.keys() == {'decay', 'no_decay'}
+        for label, norm in ours.items():
+            np.testing.assert_allclose(norm, float(theirs[label]), rtol=TOL)
+    assert all(r['grouped_fsdp2_tp2']['norms'] == res['norms']
+               for r in ranks)
+    full, init = _full(res), sharded['inputs']['init']['came']
+    assert full['optimizer'].keys() == {'decay', 'no_decay'}
+    jp = _port_names(jstate.params, CAME_KW)
+    assert rel_l2(_moved(full['params'], init), _moved(jp, init)) <= TOL
+    _came_close(full['optimizer']['decay']['state'],
+                _came_from_jax(jstate.opt_state.inner_states['decay'],
+                               grouped=True))
+
+
+def test_inline_eval_hook_under_fsdp_tensor_equals_one_process(sharded,
+                                                               tmp_path):
+    """The hook of a trainer under fsdp 2 x tensor 2, its state restored
+    from a one-process checkpoint: the preview equals the one-process
+    hook's from that checkpoint's EMA bit for bit (the EMA's gather is
+    exact), and process 0 alone writes it."""
+    root, inputs = sharded['root'], sharded['inputs']
+    sd = torch.load(inputs['one_ckpt'], weights_only=True)
+    hook = InlineEvalHook(FiT(**TINY), SamplingConfig(**HOOK), every=2,
+                          seed=3, out_dir=str(tmp_path))
+    hook.attach(lambda: sd['ema_params'])
+    hook(2, {})
+    want = np.load(tmp_path / 'preview_2.npz')['arr_0']
+    got = np.load(os.path.join(root, 'hook', 'rank0', 'preview_2.npz'))[
+        'arr_0']
+    np.testing.assert_array_equal(got, want)
+    assert sorted(os.listdir(os.path.join(root, 'hook'))) == ['rank0']
+
+
 def test_cli_train_under_fsdp_and_tensor(sharded):
     res = [r['cli'] for r in sharded['ranks']]
     assert res[0]['mesh'] == dict(data=1, stage=1, fsdp=2, sequence=1,
@@ -890,11 +1159,33 @@ def test_cli_train_under_fsdp_and_tensor(sharded):
         {n: t.shape for n, t in saved['params'].items()}
 
 
+def test_cli_train_came_under_fsdp_and_tensor(sharded):
+    """cli/train.py --came with the YAML's fsdp 2 x tensor 2 trains (it
+    raised before CAME took a layout) and writes the one-process
+    checkpoint with CAME's state."""
+    res = [r['cli_came'] for r in sharded['ranks']]
+    assert res[0]['optimizer'] == 'CAME'
+    assert res[0]['mesh'] == dict(data=1, stage=1, fsdp=2, sequence=1,
+                                  tensor=2)
+    assert len(res[0]['losses']) == 2 and np.isfinite(res[0]['losses']).all()
+    assert all(r['losses'] == res[0]['losses'] for r in res)
+    saved = torch.load(os.path.join(sharded['root'], 'cli_came',
+                                    'checkpoints', 'checkpoint-2',
+                                    'train_state.pt'), weights_only=True)
+    assert saved['optimizer']['param_groups'][0]['count'] == 2
+    assert len(saved['optimizer']['state']) == 25  # TINY's JAX leaves
+
+
 def test_refusals(sharded, tmp_path):
     got = sharded['ranks'][0]['refusals']
     assert 'data axis only' in got['stage_fsdp']
     assert 'pp_microbatches=3' in got['microbatches']
-    assert 'slice 9c' in got['came']
+    came, init = got['came'], sharded['inputs']['init']['lora']
+    assert came['step'] == 2
+    assert came['optimizer']['param_groups'][0]['count'] == 2
+    assert len(came['optimizer']['state']) == 25  # TINY's JAX leaves
+    for n, t in came['params'].items():  # CAME under fsdp 4 trains
+        assert torch.isfinite(t).all() and not torch.equal(t, init[n]), n
     inputs = sharded['inputs']
     with pytest.raises(ValueError, match='flow objective'):
         _trainer(inputs, str(tmp_path), mesh_stage=2, objective='ddpm')
@@ -903,6 +1194,80 @@ def test_refusals(sharded, tmp_path):
         make_pipelined_forward(FiT(**TINY, gemm_precision='int8'), stage2, 2)
     with pytest.raises(ValueError, match='SP or PP'):
         make_pipelined_forward(FiT(**TINY, sequence_mesh=stage2), stage2, 2)
+
+
+class _MeshAt(pmesh.Mesh):
+    """A mesh without processes, seen from the rank at ``at``."""
+
+    def __init__(self, shape, at):
+        super().__init__(dict(dict(data=1, stage=1, fsdp=1, sequence=1,
+                                   tensor=1), **shape))
+        self.at = at
+
+    def coordinate(self, axis):
+        return self.at.get(axis, 0)
+
+
+@pytest.mark.parametrize('shape', [dict(fsdp=2, tensor=2), dict(fsdp=4),
+                                   dict(stage=2)])
+def test_leaf_parts_tile_each_leaf(shape):
+    """``JaxLeaf.part`` at every rank of a mesh (CAME_KW: fsdp's chunks of
+    the one-row adaLN-LoRA fc1 and of the 11-row label table are uneven
+    or empty): each part's entries of the whole leaf are what the
+    checkpoint's ``from_full`` gives that rank, in JAX's layout, and the
+    parts of the ranks along the axes that split the leaf tile it once."""
+    import itertools
+    from fitv2_tpu_torch.ckpt.convert import jax_leaves
+    from fitv2_tpu_torch.parallel.pipeline import pipeline_param_shardings
+    from fitv2_tpu_torch.parallel.sharding import tensor_parallel_
+    torch.manual_seed(0)
+    full = {n: p.detach() for n, p in FiT(**CAME_KW).named_parameters()}
+    leaves = jax_leaves(FiT(**CAME_KW))
+    tiled = {leaf.path: 0 for leaf in leaves}
+    ranks = [dict(zip(shape, c))
+             for c in itertools.product(*map(range, shape.values()))]
+    for at in ranks:
+        mesh = _MeshAt(shape, at)
+        model = FiT(**CAME_KW)
+        shapes = {n: p.shape for n, p in model.named_parameters()}
+        owner = pipeline_param_shardings(mesh, model) if 'stage' in shape \
+            else {}
+        layout = ShardedLayout(mesh, model, tensor_parallel_(model, mesh),
+                               owner, shapes)
+        for leaf in leaves:
+            part = leaf.part(shapes, layout)
+            whole = leaf.to_jax([full[n] for n in leaf.names])
+            axes = range(whole.dim())
+            assert part.shape == tuple(whole.shape)
+            assert set(part.split) == {a for n in leaf.names
+                                       for a in layout.axes(n)}
+            if not part.names:  # no block of the stack on this stage
+                continue
+            mine = leaf.to_jax([layout.from_full(n, full[n])
+                                for n in part.names])
+            assert torch.equal(part.take(whole, axes), mine), leaf.path
+            if all(at[a] == 0 for a in shape if a not in part.split):
+                # one rank of each group that the split axes leave alike
+                tiled[leaf.path] = tiled[leaf.path] + part.place(
+                    whole, axes, mine)
+            if leaf.path == 'blocks/block/attn/qkv/kernel' and \
+                    'tensor' in shape:  # columns: the heads', then FSDP2's
+                assert part.axes == ((), (), ('tensor', 'fsdp'))
+            if leaf.path == 'blocks/block/attn/proj/kernel' and \
+                    'tensor' in shape:  # rows: the heads'; FSDP2's: out
+                assert part.axes == ((), ('tensor',), ('fsdp',))
+    for leaf in leaves:
+        assert torch.equal(tiled[leaf.path], leaf.to_jax(
+            [full[n] for n in leaf.names])), leaf.path
+    if 'fsdp' in shape:  # fsdp's last rank: the LoRA row is not its
+        last = _MeshAt(shape, dict(fsdp=shape['fsdp'] - 1))
+        model = FiT(**CAME_KW)
+        layout = ShardedLayout(last, model, tensor_parallel_(model, last),
+                               {}, {n: p.shape for n, p in
+                                    model.named_parameters()})
+        lora = next(lf for lf in leaves
+                    if lf.path == 'blocks/block/adaLN_modulation/fc1/kernel')
+        assert lora.part(layout.shapes, layout).index[-1].numel() == 0
 
 
 def test_param_shardings_follow_jax_rule():
