@@ -182,12 +182,15 @@ Phases (any failure raises and exits non-zero; nothing is caught):
  15. hr train  - from raw images to a trained HR-XL: (a) the remat policies
                 at FiTv2-HR-XL/2's widths (online decoupled NTK RoPE, N
                 1024, 1024 and 800 tokens valid) cut to depth 2, fp32: one
-                flow loss and backward under none, full, dots and dots_all
-                on the card and none on the CPU, every gradient within
-                1e-4 relative L2 of the card's no-remat one, and each
-                policy's exact K1/K2/K4 launches (the recompute relaunches
-                K1 twice, K2 and K4 once a block); (b) cli/prepare_latents'
-                encode_routed (no PIL) with the SD-VAE encoder at its real
+                flow loss and backward under none, full, dots, dots_all
+                and dots_offload on the card and none on the CPU, every
+                gradient within 1e-4 relative L2 of the card's no-remat
+                one, dots_offload's bit-identical to dots' with its bytes
+                to the host and back those of the saved products, and
+                each policy's exact K1/K2/K4 launches (the recompute
+                relaunches K1 twice, K2 and K4 once a block); (b)
+                cli/prepare_latents' encode_routed (no PIL) with the
+                SD-VAE encoder at its real
                 widths (seeded): card vs CPU in fp32, then 16 uint8 images
                 of mixed sizes routed at 1024 tokens (10 native, 6 larger:
                 512 x 512 resize and crop versions) into shards, fp32 and
@@ -200,8 +203,13 @@ Phases (any failure raises and exits non-zero; nothing is caught):
                 (EMA -> its copy of the compute model, 24 Euler steps,
                 CFG 1.5, batch 4, 512 x 512, phase 5's random VAE decoder and phase 10's
                 InceptionV3 against phase 9's npz) writing its preview and
-                inline_fid, its launches counted apart; then the same run
-                under remat full; (d) an fp32 CAME update at XL width
+                inline_fid, its launches counted apart; then the same
+                trainer under remat dots_offload for 5 steps (the same
+                numbers; its bytes to pinned host memory and back a step,
+                7,025,412,096; the link's measured rates each way; its
+                peak at least 3.5 GB below dots' and its ms a step below
+                dots' plus the copies' serial time) and under full for 5;
+                (d) an fp32 CAME update at XL width
                 (depth 2) card vs CPU, every master and state tensor within
                 1e-5 relative L2, then cli/train --came on
                 configs/fitv2_xl.yaml (depth 36, batch 32): ms a step and
@@ -456,6 +464,11 @@ PREP_SIZES = ((512, 512), (512, 384), (384, 512), (640, 320), (320, 640),
 PREP_SMALL = 10
 PREP_LARGE_HW = 512  # the side of a larger image's resize and crop arrays
 HR_TRAIN_STEPS, HR_TRAIN_WARM = 8, 3
+# phase 15 (c)'s trainer under dots_offload, then full: steps, and the
+# untimed first ones (the first dots_offload step pins the host buffers)
+HR_MORE_STEPS, HR_MORE_WARM = 5, 2
+OFFLOAD_PEAK_DROP = 3.5e9  # bytes: half of the saved products a step
+LINK_BYTES, LINK_REPS = 1 << 30, 5  # the link's rate: copies of 1 GiB
 HOOK_STEPS, HOOK_BATCH = 24, 4
 CAME_PARITY_DEPTH, CAME_PARITY_STEPS = 2, 2
 TOL_CAME_REL = 1e-5
@@ -1717,17 +1730,20 @@ def phase_train_parity():
 
 
 def _train_run(cli, cfg, args, resume, log_every=1, write=True, mses=None,
-               extra_hook=None):
+               extra_hook=None, trainer=None):
     """One Trainer run of phase 11 (c), 12 (d) or 15 from cli/train.py's
-    build_trainer, reading the metrics every `log_every` steps: every
-    step's loss (and its mse into `mses` when given), the wall time at each
-    logged step (after a sync; then `extra_hook(step, metrics, trainer)`
-    runs, when given), the checkpoint saves (none are written unless
-    `write`), the peak device memory and the launch counts of the run."""
+    build_trainer (or `trainer`'s next run, from its masters with a fresh
+    optimizer state: phase 15 (c)), reading the metrics every `log_every`
+    steps: every step's loss (and its mse into `mses` when given), the
+    wall time at each logged step (after a sync; then `extra_hook(step,
+    metrics, trainer)` runs, when given), the checkpoint saves (none are
+    written unless `write`), the peak device memory and the launch counts
+    of the run."""
     import torch
     from fitv2_tpu_torch import kernels as K
-    torch.manual_seed(SEED)  # the initial weights
-    trainer = cli.build_trainer(cfg, args)
+    if trainer is None:
+        torch.manual_seed(SEED)  # the initial weights
+        trainer = cli.build_trainer(cfg, args)
     trainer.cfg.log_every = log_every
     if (trainer.model.dtype != torch.bfloat16 or any(
             p.dtype != torch.float32 for p in trainer.master_model.parameters())
@@ -1758,12 +1774,14 @@ def _train_run(cli, cfg, args, resume, log_every=1, write=True, mses=None,
             extra_hook(step, metrics, trainer)
 
     trainer._train_step, trainer.ckpt.save = step, save
+    trainer.state = None  # a next run's state takes the last one's place
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _reset_counts()
     state = trainer.train(max_steps=args.max_steps, resume=resume,
                           metric_hook=hook)
     torch.cuda.synchronize()
+    trainer._train_step, trainer.ckpt.save = step_fn, save_fn
     counts = dict(_read_counts(), flash_masked_attention_bounded=(
         K.flash_masked_attention.bounded_launches))
     peak = torch.cuda.max_memory_allocated()
@@ -3194,14 +3212,17 @@ def phase_sac():
     """Phase 15 (a): FiTv2-HR-XL/2's widths (online decoupled NTK RoPE, N
     HR_N) at depth SAC_DEPTH in fp32, one flow loss and backward on the
     same weights, batch and draws under each remat policy on the card
-    (none, full, dots, dots_all) and without remat on the CPU: every
-    gradient of each policy against no remat on the card, and the card
-    against the CPU, within TOL_SLICE_REL_L2 relative L2; the exact
-    K1/K2/K4 launches of each (the recompute relaunches each kernel once a
-    block). Returns the counts by policy."""
+    (none, full, dots, dots_all, dots_offload) and without remat on the
+    CPU: every gradient of each policy against no remat on the card, and
+    the card against the CPU, within TOL_SLICE_REL_L2 relative L2;
+    dots_offload's gradients bit-identical to dots', its bytes copied to
+    the host and back those of the blocks' saved products
+    (`_offload_bytes`); the exact K1/K2/K4 launches of each (the recompute
+    relaunches each kernel once a block; dots_offload's equal dots').
+    Returns the counts by policy."""
     import torch
     from fitv2_tpu_torch.flow import create_transport
-    from fitv2_tpu_torch.models import FiT
+    from fitv2_tpu_torch.models import FiT, remat
     from fitv2_tpu_torch.train import flow_loss
     from fitv2_tpu_torch import kernels as K
     d = SAC_DEPTH
@@ -3211,13 +3232,14 @@ def phase_sac():
     grads, counts = {}, {}
     for device, policy in (('cpu', 'none'), ('cuda', 'none'),
                            ('cuda', 'full'), ('cuda', 'dots'),
-                           ('cuda', 'dots_all')):
+                           ('cuda', 'dots_all'), ('cuda', 'dots_offload')):
         model = FiT(**dict(HR_XL, depth=d, use_checkpoint=policy != 'none',
                            remat_policy='full' if policy == 'none'
                            else policy))
         model.load_state_dict(base)
         model = model.to(device).train()
         _reset_counts()
+        remat.reset_counts()
         loss, _ = flow_loss(model, transport,
                             {k: v.to(device) for k, v in batch.items()},
                             draws={k: v.to(device) for k, v in draws.items()})
@@ -3229,6 +3251,22 @@ def phase_sac():
         grads[device, policy] = {n: p.grad.detach().cpu()
                                  for n, p in model.named_parameters()}
         del model
+        if policy == 'dots_offload':
+            want = _offload_bytes(HR_XL, d, 2, HR_N, 4)
+            moved = dict(remat.counts)
+            if moved['d2h_bytes'] != want or moved['h2d_bytes'] != want \
+                    or moved['d2h_copies'] != 6 * d:
+                raise AssertionError(f'sac dots_offload: moved {moved}, '
+                                     f'want {want} bytes each way')
+            same = all(torch.equal(t, grads['cuda', 'dots'][n])
+                       for n, t in grads['cuda', policy].items())
+            say(f'[sac] dots_offload: {moved["d2h_copies"]} products '
+                f'({want} bytes) to pinned host memory and back, == the '
+                f'blocks\' mm/addmm outputs; gradients bit-identical to '
+                f'dots\': {"yes" if same else "NO"}')
+            if not same:
+                raise AssertionError('sac dots_offload: gradients differ '
+                                     'from dots\'')
     ref = grads['cuda', 'none']
     worst = {}
     for key, g in grads.items():
@@ -3247,17 +3285,29 @@ def phase_sac():
         if not ok:
             raise AssertionError(f'sac {key}: {name} {rels[name]}')
     for policy, got in counts.items():
-        remat = policy != 'none'
-        want = _expected_counts(1, d, fused_qk_rope=1 + remat,
-                                flash_masked_attention=1 + remat)
-        want['fused_adaln_norm'] += 2 * d * remat
-        want['flash_masked_attention_bounded'] = d * (1 + remat)
-        if got != want:
+        rerun = policy != 'none'
+        want = _expected_counts(1, d, fused_qk_rope=1 + rerun,
+                                flash_masked_attention=1 + rerun)
+        want['fused_adaln_norm'] += 2 * d * rerun
+        want['flash_masked_attention_bounded'] = d * (1 + rerun)
+        if got != want or (policy == 'dots_offload'
+                           and got != counts['dots']):
             raise AssertionError(f'sac {policy}: launches {got} != {want}')
         say(f'[sac] {policy}: launches {got} == expected (the recompute '
             f'relaunches K1 twice, K2 and K4 once a block: '
-            f'{"yes" if remat else "no remat"})')
+            f'{"yes" if rerun else "no remat"})')
     return counts
+
+
+def _offload_bytes(widths, depth, batch, tokens, itemsize):
+    """The bytes of the products that 'dots' saves a forward: in each
+    block qkv, proj and SwiGLU fc1 / fc2 over the tokens, the adaLN-LoRA
+    pair over the batch rows."""
+    d = widths['hidden_size']
+    hidden = int(d * widths.get('mlp_ratio', 4.0)) * 2 // 3
+    per_token = 3 * d + d + 2 * hidden + d
+    per_row = widths['adaln_lora_dim'] + 6 * d
+    return depth * (batch * tokens * per_token + batch * per_row) * itemsize
 
 
 def phase_prepare(card, out_dir):
@@ -3327,14 +3377,36 @@ def phase_prepare(card, out_dir):
     return out['fp32']
 
 
-def _hr_train_cfg(shards, policy):
-    """configs/fitv2_hr_xl.yaml as shipped, reading `shards`, with
-    `policy` as its remat policy."""
+def _hr_train_cfg(shards):
+    """configs/fitv2_hr_xl.yaml as shipped (remat dots), reading
+    `shards`."""
     from fitv2_tpu_torch.utils import load_config
     cfg = load_config(['configs/fitv2_hr_xl.yaml'])
     cfg['data']['params']['train']['data_path'] = shards
-    cfg['diffusion']['network_config']['params']['remat_policy'] = policy
     return cfg
+
+
+def _link_gb_s():
+    """The card's copy rates to and from pinned host memory, GB/s: the
+    median of LINK_REPS copies of LINK_BYTES each way (CUDA events), after
+    one more."""
+    import torch
+    host = torch.empty(LINK_BYTES, dtype=torch.uint8, pin_memory=True)
+    dev = torch.empty(LINK_BYTES, dtype=torch.uint8, device='cuda')
+    rates = {}
+    for name, dst, src in (('d2h', host, dev), ('h2d', dev, host)):
+        ms = []
+        for _ in range(LINK_REPS + 1):
+            start, stop = (torch.cuda.Event(enable_timing=True)
+                           for _ in range(2))
+            start.record()
+            dst.copy_(src, non_blocking=True)
+            stop.record()
+            stop.synchronize()
+            ms.append(start.elapsed_time(stop))
+        rates[name] = LINK_BYTES / statistics.median(ms[1:]) / 1e6
+    del host, dev
+    return rates
 
 
 def phase_train_hr(card, out_dir, shards, ref_npz, inception_weights):
@@ -3342,15 +3414,22 @@ def phase_train_hr(card, out_dir, shards, ref_npz, inception_weights):
     as shipped (remat 'dots', depth 36, batch 8 at 1024 tokens, bf16 over
     fp32 masters, the native loader) on (b)'s shards, HR_TRAIN_STEPS
     steps, a sync every step: finite losses, exact launches a step, ms a
-    step (the median after HR_TRAIN_WARM), images/s and peak memory; an
-    InlineEvalHook at the last step (HOOK_STEPS Euler steps, batch 4, CFG
-    1.5 at 512 x 512, the smoke's random VAE decoder and InceptionV3,
-    against `ref_npz`) writing its preview and inline_fid; then the same
-    run with remat 'full'. Returns the counts by path and the numbers."""
+    step (the median after HR_TRAIN_WARM), images/s and peak memory (over
+    the timed steps); an InlineEvalHook at the last step (HOOK_STEPS Euler
+    steps, batch 4, CFG 1.5 at 512 x 512, the smoke's random VAE decoder
+    and InceptionV3, against `ref_npz`) writing its preview and
+    inline_fid; then the same trainer under remat 'dots_offload' and then
+    'full', HR_MORE_STEPS steps each from its masters (timed after
+    HR_MORE_WARM): the same numbers, and for dots_offload the bytes copied
+    to the host and back a step (those of the saved products,
+    `_offload_bytes`), its peak at least OFFLOAD_PEAK_DROP below dots',
+    the link's measured rates and the serial time of its copies at
+    them, which its ms a step must stay below dots' plus (the copies
+    overlap compute). Returns the counts by path and the numbers."""
     import numpy as np
     import torch
-    from fitv2_tpu_torch import kernels as K
     from fitv2_tpu_torch.cli import train as cli
+    from fitv2_tpu_torch.models import remat
     from fitv2_tpu_torch.sample import SamplingConfig
     from fitv2_tpu_torch.train.eval_hook import InlineEvalHook
     from fitv2_tpu_torch.vae import AutoencoderKL
@@ -3358,66 +3437,132 @@ def phase_train_hr(card, out_dir, shards, ref_npz, inception_weights):
     vae = AutoencoderKL().to(device='cuda', dtype=torch.bfloat16).eval()
     preview_dir = os.path.join(out_dir, 'previews')
     results, by_path, hook_state = {}, {}, {}
-    for policy in ('dots', 'full'):
-        args = cli.parse_args(['--cfgdir', 'configs/fitv2_hr_xl.yaml',
-                               '--output-dir', os.path.join(out_dir, 'hr'),
-                               '--max-steps', str(HR_TRAIN_STEPS),
-                               '--device', 'cuda'])
-        extra = None
-        if policy == 'dots':
-            def extra(step, metrics, trainer):
-                if step != HR_TRAIN_STEPS:
-                    return
-                hook = InlineEvalHook(
-                    trainer.model, SamplingConfig(
-                        image_height=512, image_width=512,
-                        num_sampling_steps=HOOK_STEPS, cfg_scale=CFG_SCALE,
-                        per_device_batch=HOOK_BATCH, interpolation='keep',
-                        dtype=torch.bfloat16),
-                    every=HR_TRAIN_STEPS, ref_images=ref_npz,
-                    inception_weights=inception_weights, vae=vae,
-                    out_dir=preview_dir, seed=SEED)
-                hook.attach(lambda: trainer.state.ema_params)
-                before = _counts_now()
-                t0 = time.perf_counter()
-                hook(step, metrics)
-                torch.cuda.synchronize()
-                hook_state['secs'] = time.perf_counter() - t0
-                hook_state['counts'] = _counts_minus(_counts_now(), before)
-                hook_state['metrics'] = dict(metrics)
-        trainer, state, losses, stamps, _, counts, peak = _train_run(
-            cli, _hr_train_cfg(shards, policy), args, False, write=False,
-            extra_hook=extra)
+    args = cli.parse_args(['--cfgdir', 'configs/fitv2_hr_xl.yaml',
+                           '--output-dir', os.path.join(out_dir, 'hr'),
+                           '--max-steps', str(HR_TRAIN_STEPS),
+                           '--device', 'cuda'])
+    torch.manual_seed(SEED)  # the initial weights
+    t0 = time.perf_counter()
+    trainer = cli.build_trainer(_hr_train_cfg(shards), args)
+    run_secs = {'build': time.perf_counter() - t0}
+    if trainer.model.remat_policy != 'dots' or not \
+            trainer.model.use_checkpoint:
+        raise AssertionError('hr train: the config\'s remat dots not in '
+                             'effect')
+    for policy, steps, warm in (('dots', HR_TRAIN_STEPS, HR_TRAIN_WARM),
+                                ('dots_offload', HR_MORE_STEPS, HR_MORE_WARM),
+                                ('full', HR_MORE_STEPS, HR_MORE_WARM)):
+        peaks = {}
+
+        def extra(step, metrics, trainer, policy=policy, steps=steps,
+                  warm=warm, peaks=peaks):
+            if step == warm:
+                torch.cuda.reset_peak_memory_stats()
+            if step != steps:
+                return
+            peaks['timed'] = torch.cuda.max_memory_allocated()
+            if policy != 'dots':
+                return
+            hook = InlineEvalHook(
+                trainer.model, SamplingConfig(
+                    image_height=512, image_width=512,
+                    num_sampling_steps=HOOK_STEPS, cfg_scale=CFG_SCALE,
+                    per_device_batch=HOOK_BATCH, interpolation='keep',
+                    dtype=torch.bfloat16),
+                every=HR_TRAIN_STEPS, ref_images=ref_npz,
+                inception_weights=inception_weights, vae=vae,
+                out_dir=preview_dir, seed=SEED)
+            hook.attach(lambda: trainer.state.ema_params)
+            before = _counts_now()
+            t0 = time.perf_counter()
+            hook(step, metrics)
+            torch.cuda.synchronize()
+            hook_state['secs'] = time.perf_counter() - t0
+            hook_state['counts'] = _counts_minus(_counts_now(), before)
+            hook_state['metrics'] = dict(metrics)
+        trainer.model.remat_policy = policy
+        run_args = copy.copy(args)
+        run_args.max_steps = steps
+        remat.reset_counts()
+        t0 = time.perf_counter()
+        trainer, state, losses, stamps, _, counts, _ = _train_run(
+            cli, None, run_args, False, write=False, extra_hook=extra,
+            trainer=trainer)
+        run_secs[policy] = time.perf_counter() - t0
+        moved = dict(remat.counts)
+        del state
         depth, batch = trainer.model.depth, trainer.cfg.global_batch_size
-        if trainer.model.remat_policy != policy or not trainer.model.\
-                use_checkpoint:
-            raise AssertionError(f'hr train: remat {policy} not in effect')
-        del trainer, state
-        torch.cuda.empty_cache()
         if policy == 'dots':
             counts = _counts_minus(counts, hook_state['counts'])
-        want = dict(_expected_counts(HR_TRAIN_STEPS, depth, fused_qk_rope=2,
+        want = dict(_expected_counts(steps, depth, fused_qk_rope=2,
                                      flash_masked_attention=2),
-                    flash_masked_attention_bounded=HR_TRAIN_STEPS * 2 * depth)
-        want['fused_adaln_norm'] += HR_TRAIN_STEPS * 2 * depth
+                    flash_masked_attention_bounded=steps * 2 * depth)
+        want['fused_adaln_norm'] += steps * 2 * depth
         if counts != want or not all(map(math.isfinite, losses)):
             raise AssertionError(f'hr train {policy}: launches {counts} != '
                                  f'{want}, losses {losses}')
         step_ms = [(stamps[s] - stamps[s - 1]) * 1e3 for s in sorted(stamps)
-                   if s > HR_TRAIN_WARM and s - 1 in stamps]
+                   if s > warm and s - 1 in stamps]
         ms = statistics.median(step_ms)
+        peak = peaks['timed']
         results[policy] = dict(ms_per_step=ms, images_per_s=batch / ms * 1e3,
                                peak_gib=peak / 2 ** 30, losses=losses)
         by_path[f'hr_train_{policy}'] = counts
         say(f'[hr train] configs/fitv2_hr_xl.yaml, remat {policy}, depth '
             f'{depth}, batch {batch} x {PREP_TARGET_LEN} tokens, bf16 over '
             f'fp32 masters: losses {", ".join(f"{v:.4f}" for v in losses)}; '
-            f'a step (synced), median of steps {HR_TRAIN_WARM + 1}-'
-            f'{HR_TRAIN_STEPS}: {ms:.2f} ms (range {min(step_ms):.2f}-'
-            f'{max(step_ms):.2f}) = {batch / ms * 1e3:.2f} images/s; peak '
+            f'a step (synced), median of steps {warm + 1}-{steps}: '
+            f'{ms:.2f} ms (range {min(step_ms):.2f}-{max(step_ms):.2f}) = '
+            f'{batch / ms * 1e3:.2f} images/s; peak over those steps '
             f'{peak / 2 ** 30:.2f} GiB; launches a step: K1 '
             f'{2 * depth + 1} + {2 * depth} (recompute), K2 {depth} + '
             f'{depth}, K4 {depth} + {depth} == expected [{card}]')
+        if policy != 'dots_offload':
+            if moved['d2h_copies']:
+                raise AssertionError(f'hr train {policy}: offloaded {moved}')
+            continue
+        per_step = _offload_bytes(HR_XL, depth, batch, PREP_TARGET_LEN, 2)
+        if (moved['d2h_bytes'] != steps * per_step
+                or moved['h2d_bytes'] != steps * per_step):
+            raise AssertionError(f'hr train dots_offload: moved {moved}, '
+                                 f'want {per_step} bytes a step each way')
+        t0 = time.perf_counter()
+        rates = _link_gb_s()
+        run_secs[policy] += time.perf_counter() - t0
+        serial_ms = per_step / 1e6 * (1 / rates['d2h'] + 1 / rates['h2d'])
+        dots = results['dots']
+        drop = (dots['peak_gib'] - results[policy]['peak_gib']) * 2 ** 30
+        limit = dots['ms_per_step'] + serial_ms
+        results[policy].update(
+            offloaded_bytes_per_step=per_step, link_gb_s=rates,
+            serial_copy_ms=serial_ms, peak_drop_bytes=drop,
+            pinned_bytes=remat.PINNED.reserved)
+        say(f'[hr train] dots_offload: {per_step} bytes ({per_step / 1e9:.3f}'
+            f' GB) of saved products to pinned host memory a step and back '
+            f'({moved["d2h_copies"] // steps} copies each way; '
+            f'{remat.PINNED.reserved / 2 ** 30:.1f} GiB pinned); the link: '
+            f'device->host {rates["d2h"]:.2f} GB/s, host->device '
+            f'{rates["h2d"]:.2f} GB/s, so the copies alone take '
+            f'{serial_ms:.1f} ms a step; {results[policy]["ms_per_step"]:.2f}'
+            f' ms a step against dots\' {dots["ms_per_step"]:.2f} + '
+            f'{serial_ms:.1f} = {limit:.2f} (the copies overlap compute: '
+            f'{"yes" if results[policy]["ms_per_step"] < limit else "NO"}); '
+            f'peak {results[policy]["peak_gib"]:.2f} GiB against dots\' '
+            f'{dots["peak_gib"]:.2f}: {drop / 1e9:.2f} GB lower (at least '
+            f'{OFFLOAD_PEAK_DROP / 1e9:.1f}) [{card}]')
+        if drop < OFFLOAD_PEAK_DROP or results[policy]['ms_per_step'] >= limit:
+            raise AssertionError(f'hr train dots_offload: peak {drop} bytes '
+                                 f'below dots\', ms a step '
+                                 f'{results[policy]["ms_per_step"]} >= {limit}')
+    del trainer
+    remat.PINNED.clear()
+    torch.cuda.empty_cache()
+    say(f'[hr train] the runs\' seconds: the trainer\'s build '
+        f'{run_secs["build"]:.1f} (once: the full run shares it), dots '
+        f'{run_secs["dots"]:.1f} ({HR_TRAIN_STEPS} steps and the inline '
+        f'eval), dots_offload {run_secs["dots_offload"]:.1f} '
+        f'({HR_MORE_STEPS} steps, the pinning and the link\'s rates), full '
+        f'{run_secs["full"]:.1f} ({HR_MORE_STEPS} steps)')
     hc, hm = hook_state['counts'], hook_state['metrics']
     want = _expected_counts(HOOK_STEPS, depth, fused_qk_rope=1,
                             flash_masked_attention=1)

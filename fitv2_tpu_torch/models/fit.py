@@ -22,26 +22,12 @@ from fitv2_tpu_torch.models import rope as rope_lib
 from fitv2_tpu_torch.models.modules import (
     AdaLNModulation, FiTBlock, FinalLayer, LabelEmbedder, PatchEmbedder,
     TimestepEmbedder)
+from fitv2_tpu_torch.models.remat import REMAT_SAVED_OPS, OffloadSession
 from fitv2_tpu_torch.parallel.comms import keep_grad
 from fitv2_tpu_torch.parallel.mesh import sequence_sharding
 
 Tensor = torch.Tensor
 RopeTables = Tuple[Tensor, Tensor]
-
-_aten = torch.ops.aten
-# The ops whose outputs each selective remat policy saves; every other op
-# of a block is recomputed in the backward pass. 'dots' is JAX's
-# dots_with_no_batch_dims_saveable: the 2-D products (qkv, proj, fc1/fc2,
-# adaLN and its LoRA). 'dots_all' is dots_saveable: the batched products
-# too. A kernel launched through ctypes is no aten op, so its autograd
-# Function reruns in the recompute, as a pallas_call does under JAX's
-# policies.
-REMAT_SAVED_OPS = {
-    'dots': (_aten.mm.default, _aten.addmm.default),
-    'dots_all': (_aten.mm.default, _aten.addmm.default, _aten.bmm.default,
-                 _aten.baddbmm.default),
-}
-
 
 def embed_pre_trunk(model: 'FiT', x: Tensor, t: Tensor, y: Tensor,
                     grid: Tensor, size: Optional[Tensor] = None,
@@ -85,8 +71,10 @@ class FiT(nn.Module):
     (``torch.utils.checkpoint``) where autograd records the forward:
     everything with ``remat_policy='full'``, all but the matrix products
     with 'dots' and 'dots_all' (``REMAT_SAVED_OPS``, selective
-    checkpointing). Knobs of the JAX model that do not change a forward pass
-    (``scan_blocks``, ``use_sit``) are accepted for config compatibility;
+    checkpointing); 'dots_offload' saves what 'dots' saves in pinned host
+    memory until the backward (models/remat.py). Knobs of the JAX model
+    that do not change a forward pass (``scan_blocks``, ``use_sit``) are
+    accepted for config compatibility;
     ``scan_blocks`` is kept: it sets the layout of JAX's parameter tree
     (each block parameter stacked over depth, ``ckpt.jax_leaves``).
     ``save_attention`` keeps each block's softmax probabilities
@@ -250,7 +238,8 @@ class FiT(nn.Module):
         """None where blocks keep their activations (no ``use_checkpoint``,
         or autograd not recording); else the ``context_fn`` of
         ``torch.utils.checkpoint`` for ``remat_policy`` (torch's no-op one
-        for 'full', selective checkpointing for 'dots' and 'dots_all')."""
+        for 'full', selective checkpointing for 'dots' and 'dots_all', a
+        new ``OffloadSession`` for 'dots_offload')."""
         if not (self.use_checkpoint and torch.is_grad_enabled()):
             return None
         policy = self.remat_policy
@@ -260,10 +249,7 @@ class FiT(nn.Module):
             return partial(create_selective_checkpoint_contexts,
                            list(REMAT_SAVED_OPS[policy]))
         if policy == 'dots_offload':
-            raise NotImplementedError(
-                "remat_policy='dots_offload' is not ported: it is on "
-                "ROADMAP.md's \"Not to port\" list (a TPU HBM workaround); "
-                "use 'dots'")
+            return OffloadSession()
         raise ValueError(f'unknown remat_policy: {policy!r}')
 
     def forward(self, x: Tensor, t: Tensor, y: Tensor, grid: Tensor,

@@ -110,14 +110,16 @@ class Mesh:
 
 def build_mesh(config: Optional[MeshConfig] = None,
                n_devices: Optional[int] = None,
-               device_type: str = 'cpu') -> Mesh:
+               device_type: Optional[str] = None) -> Mesh:
     """The mesh of ``config`` over ``n_devices`` (default: the processes).
     Where an axis other than data shards the model over more than one
-    process, it lays a DeviceMesh of ``device_type`` ('cuda' for a
-    trainer on the card) over them, data outermost: rank
-    ``(((d * stage + s) * fsdp + f) * sequence + q) * tensor + t`` (data
-    parallelism alone needs no process groups beyond the world's)."""
+    process, it lays a DeviceMesh of ``device_type`` over them (by
+    default the process group's: 'cuda' under NCCL, else 'cpu'), data
+    outermost: rank ``(((d * stage + s) * fsdp + f) * sequence + q) *
+    tensor + t`` (data parallelism alone needs no process groups beyond
+    the world's)."""
     config = config or MeshConfig()
+    device_type = device_type or collective_device().type
     world = process_count()
     sizes = config.resolve(world if n_devices is None else n_devices)
     device_mesh = None

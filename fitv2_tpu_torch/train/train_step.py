@@ -54,8 +54,8 @@ from __future__ import annotations
 
 import dataclasses
 import warnings
-from typing import (Any, Callable, Dict, List, Optional, Sequence, Set,
-                    Tuple, Union)
+from typing import (Any, Callable, Dict, Iterator, List, Optional, Sequence,
+                    Set, Tuple, Union)
 
 import torch
 from torch import nn
@@ -108,6 +108,27 @@ def clip_by_global_norm(grads: List[Tensor], max_norm: float,
     return norm
 
 
+# fp32 bytes of the parameters that an update (AdamW, the EMA) takes at
+# once: its temporaries (three fp32 copies in AdamW) stay this size, not
+# the model's (at FiTv2-HR-3B, 2.97 B parameters, they would be 35.7 GB)
+UPDATE_CHUNK_BYTES = 256 << 20
+
+
+def update_chunks(tensors: Sequence[Tensor]) -> Iterator[slice]:
+    """Consecutive slices of ``tensors`` of at most UPDATE_CHUNK_BYTES in
+    fp32 each (a larger tensor alone). Every update is elementwise, so
+    updating the slices one after another gives the same bits."""
+    start, size = 0, 0
+    for i, t in enumerate(tensors):
+        n = t.numel() * 4
+        if size and size + n > UPDATE_CHUNK_BYTES:
+            yield slice(start, i)
+            start, size = i, 0
+        size += n
+    if start < len(tensors):
+        yield slice(start, len(tensors))
+
+
 class AdamW(torch.optim.Optimizer):
     """optax.adamw (eps_root 0, no Nesterov): ``mu_hat / (sqrt(nu_hat) +
     eps) + weight_decay * p``, scaled by ``-lr(count)``.
@@ -158,34 +179,40 @@ class AdamW(torch.optim.Optimizer):
             group['count'] += 1
             count = group['count']
             b1, b2 = group['betas']
-            grads = [p.grad for p in params]
-            mus, nus = zip(*(self._moments(p) for p in params))
-            # mu = (1 - b1) g + b1 mu and nu = (1 - b2) g^2 + b2 nu, in
-            # fp32; as in optax, b1 mu is a product in the stored dtype
-            # (b1 rounded to it), rounded before the fp32 sum
-            b1_mu = float(torch.tensor(b1, dtype=mus[0].dtype))
-            mus32 = [m.float() for m in torch._foreach_mul(mus, b1_mu)]
-            torch._foreach_add_(mus32, torch._foreach_mul(grads, 1.0 - b1))
-            sq = torch._foreach_mul(grads, grads)
-            torch._foreach_mul_(sq, 1.0 - b2)
-            torch._foreach_mul_(nus, b2)
-            torch._foreach_add_(nus, sq)
-            del sq
             # optax's bias corrections: 1 - decay**count in float32
             bc1 = float(torch.tensor(1.0) - torch.tensor(b1) ** count)
             bc2 = float(torch.tensor(1.0) - torch.tensor(b2) ** count)
-            update = torch._foreach_div(mus32, bc1)
-            denom = torch._foreach_div(nus, bc2)
-            torch._foreach_sqrt_(denom)
-            torch._foreach_add_(denom, group['eps'])
-            torch._foreach_div_(update, denom)
-            del denom
-            if group['weight_decay']:
-                torch._foreach_add_(update, torch._foreach_mul(
-                    params, group['weight_decay']))
-            torch._foreach_mul_(update, -lr)
-            torch._foreach_add_(params, update)
-            torch._foreach_copy_(list(mus), mus32)
+            for part in update_chunks(params):
+                self._update(group, params[part], lr, bc1, bc2)
+
+    def _update(self, group, params: List[Tensor], lr: float, bc1: float,
+                bc2: float) -> None:
+        b1, b2 = group['betas']
+        grads = [p.grad for p in params]
+        mus, nus = zip(*(self._moments(p) for p in params))
+        # mu = (1 - b1) g + b1 mu and nu = (1 - b2) g^2 + b2 nu, in fp32;
+        # as in optax, b1 mu is a product in the stored dtype (b1 rounded
+        # to it), rounded before the fp32 sum
+        b1_mu = float(torch.tensor(b1, dtype=mus[0].dtype))
+        mus32 = [m.float() for m in torch._foreach_mul(mus, b1_mu)]
+        torch._foreach_add_(mus32, torch._foreach_mul(grads, 1.0 - b1))
+        sq = torch._foreach_mul(grads, grads)
+        torch._foreach_mul_(sq, 1.0 - b2)
+        torch._foreach_mul_(nus, b2)
+        torch._foreach_add_(nus, sq)
+        del sq
+        update = torch._foreach_div(mus32, bc1)
+        denom = torch._foreach_div(nus, bc2)
+        torch._foreach_sqrt_(denom)
+        torch._foreach_add_(denom, group['eps'])
+        torch._foreach_div_(update, denom)
+        del denom
+        if group['weight_decay']:
+            torch._foreach_add_(update, torch._foreach_mul(
+                params, group['weight_decay']))
+        torch._foreach_mul_(update, -lr)
+        torch._foreach_add_(params, update)
+        torch._foreach_copy_(list(mus), mus32)
 
 
 class GradAccumulator:
@@ -241,10 +268,11 @@ def update_ema(ema_params: Dict[str, Tensor], params: Dict[str, Tensor],
                 'params) in float32.', stacklevel=2)
             break
     with torch.no_grad():
-        ps = torch._foreach_mul([params[n].to(e.dtype)
-                                 for n, e in zip(names, emas)], 1.0 - decay)
-        torch._foreach_mul_(emas, decay)
-        torch._foreach_add_(emas, ps)
+        for part in update_chunks(emas):
+            ps = torch._foreach_mul([params[n].to(e.dtype) for n, e in zip(
+                names[part], emas[part])], 1.0 - decay)
+            torch._foreach_mul_(emas[part], decay)
+            torch._foreach_add_(emas[part], ps)
     return ema_params
 
 
@@ -559,6 +587,7 @@ def make_step(model: nn.Module, loss_fn: LossFn, max_grad_norm: float = 1.0,
             state.optimizer.step()  # a MultiTransform clips each group
             for m in masters:
                 m.grad = None
+            grads = None  # the fp32 gradients go before the EMA's update
         update_ema(state.ema_params, state.params, ema_decay)
         state.step += 1
         metrics = dict(metrics, loss=loss.detach(), grad_norm=norm)

@@ -33,6 +33,7 @@ import torch
 
 from fitv2_tpu_torch import kernels as K
 from fitv2_tpu_torch.kernels.flash_attention import HEAD_DIMS
+from fitv2_tpu_torch.models import remat as remat_lib
 
 pytestmark = pytest.mark.cuda
 
@@ -1212,13 +1213,16 @@ def _launch_counts():
         K.flash_masked_attention.bounded_launches
 
 
-@pytest.mark.parametrize('policy', ['none', 'full', 'dots', 'dots_all'])
+@pytest.mark.parametrize('policy', ['none', 'full', 'dots', 'dots_all',
+                                    'dots_offload'])
 def test_remat_policy_on_the_card(dev, policy):
     """FiTv2-HR-XL/2's widths (online decoupled NTK RoPE, N 1024: 1024 and
     800 tokens valid) at depth 2, fp32: one flow loss and backward under
     the policy on the card, every gradient within 1e-4 relative L2 of the
     CPU's without remat; the kernels launch inside the checkpointed region
-    (K1 2 and K2, K4 1 a block again in the recompute)."""
+    (K1 2 and K2, K4 1 a block again in the recompute). dots_offload's
+    gradients equal dots' on the card bit for bit, and its saved products
+    went to the host and came back."""
     import copy
     from fitv2_tpu_torch.flow import create_transport
     from fitv2_tpu_torch.models import FiT
@@ -1246,8 +1250,13 @@ def test_remat_policy_on_the_card(dev, policy):
                  drop_ids=torch.tensor([0, 1]))
     tr = create_transport()
     results = []
-    for device in ('cpu', dev):
+    runs = [('cpu', policy), (dev, policy)]
+    if policy == 'dots_offload':
+        runs.append((dev, 'dots'))
+    remat_lib.reset_counts()
+    for device, run_policy in runs:
         m = copy.deepcopy(model).to(device)
+        m.remat_policy = run_policy
         if device == 'cpu':
             m.use_checkpoint = False
         before, bounded = _launch_counts()
@@ -1258,8 +1267,16 @@ def test_remat_policy_on_the_card(dev, policy):
         results.append(({n: p.grad for n, p in m.named_parameters()},
                         {k: after[k] - before[k] for k in after},
                         bounded_after - bounded))
-    (g_cpu, _, _), (g_gpu, counts, bounded) = results
+    (g_cpu, _, _), (g_gpu, counts, bounded) = results[:2]
     d = 2
+    if policy == 'dots_offload':
+        g_dots, counts_dots, _ = results[2]
+        assert counts == counts_dots
+        for name, g in g_gpu.items():
+            assert torch.equal(g, g_dots[name]), name
+        moved = remat_lib.counts
+        assert moved['d2h_copies'] == moved['h2d_copies'] == 6 * d
+        assert moved['d2h_bytes'] == moved['h2d_bytes'] > 0
     assert counts['fused_adaln_norm'] == 2 * d + 1 + 2 * d * remat
     assert counts['fused_qk_rope'] == d * (1 + remat)
     assert counts['flash_masked_attention'] == bounded == d * (1 + remat)

@@ -327,6 +327,27 @@ def test_mesh_resolve_matches_jax(kw, n):
     assert pmesh.MeshConfig(**kw).resolve(n) == want
 
 
+@pytest.mark.parametrize('backend,want', [('nccl', 'cuda'), ('gloo', 'cpu'),
+                                          (None, 'cpu')])
+def test_build_mesh_lays_the_process_groups_device(monkeypatch, backend,
+                                                   want):
+    """Without a device_type, the DeviceMesh is of the process group's
+    device: the card under NCCL, the host under gloo or with no group."""
+    import torch.distributed.device_mesh as device_mesh
+    laid = []
+    monkeypatch.setattr(pmesh, '_active', lambda: backend is not None)
+    monkeypatch.setattr(pmesh.dist, 'get_backend', lambda: backend)
+    monkeypatch.setattr(pmesh, 'process_count', lambda: 2)
+    monkeypatch.setattr(torch.cuda, 'current_device', lambda: 0)
+    monkeypatch.setattr(device_mesh, 'init_device_mesh',
+                        lambda kind, sizes, **kw: laid.append(kind))
+    mesh = pmesh.build_mesh(pmesh.MeshConfig(data=1, tensor=2))
+    assert laid == [want] and mesh.shape['tensor'] == 2
+    assert pmesh.collective_device().type == want
+    pmesh.build_mesh(pmesh.MeshConfig(data=1, tensor=2), device_type='cpu')
+    assert laid == [want, 'cpu']  # a caller's choice stands
+
+
 def test_build_mesh_takes_the_data_axis_only():
     # every axis is ported: the sizes resolve as JAX's (the sharded runs
     # are test_torch_port_sharding.py's)

@@ -1,17 +1,19 @@
 """PyTorch port, slice 5c: from raw images to training. The 'dots' and
-'dots_all' remat policies (selective activation checkpointing), the SD-VAE
-encoder, data/imagenet.py and cli/prepare_latents, against the JAX package
-on the same numpy inputs.
+'dots_all' remat policies (selective activation checkpointing) and
+'dots_offload' (slice 10: dots' saved products kept in host memory), the
+SD-VAE encoder, data/imagenet.py and cli/prepare_latents, against the JAX
+package on the same numpy inputs.
 
 Sizes: a FiTv2 of depth 2, hidden 64, 4 heads of Dh 16, context 16; VAE
 encoders of widths (8, 16) (the golden's) and (8, 16, 16, 16) (factor 8,
 the prep tool's geometry); images up to 200 x 180 px.
 
 Tolerances:
-- remat: the gradients under 'dots' / 'dots_all' equal 'full' and no remat
-  bit for bit (the same CPU ops on the same inputs, the saved products
-  being the forward's own); against JAX's FiT under the same policy, 1e-5
-  of each gradient's largest magnitude (fp32 summed in other orders);
+- remat: the gradients under 'dots' / 'dots_all' / 'dots_offload' equal
+  'full' and no remat bit for bit (the same CPU ops on the same inputs,
+  the saved products being the forward's own, or copies of them); against
+  JAX's FiT under the same policy, 1e-5 of each gradient's largest
+  magnitude (fp32 summed in other orders);
 - the encoder's moments: 1e-5 of their largest magnitude against the
   golden's torch twin and against JAX's ``encode`` (fp32 convolutions);
 - imagenet.py: equal (the same PIL calls and the same PCG64 stream);
@@ -41,7 +43,7 @@ from fitv2_tpu_torch.ckpt import state_dict_from_jax
 from fitv2_tpu_torch.cli import prepare_latents as tprep
 from fitv2_tpu_torch.data import imagenet as timagenet
 from fitv2_tpu_torch.data import safetensors_np
-from fitv2_tpu_torch.models import FiT
+from fitv2_tpu_torch.models import FiT, remat
 from fitv2_tpu_torch.vae import (
     AutoencoderKL, convert_diffusers_state_dict, sample_latent,
     state_dict_from_flax)
@@ -136,7 +138,7 @@ class _Matmuls(TorchDispatchMode):
         return func(*args, **(kwargs or {}))
 
 
-@pytest.mark.parametrize('policy', ['dots', 'dots_all'])
+@pytest.mark.parametrize('policy', ['dots', 'dots_all', 'dots_offload'])
 def test_selective_remat_gradients_equal_full_and_none(jax_params, policy):
     params, a = jax_params
     grads = {p: _port_grads(_port(params, p), a)
@@ -146,7 +148,7 @@ def test_selective_remat_gradients_equal_full_and_none(jax_params, policy):
         assert torch.equal(grads['full'][name], g), name
 
 
-@pytest.mark.parametrize('policy', ['dots', 'dots_all'])
+@pytest.mark.parametrize('policy', ['dots', 'dots_all', 'dots_offload'])
 def test_selective_remat_matches_jax(jax_params, policy):
     params, a = jax_params
     jm = JFiT(**TINY, use_checkpoint=True, remat_policy=policy)
@@ -171,12 +173,13 @@ def test_selective_remat_matches_jax(jax_params, policy):
 def test_dots_recomputes_no_matrix_product(jax_params):
     """The backward's matrix products: 'dots' reruns none of the blocks'
     forward mm/addmm (the CPU attention's bmm it does, as JAX's
-    batch-dimension dots are recomputed too), 'dots_all' none at all,
-    'full' every one of the blocks' forward products."""
+    batch-dimension dots are recomputed too), 'dots_offload' as many as
+    'dots', 'dots_all' none at all, 'full' every one of the blocks' forward
+    products."""
     params, a = jax_params
     t = {k: torch.from_numpy(v) for k, v in a.items()}
     counts = {}
-    for policy in ('none', 'full', 'dots', 'dots_all'):
+    for policy in ('none', 'full', 'dots', 'dots_all', 'dots_offload'):
         model = _port(params, policy)
         with _Matmuls() as fwd_blocks:
             # the blocks' forward products, as the recompute runs them
@@ -196,16 +199,90 @@ def test_dots_recomputes_no_matrix_product(jax_params):
     assert bmm_per_block == 2  # q k^T and p v, the plain CPU attention
     assert counts['full'] == counts['none'] + 2 * per_block
     assert counts['dots'] == counts['none'] + 2 * bmm_per_block
+    assert counts['dots_offload'] == counts['dots']
     assert counts['dots_all'] == counts['none']
 
 
-def test_dots_offload_is_not_ported():
-    model = FiT(**dict(TINY, use_checkpoint=True,
-                       remat_policy='dots_offload'))
-    with pytest.raises(NotImplementedError, match='Not to port'):
-        model(torch.zeros(1, 16, 16), torch.zeros(1),
-              torch.zeros(1, dtype=torch.long),
-              torch.zeros(1, 2, 16, dtype=torch.long))
+class _BlockProducts(TorchDispatchMode):
+    """The mm/addmm outputs dispatched while it is active, each with the
+    index of the block that made it (None outside the blocks)."""
+
+    def __init__(self, blocks):
+        super().__init__()
+        self.outs, self._inside = [], []
+        for i, block in enumerate(blocks):
+            block.register_forward_pre_hook(self._enter(i))
+            block.register_forward_hook(self._exit)
+
+    def _enter(self, i):
+        def hook(module, args):
+            self._inside.append(i)
+        return hook
+
+    def _exit(self, module, args, out):
+        self._inside.pop()
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        if func in remat.REMAT_SAVED_OPS['dots']:
+            self.outs.append((self._inside[-1] if self._inside else None,
+                              out))
+        return out
+
+
+def test_dots_offload_store_holds_copies_of_the_products(jax_params):
+    """'dots_offload' on the CPU: after the forward each block's store
+    holds a copy (another storage, equal values) of each of the block's
+    mm/addmm outputs, 6 a block at TINY, in the forward's order; the
+    backward empties every store (nothing carries into the next step) and
+    moves each byte back once; a second backward raises, as torch's
+    selective checkpointing does."""
+    params, a = jax_params
+    t = {k: torch.from_numpy(v) for k, v in a.items()}
+    model = _port(params, 'dots_offload')
+    sessions = []
+    new_session = model._remat
+
+    def remat_fn():
+        sessions.append(new_session())
+        return sessions[-1]
+
+    model._remat = remat_fn
+    remat.reset_counts()
+    with _BlockProducts(model.blocks) as seen:
+        out = model(t['x'], t['t'], t['y'], t['grid'].long(), t['mask'],
+                    t['size'].long())
+    (session,) = sessions
+    assert len(session.stores) == TINY['depth']
+    nbytes = 0
+    for i, store in enumerate(session.stores):
+        made = [o for block, o in seen.outs if block == i]
+        assert len(store) == len(made) == 6
+        for entry, product in zip(store.entries.values(), made):
+            assert torch.equal(entry.host, product)
+            assert entry.host.untyped_storage().data_ptr() != \
+                product.untyped_storage().data_ptr()
+            nbytes += product.numel() * product.element_size()
+    assert remat.counts == dict(d2h_bytes=nbytes, h2d_bytes=0,
+                                d2h_copies=12, h2d_copies=0)
+    loss = (out * t['w']).sum()
+    loss.backward(retain_graph=True)
+    assert [len(store) for store in session.stores] == [0, 0]
+    assert remat.counts == dict(d2h_bytes=nbytes, h2d_bytes=nbytes,
+                                d2h_copies=12, h2d_copies=12)
+    with pytest.raises(RuntimeError, match='backward an extra time'):
+        loss.backward()
+
+
+def test_dots_offload_keeps_nothing_where_it_was_made():
+    """No fallback: an output of another device than the CPU or a card
+    raises, and a pinned allocation that fails names its bytes."""
+    save, _ = remat.OffloadSession()()
+    with pytest.raises(NotImplementedError, match='keeps no outputs of meta'):
+        save.store.save((_aten.mm.default, 0), torch.empty(4, device='meta'))
+    if not torch.cuda.is_available():  # no pinned allocator on this host
+        with pytest.raises(MemoryError, match=f'pinning {1 << 30} bytes'):
+            remat.PinnedPool().take(100, None)
 
 
 # ---------------------------------------------------------------------------

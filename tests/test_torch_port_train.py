@@ -562,6 +562,32 @@ def test_adamw_state_round_trips_with_the_mu_dtype():
     assert opt2.param_groups[0]['count'] == 1
 
 
+def test_updates_in_chunks_give_the_same_bits(monkeypatch):
+    """AdamW (weight decay, bf16 mu) and the EMA over parameters split into
+    several update chunks equal one update of them all, bit for bit."""
+    gen = torch.Generator().manual_seed(3)
+    shapes = [(40, 30), (7,), (64, 16), (5, 5, 5), (300,)]
+    runs = []
+    for chunk_bytes in (1 << 30, 2048):
+        monkeypatch.setattr(tts, 'UPDATE_CHUNK_BYTES', chunk_bytes)
+        gen.manual_seed(3)
+        ps = [torch.randn(s, generator=gen) for s in shapes]
+        ema = {str(i): p.clone() for i, p in enumerate(ps)}
+        opt = tts.AdamW(ps, lr=1e-2, weight_decay=0.1,
+                        mu_dtype=torch.bfloat16)
+        for _ in range(3):
+            for p in ps:
+                p.grad = torch.randn(p.shape, generator=gen)
+            opt.step()
+            tts.update_ema(ema, {str(i): p for i, p in enumerate(ps)}, 0.9)
+        runs.append((ps, ema, [opt.state[p]['mu'] for p in ps]))
+    assert len(list(tts.update_chunks(runs[1][0]))) == 4
+    (ps_a, ema_a, mu_a), (ps_b, ema_b, mu_b) = runs
+    for a, b in zip(ps_a + mu_a + list(ema_a.values()),
+                    ps_b + mu_b + list(ema_b.values())):
+        assert torch.equal(a, b)
+
+
 # -- the slice: two train steps of the tiny FiTv2 against make_train_step ----
 
 def _perturb_zero_init(params, seed=0, scale=0.05):
@@ -849,12 +875,60 @@ def test_trainer_refuses_what_is_not_ported(shard_dir, tmp_path):
     with pytest.raises(ValueError, match='inference-only'):
         Trainer(FiT(**TINY, gemm_precision='int8'),
                 TrainerConfig(device='cpu'))
-    model = FiT(**dict(TINY, use_checkpoint=True,
-                       remat_policy='dots_offload'))
-    x = torch.zeros(1, 16, 16)
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        model(x, torch.zeros(1), torch.zeros(1, dtype=torch.long),
-              torch.zeros(1, 2, 16, dtype=torch.long))
+
+
+def _hr_xl_small(tmp_path, data_path, policy):
+    """configs/fitv2_hr_xl.yaml (online decoupled NTK RoPE, remat per
+    block) at TINY's width and depth under remat `policy`, batch 4 of
+    16-token shards."""
+    import yaml
+    params = {k: TINY[k] for k in ('context_size', 'hidden_size', 'depth',
+                                   'num_heads', 'adaln_lora_dim',
+                                   'num_classes', 'max_cached_len')}
+    params.update(remat_policy=policy, ori_max_pe_len=4)
+    cfg = {'diffusion': {'network_config': {'params': params}},
+           'data': {'params': {'train': {
+               'data_path': data_path, 'target_len': 16,
+               'loader': {'batch_size': 4, 'num_workers': 1}}}},
+           'accelerate': {'lr_warmup_steps': 0, 'checkpointing_steps': 100}}
+    path = str(tmp_path / f'{policy}.yaml')
+    with open(path, 'w') as f:
+        yaml.safe_dump(cfg, f)
+    return [os.path.join(os.path.dirname(os.path.dirname(__file__)),
+                         'configs', 'fitv2_hr_xl.yaml'), path]
+
+
+def test_cli_train_dots_offload_equals_dots(shard_dir, tmp_path):
+    """cli/train on configs/fitv2_hr_xl.yaml cut small, two steps on the
+    CPU under remat 'dots_offload' and under its 'dots' (bf16 over fp32
+    masters): the checkpointed masters, EMA and moments equal bit for
+    bit, and the saved products went to the host store and back."""
+    from fitv2_tpu_torch.cli import train as cli_train
+    from fitv2_tpu_torch.models import remat
+    states = {}
+    for policy in ('dots', 'dots_offload'):
+        out = str(tmp_path / policy)
+        remat.reset_counts()
+        torch.manual_seed(0)
+        cli_train.main(['--cfgdir', *_hr_xl_small(tmp_path, shard_dir,
+                                                  policy),
+                        '--device', 'cpu', '--max-steps', '2',
+                        '--output-dir', out, '--no-resume'])
+        states[policy] = torch.load(
+            os.path.join(out, 'checkpoints', 'checkpoint-2',
+                         'train_state.pt'), map_location='cpu')
+        moved = dict(remat.counts)
+        assert (moved['d2h_copies'] > 0) == (policy == 'dots_offload')
+        assert moved['d2h_bytes'] == moved['h2d_bytes']
+    a, b = states['dots'], states['dots_offload']
+    assert a['step'] == b['step'] == 2
+    for key in ('params', 'ema_params'):
+        assert set(a[key]) == set(b[key])
+        for n in a[key]:
+            assert torch.equal(a[key][n], b[key][n]), (key, n)
+    for i, st in a['optimizer']['state'].items():
+        for k, v in st.items():
+            assert torch.equal(v, b['optimizer']['state'][i][k]), (i, k)
 
 
 def test_full_remat_gives_the_same_gradients():

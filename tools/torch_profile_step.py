@@ -6,7 +6,7 @@ Run from the repository root on a machine with the card:
 
     python3 tools/torch_profile_step.py
         [--path bf16|int8|fused|hr|fitv1|train|train_hr|lwd_xl|
-                lwd_multiscale|bfm_xl] [--remat dots|full]
+                lwd_multiscale|bfm_xl] [--remat dots|dots_offload|full]
         [--steps N] [--tree DIR]
 
 Builds chip_smoke.py's FiTv2-XL/2 (random weights from its seed, the
@@ -47,14 +47,16 @@ block remat under ``--remat``, default its 'dots') at its per-host batch of
 step; from one profiled window of ``--steps`` steps with no sync inside a
 step, the device busy ms, the window's wall and the idle share, as above;
 the host ms a step spent inside selective checkpointing's dispatch modes
-(the forward's and the recompute's; the host side of the ops they run
-included, and any wait for room in the launch queue) and the ops through
-them, over ``--steps`` more steps; then one profiled step whose device
-busy time is split by the phase that launched the work: the forward, the
-recompute (each block's forward rerun inside the backward, each bracketed
-by a synchronisation), the rest of the backward, the update (the masters,
-the norm and clip, AdamW, the EMA) and the rest (the draws, the master ->
-bf16 copy, the loss).
+(the forward's and the recompute's, torch's or dots_offload's; the host
+side of the ops they run included, and any wait for room in the launch
+queue) and the ops through them, over ``--steps`` more steps; then one
+profiled step whose device busy time is split by the phase that launched
+the work: the forward, the recompute (each block's forward rerun inside
+the backward, each bracketed by a synchronisation), the rest of the
+backward, the update (the masters, the norm and clip, AdamW, the EMA) and
+the rest (the draws, the master -> bf16 copy, the loss), the copies to
+and from the host apart (dots_offload's side streams: each direction's
+busy ms, and the ms of copies that no kernel overlaps).
 
 ``--path lwd_xl``, ``lwd_multiscale`` and ``bfm_xl`` profile chip_smoke.py's
 phase-13 LwD paths (the seeded models of configs/fitv2_xl_lwd.yaml and
@@ -135,14 +137,27 @@ def profile(fn, steps):
         raise RuntimeError('torch.profiler recorded no device activity')
     # intervals that overlap (another stream, or records that overlap)
     # count once: a sum of durations would count them twice
-    busy_us, end = 0.0, float('-inf')
-    for start, stop in sorted(spans):
-        if stop > end:
-            busy_us += stop - max(start, end)
-            end = stop
+    busy_us = sum(stop - start for start, stop in union(spans))
     return busy_us / 1e3 / steps, window / steps, launches / steps, {
         g: [ms / steps, n / steps] for g, (ms, n) in
         sorted(groups.items(), key=lambda kv: -kv[1][0])}
+
+
+def union(spans):
+    """The sorted, merged intervals of `spans`."""
+    merged = []
+    for start, stop in sorted(spans):
+        if merged and start <= merged[-1][1]:
+            merged[-1][1] = max(merged[-1][1], stop)
+        else:
+            merged.append([start, stop])
+    return merged
+
+
+def uncovered(start, stop, merged):
+    """The length of [start, stop) that no interval of `merged` covers."""
+    covered = sum(max(0.0, min(stop, b) - max(start, a)) for a, b in merged)
+    return stop - start - covered
 
 
 def wall_ms(fn, steps):
@@ -166,10 +181,12 @@ def sac_dispatch_ms(fn, steps):
     host side of the ops that the mode runs)."""
     import torch
     from torch.utils import checkpoint
+    from fitv2_tpu_torch.models import remat
     spent = [0.0, 0]
     patched = []
     for cls in (checkpoint._CachingTorchDispatchMode,
-                checkpoint._CachedTorchDispatchMode):
+                checkpoint._CachedTorchDispatchMode, remat._SaveToHost,
+                remat._LoadFromHost):
         orig = cls.__dict__['__torch_dispatch__']
 
         def timed(self, func, types, args=(), kwargs=None, _orig=orig):
@@ -343,14 +360,20 @@ def hr_train_profile(chip_smoke, steps, remat):
         for block in model.blocks:
             del block.forward
     ranges: dict[str, list] = {}
-    spans = []
+    spans, copies = [], {'d2h': [], 'h2d': []}
     for evt in prof.events():
         if evt.name.startswith('split:'):
             if evt.device_type == torch.autograd.DeviceType.CPU:
                 ranges.setdefault(evt.name[len('split:'):], []).append(
                     (evt.time_range.start, evt.time_range.end))
         elif evt.device_type == torch.autograd.DeviceType.CUDA:
-            spans.append((evt.time_range.start, evt.time_range.end))
+            span = (evt.time_range.start, evt.time_range.end)
+            if 'Memcpy DtoH' in evt.name:
+                copies['d2h'].append(span)
+            elif 'Memcpy HtoD' in evt.name:
+                copies['h2d'].append(span)
+            else:
+                spans.append(span)
     want_recompute = len(model.blocks) if remat else 0
     if (not spans or len(ranges.get('recompute', [])) != want_recompute
             or any(len(ranges.get(k, [])) != 1
@@ -376,6 +399,13 @@ def hr_train_profile(chip_smoke, steps, remat):
             ends[p] = stop
     split = {p: busy.get(p, 0.0) for p in ('forward', 'recompute',
                                            'backward', 'update', 'rest')}
+    kernels = union(spans)
+    copy_split = {}
+    for way, way_spans in copies.items():
+        merged = union(way_spans)
+        copy_split[f'{way}_busy_ms'] = sum(b - a for a, b in merged) / 1e3
+        copy_split[f'{way}_alone_ms'] = sum(
+            uncovered(a, b, kernels) for a, b in merged) / 1e3
     return {
         'batch': batch_size, 'tokens': n, 'remat': remat,
         'valid_tokens': float(batch_np['mask'].sum()),
@@ -389,6 +419,7 @@ def hr_train_profile(chip_smoke, steps, remat):
         'sac_dispatch_host_ms_per_step': sac_ms,
         'sac_dispatch_ops_per_step': sac_ops,
         'split_busy_ms': split, 'split_device_busy_ms': sum(split.values()),
+        'split_copies': copy_split,
         'split_profiled_wall_ms': window,
         'split_launches': len(spans),
     }
@@ -433,7 +464,8 @@ def main() -> None:
     ap.add_argument('--path', choices=('bf16', 'int8', 'fused', 'hr',
                                        'fitv1', 'train', 'train_hr')
                     + LWD_PATHS, default='bf16')
-    ap.add_argument('--remat', choices=('dots', 'full'), default='dots',
+    ap.add_argument('--remat', choices=('dots', 'dots_offload', 'full'),
+                    default='dots',
                     help='--path train_hr: the remat policy (configs/'
                          'fitv2_hr_xl.yaml: dots)')
     ap.add_argument('--steps', type=int, default=None,
